@@ -2,22 +2,36 @@
 
     python3 chip_smoke.py
 
-Builds the three CUDA kernels of the map path from
-spaln_tpu_torch/csrc/spliced_dp.cu, then:
+Builds the CUDA kernels of the map and align paths from
+spaln_tpu_torch/csrc/spliced_dp.cu (six C entries), then:
 
 1. kernels: one bucket at main-path shapes (B=8, L=128, W=1152, 2 slabs,
    planted introns) through each kernel and its plain PyTorch version on
-   the card; outputs must be exactly equal (integer DP: tolerance 0);
+   the card; outputs must be exactly equal (integer DP: tolerance 0).
+   K4 (links), K1's retrace of slab 1 from K4's snapshot (against the
+   full K1 planes of slab 1) and K3's strip mode included;
 2. map, small: `index` + `map -O0` and `-O4` of 4 planted genes through
    the CLI, once on the kernels and once with the DP forced through the
    plain versions on the card; the text must be byte-identical;
-3. map, full size (the main path): a synthetic genome with the shape of
+3. map, dictdisc size (plane path): a synthetic genome with the shape of
    Spaln's Dictyostelium seqdb sample (6 chromosomes, ~34 Mb, GC ~22%)
    with 200 planted genes on both strands, `index` then `map -T Dictyost
    -O0,4 --device cuda`; every bucket must run on the kernels and >= 95%
-   of queries must be reported at their planted locus and strand.
+   of queries must be reported at their planted locus and strand;
+4. map, tetrapod size (UDH path): 3 chromosomes (~48 Mb, GC ~41%) with
+   48 planted genes of 4-10 exons and kilobase introns, `map -T Tetrapod
+   -O0,4` with the size-driven choice and again with every multi-slab
+   bucket forced through UDH (-A 3): the texts must be byte-identical,
+   every UDH bucket must run on K4, K1 retrace and K3 strip with no plain
+   call, and >= 90% of queries must be at their planted locus and strand;
+5. align: one 2.4 Mb genomic segment with 8 planted cDNA genes (two with
+   an intron over 16,384 nt, one across the 2 Mb chunk seam), `align -T
+   Tetrapod -O0,4`; all 8 must be found at their locus and strand, and
+   the counters must show the chunking, the long-intron split and the UDH
+   window path.
 
-Prints the card, per-kernel times, map throughput and stage seconds, a
+Phases 3-5 also fail if per-query isolation skipped a query.  Prints
+the card, per-kernel times, map throughput and stage seconds, a
 {"kernels": [...]} line, and last {"ok": true, "device": {...}}.  Exits
 non-zero, with no result, on any failure or without a CUDA device.
 Everything is made from fixed numpy seeds; scratch files go to
@@ -43,9 +57,23 @@ SEED = 20261016
 
 REPLACES = {
     "spliced_slab_trace": "spaln_tpu/ops/dp_spliced_pallas.py:195",
+    "spliced_slab_retrace": "spaln_tpu/ops/dp_spliced_scan.py:592",
+    "spliced_slab_links": "spaln_tpu/ops/dp_spliced_pallas.py:195",
     "spliced_last_ends": "spaln_tpu/ops/dp_spliced_pallas.py:1122",
     "spliced_tb_walk": "spaln_tpu/ops/dp_spliced_scan.py:1127",
+    "spliced_tb_strip": "spaln_tpu/ops/dp_spliced_scan.py:1235",
 }
+
+# Least time the card could take: H100 SXM HBM3 at 3.35 TB/s; int32 at
+# 16.7 Top/s = the H100 SXM's 67 TFLOP/s of float32 (128 lanes per SM,
+# a fused multiply-add counted as 2) over 4: 64 int32 lanes per SM, one
+# operation each per clock.  The DP's integer operations per band cell,
+# counted from the kernels' source: the recurrence with neighbour reads
+# and the masked commit, its link selects (K4), an acceptor close over 4
+# candidates into 3 states, a donor push.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 16.7e12
+OPS_CELL, OPS_LINKS, OPS_ACC, OPS_DON, OPS_WALK = 30, 15, 70, 36, 30
 
 
 def log(msg: str) -> None:
@@ -91,6 +119,82 @@ def _max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     if a.shape != b.shape:
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def _bound(nbytes: float, nops: float) -> tuple[float, str]:
+    """(bound_ms, bound_by) from the bytes and int32 operations the work
+    needs on this run's inputs."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = nops / INT32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def _dp_cells(bp, slabs):
+    """(band cells, acceptor cells, donor cells) of the given slabs of a
+    bucket, counted from this run's operands: the cells that hold a
+    result (the kernels' ``active`` mask: inside the band and the matrix;
+    the other lane-steps write flag 255 and are never read), and those of
+    them at an acceptor or donor site, where the signal branches run."""
+    B, L, T, Np = bp.B, bp.L, bp.T, bp.Nmax + 1
+    dev = bp.device
+    lanes = torch.arange(L, device=dev)
+    tt = torch.arange(T, device=dev)[:, None, None]
+    lw = bp.lws_t.long()[None, :, None]
+    M = bp.Ms_t.long()[None, :, None]
+    N = bp.Ns_t.long()[None, :, None]
+    g = bp.gops.permute(0, 2, 1)                      # (B, Np, 6)
+    bi = torch.arange(B, device=dev)[None, :, None]
+    cells = acc = don = 0
+    for s in slabs:
+        m0 = s * L + 1
+        n = (m0 + 1 + tt) + lw - lanes
+        ro = tt - 2 * lanes
+        act = ((ro >= 0) & (ro < bp.W) & (n >= 1) & (n <= N)
+               & (m0 + lanes <= M))
+        cells += int(act.sum())
+        act &= n < N                       # sites are read below N only
+        gi = g[bi, n.clamp(0, Np - 1)]
+        acc += int((act & (gi[..., 2] != 0)).sum())
+        don += int((act & (gi[..., 1] != 0)).sum())
+    return cells, acc, don
+
+
+def _operand_bytes(bp) -> int:
+    B, A = bp.B, bp.qprof.shape[2]
+    Np = bp.Nmax + 1
+    return 4 * B * (bp.Mpad * A + Np * (6 + 16) + 3) + 4 * Np
+
+
+@contextlib.contextmanager
+def kernel_clock(K):
+    """Time every C entry's launches with CUDA events while the block
+    runs; yields a dict name -> device ms, filled on exit."""
+    events = {k: [] for k in K.KERNELS}
+    orig = K._launch
+
+    def timed(name, device, *args):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        orig(name, device, *args)
+        e1.record()
+        events[name].append((e0, e1))
+
+    out: dict = {}
+    K._launch = timed
+    try:
+        yield out
+    finally:
+        K._launch = orig
+        torch.cuda.synchronize()
+        for k, ev in events.items():
+            out[k] = sum(a.elapsed_time(b) for a, b in ev)
+
+
+def _reset_counts(K) -> None:
+    for k in K.KERNELS:
+        K.launches[k] = 0
+        K.plain_calls[k] = 0
 
 
 @contextlib.contextmanager
@@ -174,11 +278,100 @@ def check_kernels(K, dp, ctx):
         max_abs_err=err,
         ms=_timed(lambda: K.spliced_tb_walk(bp, flags, spj, e_k), 20),
         plain_ms=_timed(lambda: K.tb_walk_plain(bp, flags, spj, e_k), 2))
-    cells = bp.B * bp.S * bp.L * bp.W
+    # ---- K4, the links forward, against its plain version
+    k4 = K.spliced_slab_links(bp, prm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p4 = K.slab_links_plain(bp, prm)
+    torch.cuda.synchronize()
+    plain4 = (time.perf_counter() - t0) * 1e3
+    err = max(_max_abs_err(a, b) for a, b in zip(k4, p4))
+    if err:
+        raise AssertionError(f"spliced_slab_links differs from plain: {err}")
+    if _max_abs_err(k4[2], row) or _max_abs_err(k4[3], rc):
+        raise AssertionError("K4's row / right column differ from K1's")
+    out["spliced_slab_links"] = dict(
+        max_abs_err=err, plain_ms=plain4,
+        ms=_timed(lambda: K.spliced_slab_links(bp, prm), 5))
+    # ---- K1 retrace of slab 1 from K4's snapshot, against K1's planes
+    sel = torch.arange(bp.B, dtype=torch.int32, device="cuda")
+    snap = k4[1][1].contiguous()
+    r1 = K.spliced_slab_retrace(bp, prm, 1, 1, snap, sel)
+    err = max(_max_abs_err(r1[0], flags[1:2]), _max_abs_err(r1[1], spj[1:2]))
+    if err:
+        raise AssertionError(f"retrace of slab 1 differs from K1's planes: "
+                             f"{err}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p1r = K.slab_retrace_plain(bp, prm, 1, 1, snap, sel)
+    torch.cuda.synchronize()
+    plain1r = (time.perf_counter() - t0) * 1e3
+    err = max(_max_abs_err(a, b) for a, b in zip(r1, p1r))
+    if err:
+        raise AssertionError(f"spliced_slab_retrace differs from plain: "
+                             f"{err}")
+    out["spliced_slab_retrace"] = dict(
+        max_abs_err=err, plain_ms=plain1r,
+        ms=_timed(lambda: K.spliced_slab_retrace(bp, prm, 1, 1, snap, sel),
+                  5))
+    # ---- K3 strip mode: slab 1's strips from the end cells, against its
+    # plain version and against the full walk's ops below the boundary
+    L = bp.L
+    e_h = e_k.cpu().numpy()
+    starts = torch.tensor([[int(e[1]), int(e[2]), 0, L] if e[1] > L
+                           else [0, 0, 0, L] for e in e_h],
+                          dtype=torch.int32, device="cuda")
+    IT = dp.strip_walk_bound(L, bp.W)
+    rs_k = K.spliced_tb_strip(r1[0], r1[1], starts, bp.lws_t, 1, IT)
+    rs_p = K.tb_strip_plain(r1[0], r1[1], starts, bp.lws_t, 1, IT)
+    err = _max_abs_err(rs_k, rs_p)
+    if err:
+        raise AssertionError(f"spliced_tb_strip differs from plain: {err}")
+    strips = dp.ops_from_records(rs_k.cpu().numpy(), bp.B)
+    if strips != [[o for o in x if o[1] > L] for x in ops]:
+        raise AssertionError("strip walks differ from the full walk")
+    if sum(map(len, strips)) == 0:
+        raise AssertionError("no strip walked in slab 1")
+    out["spliced_tb_strip"] = dict(
+        max_abs_err=err,
+        ms=_timed(lambda: K.spliced_tb_strip(r1[0], r1[1], starts,
+                                             bp.lws_t, 1, IT), 20),
+        plain_ms=_timed(lambda: K.tb_strip_plain(r1[0], r1[1], starts,
+                                                 bp.lws_t, 1, IT), 2))
+    # ---- bounds from this run's inputs
+    B, S, T, A = bp.B, bp.S, bp.T, bp.qprof.shape[2]
+    Np = bp.Nmax + 1
+    cells, acc, don = _dp_cells(bp, range(S))
+    ops_dp = cells * OPS_CELL + acc * OPS_ACC + don * OPS_DON
+    rowrc = 4 * B * (Np + bp.Mpad + 1)
+    c1, a1, d1 = _dp_cells(bp, [1])
+    steps = int((r_k[:, :, 1] != 0).sum())
+    steps_s = int((rs_k[:, :, 1] != 0).sum())
+    work = {
+        "spliced_slab_trace": (_operand_bytes(bp) + 13 * cells + rowrc,
+                               ops_dp),
+        "spliced_slab_links": (_operand_bytes(bp) + rowrc
+                               + 4 * S * B * (4 * T + 2 * (T + 2)),
+                               ops_dp + cells * OPS_LINKS),
+        "spliced_slab_retrace": (4 * B * (L * A + (T + L) * 22
+                                          + 2 * (T + 2)) + 13 * c1,
+                                 c1 * OPS_CELL + a1 * OPS_ACC
+                                 + d1 * OPS_DON),
+        "spliced_last_ends": (rowrc + 24 * B, 2 * B * (Np + bp.Mpad)),
+        "spliced_tb_walk": (25 * steps, OPS_WALK * steps),
+        "spliced_tb_strip": (25 * steps_s, OPS_WALK * steps_s),
+    }
+    for name, (nb, no) in work.items():
+        out[name]["bound_ms"], out[name]["bound_by"] = _bound(nb, no)
+        out[name]["work"] = (nb, no)
     for name, r in out.items():
         log(f"kernel {name}: exact (max_abs_err {r['max_abs_err']}); "
-            f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms "
-            f"(B=8 L=128 W=1152 S=2, {cells} band cells)")
+            f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.7f} ms by {r['bound_by']} ({r['work'][0]} "
+            f"bytes, {r['work'][1]} int32 ops) "
+            f"(B=8 L=128 W=1152 S=2 T={T}: {cells} band cells of "
+            f"{S * T * B * L} lane-steps, {acc} acceptor and {don} donor "
+            f"cells; slab 1: {c1} band cells)")
     return out
 
 
@@ -291,9 +484,7 @@ def full_map(K, cli, metrics):
     cli.main(["index", str(d / "genome.fa"), "-p", str(d / "genome")])
     log(f"full map: index built in {time.perf_counter() - t0:.1f} s")
     metrics.reset()
-    for k in K.KERNELS:
-        K.launches[k] = 0
-        K.plain_calls[k] = 0
+    _reset_counts(K)
     out = OUT / "full.O0_4"
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -304,10 +495,11 @@ def full_map(K, cli, metrics):
     wall = time.perf_counter() - t0
     launches = dict(K.launches)
     buckets = metrics.counters.get("device_buckets", 0)
-    if buckets < 1 or any(launches[k] != buckets for k in K.KERNELS):
+    if buckets < 1 or any(launches[k] != buckets for k in K.PLANE_PATH):
         raise AssertionError(f"launches {launches} != buckets {buckets}")
     if any(K.plain_calls.values()):
         raise AssertionError(f"plain versions ran: {K.plain_calls}")
+    _check_no_skips(metrics, "full map")
     # first reported gene per query (GFF3 gene lines), exon table rows
     best, exons = {}, {}
     for line in out.read_text().splitlines():
@@ -345,6 +537,259 @@ def full_map(K, cli, metrics):
     return launches
 
 
+# --------------------------------------------------------------- phase 4
+TETRA_CHROMS = (20e6, 16e6, 12e6)
+
+
+def _gene_parts(rng, n_exons, intron_len, exon_gc=0.5, intron_gc=0.38):
+    """Exons of 60-300 nt joined by GT..AG introns of the given lengths;
+    returns (genomic string, exon spans in it, exon strings)."""
+    ex = [_seq(rng, int(rng.integers(60, 301)), exon_gc)
+          for _ in range(n_exons)]
+    parts, spans, at = [], [], 0
+    for j, e in enumerate(ex):
+        spans.append((at, at + len(e)))
+        parts.append(e)
+        at += len(e)
+        if j < n_exons - 1:
+            n = intron_len(j)
+            intr = "GTAAGT" + _seq(rng, n - 12, intron_gc) + "TTTCAG"
+            parts.append(intr)
+            at += len(intr)
+    return "".join(parts), spans, ex
+
+
+def _plant(rng, chrom, pos, g, spans, strand):
+    if strand == "-":
+        g = _revcomp(g)
+        spans = [(len(g) - b, len(g) - a) for a, b in spans][::-1]
+    chrom[pos:pos + len(g)] = np.array(list(g), dtype="S1")
+    return {(pos + a + 1, pos + b) for a, b in spans}
+
+
+def _write_fasta(path: Path, names, arrays) -> None:
+    with open(path, "wb") as fh:
+        for name, arr in zip(names, arrays):
+            fh.write(f">{name}\n".encode())
+            body = arr.tobytes()
+            for k in range(0, len(body), 80):
+                fh.write(body[k:k + 80] + b"\n")
+
+
+def make_tetrapod_corpus(d: Path):
+    """Synthetic tetrapod-shaped deployment: 3 chromosomes (~48 Mb, GC
+    ~41%), 48 genes planted on both strands with 4-10 exons of 60-300 nt
+    and GT..AG introns log-uniform over 0.5-20 kb (intron GC ~38%), cDNA
+    queries from the exons with 1% substitutions.  Returns the planted
+    truth per query."""
+    rng = np.random.default_rng(SEED + 3)
+    lens = [int(x) for x in TETRA_CHROMS]
+    chroms = [np.array(list("ACGT"), dtype="S1")[
+        rng.choice(4, n, p=[0.295, 0.205, 0.205, 0.295])] for n in lens]
+    truth, queries, taken = [], [], [[] for _ in lens]
+    p_chrom = np.asarray(lens, float) / sum(lens)
+    lo, hi = np.log(500), np.log(20_000)
+    while len(truth) < 48:
+        c = int(rng.choice(len(lens), p=p_chrom))
+        g, spans, ex = _gene_parts(
+            rng, int(rng.integers(4, 11)),
+            lambda j: int(np.exp(rng.uniform(lo, hi))))
+        pos = int(rng.integers(20_000, lens[c] - len(g) - 20_000))
+        if any(pos < b + 20_000 and a < pos + len(g) + 20_000
+               for a, b in taken[c]):
+            continue
+        taken[c].append((pos, pos + len(g)))
+        strand = "+" if len(truth) % 2 == 0 else "-"
+        exons = _plant(rng, chroms[c], pos, g, spans, strand)
+        qn = f"t{len(truth):02d}"
+        truth.append(dict(q=qn, chrom=f"chr{c + 1}", strand=strand,
+                          span=(pos, pos + len(g)), exons=exons))
+        queries.append(f">{qn}\n{_mutate(rng, ''.join(ex), 0.01)}\n")
+    _write_fasta(d / "genome.fa", [f"chr{c + 1}" for c in range(len(lens))],
+                 chroms)
+    (d / "cdna.fa").write_text("".join(queries))
+    return truth
+
+
+def _score_text(text: str, truth: list):
+    """(queries at their planted locus and strand, exon recall, exon
+    precision) of -O0,4 text: the first gene line per query, exon rows."""
+    best, exons = {}, {}
+    for line in text.splitlines():
+        f = line.split("\t")
+        if len(f) == 9 and f[2] == "gene":
+            q = f[8].split("Name=")[1]
+            best.setdefault(q, (f[0], f[6], int(f[3]), int(f[4])))
+        elif len(f) == 14:
+            exons.setdefault(f[0], set()).add((int(f[5]), int(f[6])))
+    hit = tp = n_true = n_rep = 0
+    missed = []
+    for t in truth:
+        b = best.get(t["q"])
+        if (b and b[0] == t["chrom"] and b[1] == t["strand"]
+                and b[2] <= t["span"][1] and b[3] > t["span"][0]):
+            hit += 1
+        else:
+            missed.append(t["q"])
+        rep = exons.get(t["q"], set())
+        tp += len(rep & t["exons"])
+        n_true += len(t["exons"])
+        n_rep += len(rep)
+    return hit, tp / max(n_true, 1), tp / max(n_rep, 1), missed
+
+
+def _check_no_skips(metrics, label: str) -> None:
+    """No query was skipped by per-query isolation (a skipped query has
+    no result, and the run would still exit 0)."""
+    n = metrics.counters.get("skipped_queries", 0)
+    if n:
+        raise AssertionError(f"{label}: {n} queries skipped")
+
+
+def _check_udh_kernels(K, metrics, label: str) -> None:
+    """Every UDH bucket ran on K4, K1 retrace and K3 strip; no plain
+    version ran; no query was skipped."""
+    _check_no_skips(metrics, label)
+    udh = metrics.counters.get("udh_buckets", 0)
+    if udh and not all(K.launches[k] >= udh for k in
+                       ("spliced_slab_links", "spliced_slab_retrace",
+                        "spliced_tb_strip")):
+        raise AssertionError(f"{label}: {udh} UDH buckets, launches "
+                             f"{dict(K.launches)}")
+    if any(K.plain_calls.values()):
+        raise AssertionError(f"{label}: plain versions ran: "
+                             f"{K.plain_calls}")
+
+
+def tetrapod_map(K, cli, metrics):
+    """The map's UDH path at full width: default size rule, then -A 3."""
+    d = WORK / "tetra"
+    d.mkdir(parents=True)
+    t0 = time.perf_counter()
+    truth = make_tetrapod_corpus(d)
+    log(f"tetrapod map: corpus built in {time.perf_counter() - t0:.1f} s "
+        f"({sum(TETRA_CHROMS) / 1e6:.1f} Mb, {len(truth)} planted genes)")
+    t0 = time.perf_counter()
+    cli.main(["index", str(d / "genome.fa"), "-p", str(d / "genome")])
+    log(f"tetrapod map: index built in {time.perf_counter() - t0:.1f} s")
+    texts, runs = {}, {}
+    for mode, extra in (("default", []), ("udh", ["-A", "3"])):
+        metrics.reset()
+        _reset_counts(K)
+        out = OUT / f"tetra.{mode}.O0_4"
+        with kernel_clock(K) as kms:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cli.main(["map", str(d / "cdna.fa"), "-d", str(d / "genome"),
+                      "-T", "Tetrapod", "-O", "0,4", "-o", str(out),
+                      "--device", "cuda", *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        _check_udh_kernels(K, metrics, f"tetrapod map ({mode})")
+        texts[mode] = out.read_text()
+        c = dict(metrics.counters)
+        runs[mode] = dict(launches=dict(K.launches), counters=c, ms=kms,
+                          wall=wall)
+        hit, rec, prec, missed = _score_text(texts[mode], truth)
+        secs = {k: round(v, 3) for k, v in metrics.timings.items()}
+        busy = sum(kms.values()) / 1e3
+        log(f"tetrapod map ({mode}): {len(truth)} queries in {wall:.2f} s "
+            f"= {len(truth) / wall:.3f} queries/s; udh_buckets "
+            f"{c.get('udh_buckets', 0)}, plane buckets "
+            f"{c.get('device_buckets', 0)}; stage seconds "
+            f"{json.dumps(secs, sort_keys=True)}")
+        log(f"tetrapod map ({mode}): kernel ms "
+            f"{json.dumps({k: round(v, 3) for k, v in kms.items()})}; "
+            f"kernels busy {busy:.3f} s = {100 * busy / wall:.2f}% of the "
+            f"wall; udh_dp_cells {c.get('udh_dp_cells', 0)}, "
+            f"udh_retrace_cells {c.get('udh_retrace_cells', 0)}, "
+            f"dp_cells {c.get('dp_cells', 0)}")
+        log(f"tetrapod map ({mode}): {hit}/{len(truth)} = "
+            f"{100 * hit / len(truth):.1f}% at the planted locus and "
+            f"strand; exon recall {rec:.4f}, precision {prec:.4f}; "
+            f"missed {missed}")
+        if hit < 0.9 * len(truth):
+            raise AssertionError(f"tetrapod map ({mode}): only {hit} of "
+                                 f"{len(truth)} at their planted locus")
+    if texts["default"] != texts["udh"]:
+        raise AssertionError("tetrapod map: default and -A 3 texts differ")
+    if runs["udh"]["counters"].get("udh_buckets", 0) < 1:
+        raise AssertionError("tetrapod map: -A 3 ran no UDH bucket")
+    log(f"tetrapod map: default and -A 3 -O0,4 texts byte-identical "
+        f"({len(texts['udh'])} bytes)")
+    return runs
+
+
+# --------------------------------------------------------------- phase 5
+SEGMENT_LEN = 2_400_000
+
+
+def make_segment_corpus(d: Path):
+    """One 2.4 Mb genomic segment (GC ~41%) with 8 planted cDNA genes of
+    4-8 exons: two with an intron over 16,384 nt (the long-intron split),
+    one across the 2 Mb chunk seam, the rest with 0.5-8 kb introns."""
+    rng = np.random.default_rng(SEED + 4)
+    seg = np.array(list("ACGT"), dtype="S1")[
+        rng.choice(4, SEGMENT_LEN, p=[0.295, 0.205, 0.205, 0.295])]
+    starts = [100_000, 400_000, 700_000, 1_000_000, 1_300_000, 1_600_000,
+              1_994_000, 2_200_000]
+    truth, queries = [], []
+    for k, pos in enumerate(starts):
+        big = {0: 18_000, 3: 25_000}.get(k)
+        n_ex = int(rng.integers(4, 9))
+        g, spans, ex = _gene_parts(
+            rng, n_ex,
+            lambda j: big if big and j == 1 else int(rng.integers(500,
+                                                                  8_000)))
+        strand = "+" if k % 2 == 0 else "-"
+        exons = _plant(rng, seg, pos, g, spans, strand)
+        qn = f"s{k}"
+        truth.append(dict(q=qn, chrom="seg", strand=strand,
+                          span=(pos, pos + len(g)), exons=exons))
+        queries.append(f">{qn}\n{_mutate(rng, ''.join(ex), 0.01)}\n")
+    seam = truth[6]["span"]
+    if not seam[0] < 2_000_000 < seam[1]:
+        raise AssertionError(f"seam gene at {seam} misses the chunk seam")
+    _write_fasta(d / "segment.fa", ["seg"], [seg])
+    (d / "cdna.fa").write_text("".join(queries))
+    return truth
+
+
+def segment_align(K, cli, metrics):
+    d = WORK / "segment"
+    d.mkdir(parents=True)
+    truth = make_segment_corpus(d)
+    metrics.reset()
+    _reset_counts(K)
+    out = OUT / "segment.O0_4"
+    with kernel_clock(K) as kms:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli.main(["align", str(d / "segment.fa"), str(d / "cdna.fa"), "-T",
+                  "Tetrapod", "-O", "0,4", "-o", str(out), "--device",
+                  "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _check_udh_kernels(K, metrics, "segment align")
+    c = dict(metrics.counters)
+    hit, rec, prec, missed = _score_text(out.read_text(), truth)
+    busy = sum(kms.values()) / 1e3
+    log(f"segment align: {len(truth)} queries x {SEGMENT_LEN} nt in "
+        f"{wall:.2f} s; counters {json.dumps(c, sort_keys=True)}")
+    log(f"segment align: kernel ms "
+        f"{json.dumps({k: round(v, 3) for k, v in kms.items()})}; kernels "
+        f"busy {busy:.3f} s = {100 * busy / wall:.2f}% of the wall")
+    log(f"segment align: {hit}/{len(truth)} at the planted locus and "
+        f"strand; exon recall {rec:.4f}, precision {prec:.4f}; missed "
+        f"{missed}")
+    if hit < len(truth):
+        raise AssertionError(f"segment align: {missed} not at their locus")
+    if (c.get("segment_chunks", 0) < 2 or c.get("align_long", 0) < 2
+            or c.get("udh_windows", 0) < 1):
+        raise AssertionError(f"segment align: a path was not taken: {c}")
+    return dict(launches=dict(K.launches), ms=kms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -376,15 +821,27 @@ def main() -> int:
             TableDir(find_table_dir(), species="Dictyost"), "cuda")
         results = check_kernels(K, dp, ctx)
         small_map(K, cli)
-        launches = full_map(K, cli, metrics)
+        plane_launches = full_map(K, cli, metrics)
+        tetra = tetrapod_map(K, cli, metrics)
+        segment_align(K, cli, metrics)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     src = str((ROOT / "spaln_tpu_torch/csrc/spliced_dp.cu")
               .relative_to(ROOT))
+    # launches: the plane-path entries from phase 3's map, the UDH ones
+    # from phase 4's forced-UDH map
+    launches = dict(plane_launches)
+    for k in ("spliced_slab_links", "spliced_slab_retrace",
+              "spliced_tb_strip"):
+        launches[k] = tetra["udh"]["launches"][k]
+    if not all(launches[k] > 0 for k in K.KERNELS):
+        raise AssertionError(f"a kernel of the path never ran: {launches}")
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=src, replaces=REPLACES[k],
              launches=launches[k], max_abs_err=results[k]["max_abs_err"],
-             ms=results[k]["ms"], plain_ms=results[k]["plain_ms"])
+             ms=results[k]["ms"], plain_ms=results[k]["plain_ms"],
+             bound_ms=results[k]["bound_ms"],
+             bound_by=results[k]["bound_by"], library_ms=None)
         for k in K.KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,15 @@
         genome store + block index for nucleotide queries (-K D)
   python -m spaln_tpu_torch.cli map <cdna.fa> -d <genome>    map cDNA
         queries onto the indexed genome (spaln -Q7), the DP on --device
+  python -m spaln_tpu_torch.cli align <genomic.fa> <cdna.fa> align cDNA
+        queries onto given genomic segments (no index), the DP on --device
 
-Same options and output as spaln_tpu.cli for this path, plus --device
+Same options and output as spaln_tpu.cli for these paths, plus --device
 {cuda,cpu} (default cuda; asking for cuda without a GPU is an error).
+-A 3 sends every multi-slab DP through the linear-space UDH path (1 and
+2 name the reference's two plane-path engines, one engine here: the
+size rule stays), -V sets the plane budget, -G the segment length of
+align.
 Output formats -O#[,#2,..]: 0 GFF3 gene, 1 alignment text, 2 GFF3
 match, 3 BED12, 4 exon table, 5 intron table, 6 recovered cDNA,
 7 translated protein, 10 SAM, 12 binary shard (.grd.npz), 15 unique
@@ -20,24 +26,34 @@ import sys
 
 import torch
 
-from .align.driver import AlignerContext
+from .align.driver import AlignerContext, align_cdna
+from .align.segment import G_SEGMENT, annotate_segment
 from .constants import DNA, PROTEIN
+from .ops.dp_spliced import PLANE_BYTES_BUDGET
 from .out.formats import (alignment_lines, bed_line, cdna_fasta,
                           exon_table_lines, gff3_lines, gff3_match_lines,
                           intron_lines, sam_line, translated_fasta)
 from .score.tables import TableDir, find_table_dir
-from .seq.fasta import iter_seqfile
+from .seq.fasta import iter_seqfile, parse_seq_arg
 from .seq.genome import GenomeStore
 
 UNPORTED = {
-    "align": "ROADMAP.md Queue 1, item 7 (the align subcommand with its "
-             "long-intron split and linear-space fallback)",
     "search": "ROADMAP.md Queue 1, item 9 (protein-DB search)",
     "sortgrcd": "ROADMAP.md Queue 1, item 10 (remaining subcommands)",
     "pair": "ROADMAP.md Queue 1, item 9 (protein-DB search)",
     "ild": "ROADMAP.md Queue 1, item 10 (tools)",
     "seq": "ROADMAP.md Queue 1, item 10 (tools)",
 }
+
+
+def _ktoi(s: str) -> int:
+    """Parse a size with k/M/G suffix (the reference's ktoi/ktol)."""
+    s = s.strip()
+    mult = 1
+    if s and s[-1] in "kKmMgG":
+        mult = {"k": 10**3, "m": 10**6, "g": 10**9}[s[-1].lower()]
+        s = s[:-1]
+    return int(float(s) * mult)
 
 
 def _lcl_local(args) -> bool:
@@ -124,6 +140,28 @@ def _device(name: str) -> torch.device:
     return torch.device(name)
 
 
+def _dna_options(args) -> dict:
+    """Options map and align share: the unported modes raise, -u/-v/-w
+    join the -y letters, and -A/-V become the context's engine
+    overrides.  Returns AlignerContext.create's keyword arguments."""
+    if _lcl_local(args):
+        raise NotImplementedError(
+            "local alignment (-L S) is not ported yet: ROADMAP.md Queue 1, "
+            "item 9 (local mode, K6)")
+    for flag, letter in (("u_pen", "u"), ("v_pen", "v"), ("w_band", "w")):
+        v = getattr(args, flag, None)
+        if v is not None:
+            args.y_args.append(f"{letter}{v}")
+    if any(a.startswith("J") for a in args.y_args):
+        raise NotImplementedError(
+            "the -yJ conserved intron-position bonus is not ported yet: "
+            "ROADMAP.md Queue 1, item 9 (cip mode, K6)")
+    return dict(y_args=["-y" + a for a in args.y_args],
+                force_udh=args.engine == 3,
+                plane_budget=(_ktoi(args.vmf_budget) if args.vmf_budget
+                              else PLANE_BYTES_BUDGET))
+
+
 def cmd_index(args) -> int:
     from .seed.blockindex import BlockIndex
     if set(args.kind.upper()) - {"D"}:
@@ -142,18 +180,7 @@ def cmd_index(args) -> int:
 def cmd_map(args) -> int:
     from .seed.blockindex import BlockIndex
     from .align.mapper import GenomeMapper
-    if _lcl_local(args):
-        raise NotImplementedError(
-            "local alignment (-L S) is not ported yet: ROADMAP.md Queue 1, "
-            "item 9 (local mode, K6)")
-    for flag, letter in (("u_pen", "u"), ("v_pen", "v"), ("w_band", "w")):
-        v = getattr(args, flag, None)
-        if v is not None:
-            args.y_args.append(f"{letter}{v}")
-    if any(a.startswith("J") for a in args.y_args):
-        raise NotImplementedError(
-            "the -yJ conserved intron-position bonus is not ported yet: "
-            "ROADMAP.md Queue 1, item 9 (cip mode, K6)")
+    opts = _dna_options(args)
     device = _device(args.device)
     store = GenomeStore.load(args.genome_db)
     tables = TableDir(find_table_dir(args.table_dir), species=args.species)
@@ -176,9 +203,7 @@ def cmd_map(args) -> int:
         if mapper is None:
             mapper = GenomeMapper(
                 store, BlockIndex.load(args.genome_db),
-                AlignerContext.create(
-                    tables, device,
-                    y_args=["-y" + a for a in args.y_args]))
+                AlignerContext.create(tables, device, **opts))
         # queries carrying SigII junction records (;B/;b) would get the
         # conserved-intron-position bonus SpbFact*num at those rows
         if mapper.ctx.cfg.aln2.spb > 0 and any("sig_pos" in r.meta
@@ -210,6 +235,53 @@ def cmd_map(args) -> int:
     return 0
 
 
+def cmd_align(args) -> int:
+    """cDNA queries x genomic segments (cmd_align, spaln_tpu/cli.py:
+    154-211): align_cdna per query, segments longer than -G (default
+    2 Mb) chunked by annotate_segment."""
+    from .utils.errors import guard_query
+    opts = _dna_options(args)
+    recs = list(iter_seqfile(args.queries))
+    for rec in recs:
+        if rec.molc == PROTEIN:
+            raise NotImplementedError(
+                f"protein query {rec.name!r}: protein alignment is not "
+                f"ported yet: ROADMAP.md Queue 1, item 8 (protein path)")
+    device = _device(args.device)
+    tables = TableDir(find_table_dir(args.table_dir), species=args.species)
+    gpath, g_from, g_to = parse_seq_arg(args.genomic)
+    genome_recs = list(iter_seqfile(gpath, molc=DNA))
+    if g_from is not None:
+        for grec in genome_recs:
+            grec.codes = grec.codes[g_from:g_to]
+    segment = _ktoi(args.g_segment) if args.g_segment else G_SEGMENT
+    out = open(args.output, "w") if args.output else sys.stdout
+    sink = OutputSink(_parse_fmts(args.fmt), out,
+                      grd_path=(args.output or "run").rsplit(".", 1)[0])
+    ctx = AlignerContext.create(tables, device, **opts) if recs else None
+    for grec in genome_recs:
+        if len(grec.codes) > segment:
+            # long genomic query: chunked annotation with seam stitching
+            gss = annotate_segment(
+                grec.codes, [r.codes for r in recs], ctx=ctx,
+                q_names=[r.name for r in recs], g_name=grec.name,
+                lanes=args.lanes, chunk=segment, strand=args.strand)
+            qlen = {r.name: len(r.codes) for r in recs}
+            for gs in gss:
+                sink.emit([gs], qlen.get(gs.q_name, 0))
+            continue
+        for rec in recs:
+            gs_list = guard_query(
+                align_cdna, rec.codes, grec.codes, ctx,
+                strand=args.strand, q_name=rec.name, g_name=grec.name,
+                lanes=args.lanes, name=rec.name, stage="align", fallback=[])
+            sink.emit(gs_list, len(rec.codes))
+    sink.close()
+    if args.output:
+        out.close()
+    return 0
+
+
 def _unported(args) -> int:
     raise NotImplementedError(
         f"the {args.cmd} subcommand is not ported yet: {UNPORTED[args.cmd]}")
@@ -220,6 +292,63 @@ def build_parser() -> argparse.ArgumentParser:
         prog="spaln_tpu_torch",
         description="spliced aligner, PyTorch/CUDA port")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    def common(sp):
+        sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                        help="where the DP runs: cuda = the CUDA kernels "
+                             "(default), cpu = their plain PyTorch "
+                             "versions")
+        sp.add_argument("-O", dest="fmt", default="0",
+                        help="output format(s), comma-separated: 0 gff3 "
+                             "gene, 1 alignment, 2 gff3 match, 3 bed, "
+                             "4 exon, 5 intron, 6 cDNA, 7 translated, "
+                             "10 sam, 12 binary, 15 unique introns")
+        sp.add_argument("-T", dest="species", default=None,
+                        help="species/clade parameter set")
+        sp.add_argument("-S", dest="strand", default="auto",
+                        choices=["auto", "+", "-"])
+        sp.add_argument("-t", dest="table_dir", default=None)
+        sp.add_argument("-o", dest="output", default=None)
+        sp.add_argument("--lanes", type=int, default=128)
+        sp.add_argument("--metrics", action="store_true",
+                        help="print per-stage counters/timings to stderr")
+        sp.add_argument("-y", dest="y_args", action="append", default=[],
+                        help="alignment parameter (readalprm letters), "
+                             "e.g. -y w150")
+        sp.add_argument("-L", dest="lcl", default=None,
+                        help="end-gap mode (spaln -L); default 15 "
+                             "(semi-global)")
+        sp.add_argument("-Q", dest="qlevel", type=int, default=7,
+                        help="algorithm level (spaln -Q); map always uses "
+                             "the block index")
+        sp.add_argument("-A", dest="engine", type=int, default=None,
+                        choices=[1, 2, 3],
+                        help="engine select (spaln -A role): 3 = every "
+                             "multi-slab DP on the linear-space UDH "
+                             "path; 1 and 2 = the plane path's engine "
+                             "(one here), the size rule stays")
+        sp.add_argument("-V", dest="vmf_budget", default=None,
+                        help="traceback-plane memory budget with k/M/G "
+                             "suffix (MaxVmfSpace role, vmf.h:26-28)")
+        sp.add_argument("-G", dest="g_segment", default=None,
+                        help="genomic segment length of align with k/M "
+                             "suffix (g_segment chunking; default 2M)")
+        sp.add_argument("-u", dest="u_pen", default=None,
+                        help="gap-extension penalty (alprm.u)")
+        sp.add_argument("-v", dest="v_pen", default=None,
+                        help="gap-open penalty (alprm.v)")
+        sp.add_argument("-w", dest="w_band", default=None,
+                        help="band width sh (alprm.sh)")
+        sp.add_argument("-p", dest="p_flags", action="append", default=[],
+                        help="output subflags; q (quiet) accepted for "
+                             "reference command-line compatibility")
+
+    sp = sub.add_parser("align", help="align cDNA queries to genomic "
+                                      "segments")
+    sp.add_argument("genomic")
+    sp.add_argument("queries")
+    common(sp)
+    sp.set_defaults(func=cmd_align)
 
     sp = sub.add_parser("index", help="format genome + build block index")
     sp.add_argument("genome")
@@ -236,41 +365,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="report up to M loci per query (paralogs)")
     sp.add_argument("--batch", type=int, default=32,
                     help="queries per device launch")
-    sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                    help="where the DP runs: cuda = the CUDA kernels "
-                         "(default), cpu = their plain PyTorch versions")
-    sp.add_argument("-O", dest="fmt", default="0",
-                    help="output format(s), comma-separated: 0 gff3 "
-                         "gene, 1 alignment, 2 gff3 match, 3 bed, "
-                         "4 exon, 5 intron, 6 cDNA, 7 translated, "
-                         "10 sam, 12 binary, 15 unique introns")
-    sp.add_argument("-T", dest="species", default=None,
-                    help="species/clade parameter set")
-    sp.add_argument("-S", dest="strand", default="auto",
-                    choices=["auto", "+", "-"])
-    sp.add_argument("-t", dest="table_dir", default=None)
-    sp.add_argument("-o", dest="output", default=None)
-    sp.add_argument("--lanes", type=int, default=128)
-    sp.add_argument("--metrics", action="store_true",
-                    help="print per-stage counters/timings to stderr")
-    sp.add_argument("-y", dest="y_args", action="append", default=[],
-                    help="alignment parameter (readalprm letters), "
-                         "e.g. -y w150")
-    sp.add_argument("-L", dest="lcl", default=None,
-                    help="end-gap mode (spaln -L); default 15 "
-                         "(semi-global)")
-    sp.add_argument("-Q", dest="qlevel", type=int, default=7,
-                    help="algorithm level (spaln -Q); map always uses "
-                         "the block index")
-    sp.add_argument("-u", dest="u_pen", default=None,
-                    help="gap-extension penalty (alprm.u)")
-    sp.add_argument("-v", dest="v_pen", default=None,
-                    help="gap-open penalty (alprm.v)")
-    sp.add_argument("-w", dest="w_band", default=None,
-                    help="band width sh (alprm.sh)")
-    sp.add_argument("-p", dest="p_flags", action="append", default=[],
-                    help="output subflags; q (quiet) accepted for "
-                         "reference command-line compatibility")
+    common(sp)
     sp.set_defaults(func=cmd_map)
 
     for name in UNPORTED:

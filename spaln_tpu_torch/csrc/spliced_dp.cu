@@ -1,5 +1,6 @@
 // Banded spliced DP of one geometry bucket on an NVIDIA Hopper GPU:
-// three kernels behind a plain C interface (bound with ctypes by
+// three kernels (the slab kernel a template in two modes) behind six
+// entries of a plain C interface (bound with ctypes by
 // spaln_tpu_torch/ops/dp_spliced_cuda.py, which also holds their plain
 // PyTorch versions).
 //
@@ -12,22 +13,35 @@
 // (spaln_tpu/ops/dp_spliced_scan.py:223-577), which fixes every
 // tie-break, so results equal the reference's exactly.
 //
-// Layouts (row-major):
+// Layouts (row-major; nb = CTAs of the launch, one per problem):
 //   qprof (B, Mpad, A)        substitution row of query residue m-1
 //   gops  (B, 6, Np)          per genome boundary n: residue g[n-1],
 //                             donor mask, acceptor mask, sig5, acceptor
 //                             base, donor dinucleotide code
 //   joint (B, Np, 16)         acceptor term by donor dinucleotide
 //   ipen  (Np,)               exact intron penalty by length
-//   flags (S, T, B, L) u8     winner state | E open << 3 | F open << 4,
-//                             255 = inactive cell
-//   spj   (S, 3, T, B, L)     1 + donor boundary of an intron closed into
+//   sel   (nb,)               operand problem of each CTA (retrace), or
+//                             null for CTA b = problem b
+//   flags (S', T, nb, L) u8   winner state | E open << 3 | F open << 4,
+//                             255 = inactive cell (S' slabs run)
+//   spj   (S', 3, T, nb, L)   1 + donor boundary of an intron closed into
 //                             state k at the cell, 0 = none
 //   row   (B, Np)             H(M, n);  rc (B, Mpad + 1) H(m, N)
-//   bnd_h, bnd_f (B, Np + 1)  scratch: H/F of the previous slab's last row
+//   bnd_h, bnd_f (nb, Np + 1) scratch: H/F of the previous slab's last
+//                             row, by genome boundary n
+//   links (S, 4, B, T)        UDH link streams per slab and step t:
+//                             boundary H and F (lane L-1), final row
+//                             (lane clamp(M - m0, 0, L-1)), right column
+//                             (the lane with n == N, else 0)
+//   snaps (S, 2, B, T + 2)    the slab's entry boundary H and F over the
+//                             columns lane 0 reads, n = m0 + lw + k
+//   snap  (2, nb, T + 2)      a retrace's entry boundary (from snaps)
 //   ends  (B, 3)              (score, end m, end n)
-//   recs  (IT, B, 4)          walk records (kind, m, n, jnc - 1), zeroed
+//   starts (nb, 4)            strip walk start (m, n, state, m_stop)
+//   recs  (IT, nb, 4)         walk records (kind, m, n, jnc - 1), zeroed
 //                             by the caller
+// A link is column * 8 + state: where the cell's path crossed the
+// previous slab boundary (state 0 = H, 2 = F).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -37,6 +51,7 @@ constexpr int NEV = -939524096;          // NEVSEL (cmn.h:79, int build)
 constexpr int NCAND = 4;                 // donor candidates per lane
 constexpr int NSPJ = 3;                  // states H, E, F
 constexpr int N_GOPS = 6;
+constexpr int NLINK = 4;                 // link streams per slab
 enum { G_RES, G_ISDON, G_ISACC, G_SIG5, G_ACCB, G_DINC5 };
 __device__ __constant__ int PSP_BIT[3] = {4, 1, 8};   // aln.h:56-59
 
@@ -46,83 +61,146 @@ __device__ __forceinline__ int colinit(int k, int b_exgl, int gop,
   return (b_exgl || k == 0) ? 0 : gop + gep * k;
 }
 
-// ---------------------------------------------------------------- K1
-// spliced_slab_trace replaces spaln_tpu's Pallas kernel
-// _make_kernel(emit_trace=True) (ops/dp_spliced_pallas.py:195-694, via
-// _slab_call 698-835) and the per-slab loop of _fused_call (1103-1121).
+// ---------------------------------------------------------- K1 and K4
+// slab_kernel<false> (spliced_slab_trace, K1) replaces spaln_tpu's
+// Pallas kernel _make_kernel(emit_trace=True)
+// (ops/dp_spliced_pallas.py:195-694, via _slab_call 698-835) and the
+// per-slab loop of _fused_call (1103-1121).  Its retrace mode
+// (spliced_slab_retrace) runs slabs s0 .. s0+nslab-1 of selected problems
+// from an entry boundary the caller restores from K4's snapshot: the
+// per-slab _scan_slab(emit_trace=True) re-run of
+// ops/dp_spliced_udh.py:_retrace (157-201).
+//
+// slab_kernel<true> (spliced_slab_links, K4) replaces
+// _make_kernel(emit_links=True) (reached through
+// run_spliced_batch_pallas(score_only=True, emit_links=True),
+// dp_spliced_pallas.py:991): the same recurrence with no planes, every
+// value carrying the link of its path's last slab-boundary crossing
+// through the same selects (dp_spliced_scan.py:347-366, 372-551).
 //
 // Design: one CTA of L threads per problem; thread i owns query row
 // m = m0 + i of the current slab and at wavefront step t computes cell
-// n = m0 + lw + 1 + t - i.  The CTA walks all slabs in order inside one
+// n = m0 + lw + 1 + t - i.  The CTA walks its slabs in order inside one
 // launch.  Up and diagonal values come from thread i-1 through a ring in
-// shared memory (H of steps t-1 and t-2, F of step t-1) with one
-// __syncthreads() per step; thread 0 reads the previous slab's last row,
-// which thread L-1 of this CTA wrote to global scratch (it overwrites a
-// column only after thread 0 has read it: L >= 3).  The intron penalty
-// is gathered straight from the dense table in global memory.
+// shared memory (H of steps t-1 and t-2, F of step t-1, and their links)
+// with one __syncthreads() per step; thread 0 reads the previous slab's
+// last row, which thread L-1 of this CTA wrote to global scratch (it
+// overwrites a column only after thread 0 has read it: L >= 3).  So the
+// columns thread 0 reads in a slab are exactly the scratch at the slab's
+// start, stale band-edge columns included: K4 copies that window out,
+// and a retrace restores it.  The intron penalty is gathered straight
+// from the dense table in global memory.
 //
 // Bound on the H100: the serial dependence through the wavefront.  One
 // CTA per problem gives B CTAs (<= 32 on the main path) on 132 SMs, and
 // every step pays a barrier plus the latency of a few dependent global
-// loads (genome operands, penalty, joint term); the plane writes,
-// 13 B per cell, are the only large traffic.  The simple design keeps
-// the per-cell state (H, E, psp, 4 sorted donor candidates) in
-// registers and reads operands in per-step coalesced runs; it does not
-// try to hide the latency yet.
+// loads (genome operands, penalty, joint term).  K1's plane writes,
+// 13 B per cell, are its only large traffic; K4 writes 16 B per step and
+// problem instead, so it is bound by the steps alone.  The simple design
+// keeps the per-cell state (H, E, psp, 4 sorted donor candidates and
+// their links) in registers and reads operands in per-step coalesced
+// runs; it does not try to hide the latency yet.
+template <bool LINKS>
 __global__ void __launch_bounds__(256)
-slab_trace_kernel(const int* __restrict__ qprof,
-                  const int* __restrict__ gops,
-                  const int* __restrict__ joint,
-                  const int* __restrict__ ipen,
-                  const int* __restrict__ Ms, const int* __restrict__ Ns,
-                  const int* __restrict__ lws, int B, int A, int S, int W,
-                  int T, int Mpad, int Np, int gop, int gep, int llmt,
-                  int a_exgl, int a_exgr, int b_exgl, int* bnd_h,
-                  int* bnd_f, unsigned char* __restrict__ flags,
-                  int* __restrict__ spj, int* __restrict__ row,
-                  int* __restrict__ rc) {
+slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
+            const int* __restrict__ joint, const int* __restrict__ ipen,
+            const int* __restrict__ Ms, const int* __restrict__ Ns,
+            const int* __restrict__ lws, const int* __restrict__ sel,
+            int A, int s0, int nslab, int W, int T, int Mpad, int Np,
+            int gop, int gep, int llmt, int a_exgl, int a_exgr,
+            int b_exgl, const int* __restrict__ snap, int* bnd_h,
+            int* bnd_f, unsigned char* __restrict__ flags,
+            int* __restrict__ spj, int* __restrict__ row,
+            int* __restrict__ rc, int* __restrict__ links,
+            int* __restrict__ snaps) {
   extern __shared__ int smem[];
   const int L = blockDim.x;
   const int i = threadIdx.x;
-  const int b = blockIdx.x;
+  const int ob = blockIdx.x;                 // output slot
+  const int nb = gridDim.x;
+  const int b = sel ? sel[ob] : ob;          // operand problem
   int* Hs = smem;              // 3 x L: H by step mod 3
   int* Fs = smem + 3 * L;      // 2 x L: F by step mod 2
-  int* qp = smem + 5 * L;      // L x A: this slab's substitution rows
+  int* HLs = smem + 5 * L;     // 3 x L: H links (K4)
+  int* FLs = smem + 8 * L;     // 2 x L: F links (K4)
+  int* qp = smem + (LINKS ? 10 : 5) * L;     // L x A substitution rows
   const int M = Ms[b], N = Ns[b], lw = lws[b];
-  const int nb = Np + 1;
-  int* bh = bnd_h + (size_t)b * nb;
-  int* bf = bnd_f + (size_t)b * nb;
-  int* rowb = row + (size_t)b * Np;
-  int* rcb = rc + (size_t)b * (Mpad + 1);
+  const int nbnd = Np + 1;
+  const int TS = T + 2;
+  int* bh = bnd_h + (size_t)ob * nbnd;
+  int* bf = bnd_f + (size_t)ob * nbnd;
+  int* rowb = row ? row + (size_t)b * Np : nullptr;
+  int* rcb = rc ? rc + (size_t)b * (Mpad + 1) : nullptr;
   const int* gb = gops + (size_t)b * N_GOPS * Np;
   const int* jb = joint + (size_t)b * Np * 16;
-  for (int n = i; n < nb; n += L) {          // row 0
-    bh[n] = n <= N ? (a_exgl ? 0 : colinit(n, 0, gop, gep)) : NEV;
-    bf[n] = NEV;
+  if (snap) {                 // entry boundary of slab s0 (retrace)
+    const int w0 = s0 * L + 1 + lw;
+    const int* sh = snap + (size_t)ob * TS;
+    const int* sf = snap + ((size_t)nb + ob) * TS;
+    for (int n = i; n < nbnd; n += L) {
+      const int k = n - w0;
+      const bool in = k >= 0 && k < TS;
+      bh[n] = in ? sh[k] : NEV;
+      bf[n] = in ? sf[k] : NEV;
+    }
+  } else {                    // row 0
+    for (int n = i; n < nbnd; n += L) {
+      bh[n] = n <= N ? (a_exgl ? 0 : colinit(n, 0, gop, gep)) : NEV;
+      bf[n] = NEV;
+    }
   }
-  for (int n = i; n < Np; n += L) rowb[n] = NEV;
-  for (int m = i; m <= Mpad; m += L) rcb[m] = NEV;
+  if (rowb)
+    for (int n = i; n < Np; n += L) rowb[n] = NEV;
+  if (rcb)
+    for (int m = i; m <= Mpad; m += L) rcb[m] = NEV;
   const int e_const =
       lw >= -M ? colinit(lw < 0 ? -lw : 0, b_exgl, gop, gep) : NEV;
-  const size_t plane = (size_t)T * B * L;    // one (T, B, L) plane
-  const size_t tstride = (size_t)B * L;
+  const size_t plane = (size_t)T * nb * L;   // one (T, nb, L) plane
+  const size_t tstride = (size_t)nb * L;
 
-  for (int s = 0; s < S; ++s) {
+  for (int ls = 0; ls < nslab; ++ls) {
+    const int s = s0 + ls;
     const int m0 = s * L + 1;
     const int m = m0 + i;
+    __syncthreads();          // the previous slab's boundary is written
+    if (LINKS) {
+      int* osh = snaps + ((size_t)(s * 2) * nb + ob) * TS;
+      int* osf = snaps + ((size_t)(s * 2 + 1) * nb + ob) * TS;
+      for (int k = i; k < TS; k += L) {
+        const int n = m0 + lw + k;
+        const bool in = n >= 0 && n < nbnd;
+        osh[k] = in ? bh[n] : NEV;
+        osf[k] = in ? bf[n] : NEV;
+      }
+    }
     const int* qsrc = qprof + ((size_t)b * Mpad + (m0 - 1)) * A;
     for (int k = i; k < L * A; k += L) qp[k] = qsrc[k];
     Hs[i] = NEV; Hs[L + i] = NEV; Hs[2 * L + i] = NEV;
     Fs[i] = NEV; Fs[L + i] = NEV;
     int h1 = NEV, e1 = NEV, psp = 0;
-    int cv[NCAND], cj[NCAND], cd[NCAND], c5[NCAND];
+    int cv[NCAND], cj[NCAND], cd[NCAND], c5[NCAND], lkc[NCAND];
 #pragma unroll
-    for (int l = 0; l < NCAND; ++l) { cv[l] = NEV; cj[l] = cd[l] = c5[l] = 0; }
+    for (int l = 0; l < NCAND; ++l) {
+      cv[l] = NEV; cj[l] = cd[l] = c5[l] = 0; lkc[l] = 0;
+    }
+    int lkh1 = 0, lke = 0;
+    if (LINKS) {
+      HLs[i] = 0; HLs[L + i] = 0; HLs[2 * L + i] = 0;
+      FLs[i] = 0; FLs[L + i] = 0;
+    }
     const int col_m = colinit(m, b_exgl, gop, gep);
     const int col_m1 = colinit(m - 1, b_exgl, gop, gep);
     const bool internal = !a_exgr || m < M;
-    unsigned char* fl_out = flags + (size_t)s * plane + (size_t)b * L + i;
-    int* spj_out = spj + (size_t)s * NSPJ * plane + (size_t)b * L + i;
+    const int li = min(max(M - m0, 0), L - 1);     // lane of row M
+    unsigned char* fl_out = nullptr;
+    int* spj_out = nullptr;
+    int* lk_out = nullptr;
+    if (LINKS) {
+      lk_out = links + ((size_t)(s * NLINK) * nb + ob) * T;
+    } else {
+      fl_out = flags + (size_t)ls * plane + (size_t)ob * L + i;
+      spj_out = spj + (size_t)ls * NSPJ * plane + (size_t)ob * L + i;
+    }
     __syncthreads();
 
     for (int t = 0; t < T; ++t) {
@@ -142,23 +220,37 @@ slab_trace_kernel(const int* __restrict__ qprof,
           dinc5 = gb[G_DINC5 * Np + n];
         }
       }
-      // ---- neighbour values
+      // ---- neighbour values and their links; lane 0's sources sit on
+      // the boundary row, so their link is their own (column, state)
       int up_h, up_f, diag_h;
+      int lk_up_h = 0, lk_up_f = 0, lk_diag = 0;
       if (i == 0) {
         const bool ok_up = n >= 0 && n <= N + 1;
         up_h = ok_up ? bh[n] : NEV;
         up_f = ok_up ? bf[n] : NEV;
         diag_h = (n >= 1 && n - 1 <= N) ? bh[n - 1] : NEV;
+        if (LINKS) {
+          lk_up_h = n * 8;
+          lk_up_f = n * 8 + 2;
+          lk_diag = (n - 1) * 8;
+        }
       } else {
         up_h = Hs[((t + 2) % 3) * L + i - 1];       // lane i-1, step t-1
         up_f = Fs[((t + 1) & 1) * L + i - 1];
         diag_h = Hs[((t + 1) % 3) * L + i - 1];     // lane i-1, step t-2
+        if (LINKS) {
+          lk_up_h = HLs[((t + 2) % 3) * L + i - 1];
+          lk_up_f = FLs[((t + 1) & 1) * L + i - 1];
+          lk_diag = HLs[((t + 1) % 3) * L + i - 1];
+        }
       }
-      // column 0 and the band's left edge (dp_spliced_ref init)
+      // column 0 and the band's left edge (dp_spliced_ref init); they
+      // descend from column 0, link 0
       const bool edge = first && n != 1;
       const int left_h =
           n == 1 ? col_m : (edge ? e_const : (first ? NEV : h1));
-      if (n == 1) diag_h = col_m1;
+      const int lk_left = (n == 1 || first) ? 0 : lkh1;
+      if (n == 1) { diag_h = col_m1; lk_diag = 0; }
       if (r_off >= W - 1) { up_h = NEV; up_f = NEV; }
       if (first) {
         e1 = NEV;
@@ -170,19 +262,22 @@ slab_trace_kernel(const int* __restrict__ qprof,
       }
       // ---- recurrence (order = fwd2s1.cc:276-431)
       const int h_val = diag_h + score;
-      int mx = h_val, mk = 0;
+      int mx = h_val, mk = 0, lk_mx = lk_diag;
       int xo = up_h + gop;
       const bool f_open = xo >= up_f;
       const int f_val = (f_open ? xo : up_f) + gep;
-      if (f_val > mx) { mx = f_val; mk = 2; }
+      const int lkf = f_open ? lk_up_h : lk_up_f;
+      if (f_val > mx) { mx = f_val; mk = 2; lk_mx = lkf; }
       const int prev_psp = psp;
       xo = left_h + gop;
       const bool e_open = xo >= e1;
       const int e_val = (e_open ? xo : e1) + gep;
+      if (e_open) lke = lk_left;
       psp = e_open ? (prev_psp != 0 ? 1 : 0) : (prev_psp & 1);
-      if (e_val >= mx) { mx = e_val; mk = 1; }
+      if (e_val >= mx) { mx = e_val; mk = 1; lk_mx = lke; }
       int sv[NSPJ] = {h_val, e_val, f_val};
       int jn[NSPJ] = {0, 0, 0};
+      int lks[NSPJ] = {lk_diag, lke, lkf};
       // ---- acceptor close (fwd2s1.cc:333-354)
       if (isacc && internal) {
         int xc[NCAND];
@@ -205,17 +300,18 @@ slab_trace_kernel(const int* __restrict__ qprof,
             if (cd[l] == k && ok[l] && xc[l] >= cur) {
               cur = xc[l];
               jnc = cj[l] + 1;
+              lks[k] = lkc[l];
             }
           sv[k] = cur;
           jn[k] = jnc;
           if (jnc > 0) {
             psp |= PSP_BIT[k];
-            if (cur >= mx) { mx = cur; mk = k; }
+            if (cur >= mx) { mx = cur; mk = k; lk_mx = lks[k]; }
           }
         }
       }
       // ---- donor push (fwd2s1.cc:380-406): sorted insertion, ties keep
-      // existing entries first
+      // existing entries first; the candidate carries its value's link
       if (isdon && internal) {
 #pragma unroll
         for (int k = 0; k < NSPJ; ++k) {
@@ -234,10 +330,14 @@ slab_trace_kernel(const int* __restrict__ qprof,
               if (l > pos) {
                 cv[l] = cv[l - 1]; cj[l] = cj[l - 1];
                 cd[l] = cd[l - 1]; c5[l] = c5[l - 1];
+                lkc[l] = lkc[l - 1];
               }
 #pragma unroll
             for (int l = 0; l < NCAND; ++l)
-              if (l == pos) { cv[l] = x; cj[l] = n; cd[l] = k; c5[l] = dinc5; }
+              if (l == pos) {
+                cv[l] = x; cj[l] = n; cd[l] = k; c5[l] = dinc5;
+                lkc[l] = lks[k];
+              }
           }
         }
       }
@@ -248,15 +348,32 @@ slab_trace_kernel(const int* __restrict__ qprof,
       h1 = h_out;
       Hs[(t % 3) * L + i] = h_out;
       Fs[(t & 1) * L + i] = f_out;
-      fl_out[(size_t)t * tstride] =
-          active ? (unsigned char)(mk | (e_open << 3) | (f_open << 4))
-                 : (unsigned char)255;
+      if (LINKS) {
+        const int lkh = active ? lk_mx : 0;
+        lkh1 = lkh;
+        lke = lks[1];
+        HLs[(t % 3) * L + i] = lkh;
+        FLs[(t & 1) * L + i] = lks[2];
+        if (i == L - 1) {
+          lk_out[t] = lkh;                          // boundary H
+          lk_out[(size_t)nb * T + t] = lks[2];      // boundary F
+        }
+        if (i == li) lk_out[(size_t)2 * nb * T + t] = lkh;   // final row
+        const int rcl = m0 + lw + 1 + t - N;        // lane with n == N
+        if (i == rcl) lk_out[(size_t)3 * nb * T + t] = lkh;
+        else if (i == 0 && (rcl < 0 || rcl >= L))
+          lk_out[(size_t)3 * nb * T + t] = 0;
+      } else {
+        fl_out[(size_t)t * tstride] =
+            active ? (unsigned char)(mk | (e_open << 3) | (f_open << 4))
+                   : (unsigned char)255;
 #pragma unroll
-      for (int k = 0; k < NSPJ; ++k)
-        spj_out[(size_t)k * plane + (size_t)t * tstride] = jn[k];
+        for (int k = 0; k < NSPJ; ++k)
+          spj_out[(size_t)k * plane + (size_t)t * tstride] = jn[k];
+      }
       if (active) {
-        if (m == M) rowb[n] = h_out;
-        if (n == N) rcb[m] = h_out;
+        if (rowb && m == M) rowb[n] = h_out;
+        if (rcb && n == N) rcb[m] = h_out;
         if (i == L - 1) { bh[n] = h_out; bf[n] = f_out; }
       }
       __syncthreads();
@@ -350,9 +467,13 @@ __global__ void last_ends_kernel(const int* __restrict__ row,
 // spliced_tb_walk replaces the device traceback walker _tb_walker
 // (ops/dp_spliced_scan.py:1127-1196): from each problem's end cell it
 // follows the winner state, gap-open bits and junction planes back to
-// row or column 0, one (kind, m, n, jnc - 1) record per step.
+// row or column 0, one (kind, m, n, jnc - 1) record per step.  Its strip
+// mode (spliced_tb_strip) replaces the host strip walks of the UDH
+// retrace (traceback_spliced_strip, dp_spliced_scan.py:1235): it starts
+// at a given (m, n, state) on planes of slabs s0.. and stops once
+// m <= m_stop, a slab boundary, where the full walk stops at m < 1.
 //
-// Design: one thread per problem, a loop of at most IT steps that stops
+// Design: one thread per walk, a loop of at most IT steps that stops
 // when the walk ends (the caller zeroes the records).  Bound on the
 // H100: the chain of dependent global loads, two or three per step, one
 // step per path cell; B threads leave the card nearly idle, but a walk
@@ -360,19 +481,26 @@ __global__ void last_ends_kernel(const int* __restrict__ row,
 __global__ void tb_walk_kernel(const unsigned char* __restrict__ flags,
                                const int* __restrict__ spj,
                                const int* __restrict__ ends,
+                               const int* __restrict__ starts,
                                const int* __restrict__ lws, int B, int L,
-                               int S, int T, int IT,
+                               int S, int T, int IT, int s0,
                                int* __restrict__ recs) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const int lw = lws[b];
-  int m = ends[b * 3 + 1], n = ends[b * 3 + 2], st = 0;
-  bool done = m < 1 || n < 1;
+  int m, n, st, m_stop;
+  if (starts) {
+    m = starts[b * 4]; n = starts[b * 4 + 1];
+    st = starts[b * 4 + 2]; m_stop = starts[b * 4 + 3];
+  } else {
+    m = ends[b * 3 + 1]; n = ends[b * 3 + 2]; st = 0; m_stop = 0;
+  }
+  bool done = m <= m_stop || n < 1;
   const size_t plane = (size_t)T * B * L;
   for (int it = 0; it < IT && !done; ++it) {
-    const int s = (m - 1) / L, i = (m - 1) % L;     // m >= 1 here
+    const int s = (m - 1) / L - s0, i = (m - 1) % L;   // m >= 1 here
     const int t = (n - m) - lw - 1 + 2 * i;
-    const bool ok = t >= 0 && t < T && s < S;
+    const bool ok = t >= 0 && t < T && s >= 0 && s < S;
     int fl = 255, jnc_s = 0, jnc_0 = 0;
     if (ok) {
       const size_t cell = ((size_t)t * B + b) * L + i;
@@ -403,10 +531,14 @@ __global__ void tb_walk_kernel(const unsigned char* __restrict__ flags,
     const int n2 = i_close ? jncv - 1 : ((diag || horiz) ? n - 1 : n);
     const int m2 = (diag || vert) ? m - 1 : m;
     st = trans ? hd : (((horiz || vert) && opened) ? 0 : st);
-    done = dead || !ok || m2 < 1 || n2 < 1;
+    done = dead || !ok || m2 <= m_stop || n2 < 1;
     m = m2;
     n = n2;
   }
+}
+
+int slab_smem(int L, int A, bool links) {
+  return ((links ? 10 : 5) * L + L * A) * 4;
 }
 
 }  // namespace
@@ -421,12 +553,43 @@ int spliced_slab_trace(const int* qprof, const int* gops, const int* joint,
                        const int* ipen, const int* Ms, const int* Ns,
                        const int* lws, int B, int L, int A, int S, int W,
                        int T, int Mpad, int Np, int gop, int gep, int llmt,
-                       int a_exgl, int a_exgr, int b_exgl, int smem_bytes,
-                       int* bnd_h, int* bnd_f, unsigned char* flags,
-                       int* spj, int* row, int* rc, cudaStream_t stream) {
-  slab_trace_kernel<<<B, L, smem_bytes, stream>>>(
-      qprof, gops, joint, ipen, Ms, Ns, lws, B, A, S, W, T, Mpad, Np, gop,
-      gep, llmt, a_exgl, a_exgr, b_exgl, bnd_h, bnd_f, flags, spj, row, rc);
+                       int a_exgl, int a_exgr, int b_exgl, int* bnd_h,
+                       int* bnd_f, unsigned char* flags, int* spj, int* row,
+                       int* rc, cudaStream_t stream) {
+  slab_kernel<false><<<B, L, slab_smem(L, A, false), stream>>>(
+      qprof, gops, joint, ipen, Ms, Ns, lws, nullptr, A, 0, S, W, T, Mpad,
+      Np, gop, gep, llmt, a_exgl, a_exgr, b_exgl, nullptr, bnd_h, bnd_f,
+      flags, spj, row, rc, nullptr, nullptr);
+  return (int)cudaGetLastError();
+}
+
+int spliced_slab_retrace(const int* qprof, const int* gops,
+                         const int* joint, const int* ipen, const int* Ms,
+                         const int* Ns, const int* lws, const int* sel,
+                         int nb, int L, int A, int s0, int nslab, int W,
+                         int T, int Mpad, int Np, int gop, int gep,
+                         int llmt, int a_exgl, int a_exgr, int b_exgl,
+                         const int* snap, int* bnd_h, int* bnd_f,
+                         unsigned char* flags, int* spj,
+                         cudaStream_t stream) {
+  slab_kernel<false><<<nb, L, slab_smem(L, A, false), stream>>>(
+      qprof, gops, joint, ipen, Ms, Ns, lws, sel, A, s0, nslab, W, T, Mpad,
+      Np, gop, gep, llmt, a_exgl, a_exgr, b_exgl, snap, bnd_h, bnd_f,
+      flags, spj, nullptr, nullptr, nullptr, nullptr);
+  return (int)cudaGetLastError();
+}
+
+int spliced_slab_links(const int* qprof, const int* gops, const int* joint,
+                       const int* ipen, const int* Ms, const int* Ns,
+                       const int* lws, int B, int L, int A, int S, int W,
+                       int T, int Mpad, int Np, int gop, int gep, int llmt,
+                       int a_exgl, int a_exgr, int b_exgl, int* bnd_h,
+                       int* bnd_f, int* row, int* rc, int* links,
+                       int* snaps, cudaStream_t stream) {
+  slab_kernel<true><<<B, L, slab_smem(L, A, true), stream>>>(
+      qprof, gops, joint, ipen, Ms, Ns, lws, nullptr, A, 0, S, W, T, Mpad,
+      Np, gop, gep, llmt, a_exgl, a_exgr, b_exgl, nullptr, bnd_h, bnd_f,
+      nullptr, nullptr, row, rc, links, snaps);
   return (int)cudaGetLastError();
 }
 
@@ -446,7 +609,17 @@ int spliced_tb_walk(const unsigned char* flags, const int* spj,
                     int T, int IT, int* recs, cudaStream_t stream) {
   const int threads = 32;
   tb_walk_kernel<<<(B + threads - 1) / threads, threads, 0, stream>>>(
-      flags, spj, ends, lws, B, L, S, T, IT, recs);
+      flags, spj, ends, nullptr, lws, B, L, S, T, IT, 0, recs);
+  return (int)cudaGetLastError();
+}
+
+int spliced_tb_strip(const unsigned char* flags, const int* spj,
+                     const int* starts, const int* lws, int B, int L,
+                     int S, int T, int IT, int s0, int* recs,
+                     cudaStream_t stream) {
+  const int threads = 32;
+  tb_walk_kernel<<<(B + threads - 1) / threads, threads, 0, stream>>>(
+      flags, spj, nullptr, starts, lws, B, L, S, T, IT, s0, recs);
   return (int)cudaGetLastError();
 }
 

@@ -8,8 +8,9 @@ owning query row m = m0 + i and computing at step t the cell
 
     n_i(t) = m0 + lw + 1 + t - i
 
-of its band) runs in ops/dp_spliced_cuda.py: three CUDA kernels and
-their plain PyTorch versions.  Every problem keeps its own band
+of its band) runs in ops/dp_spliced_cuda.py: the CUDA kernels and
+their plain PyTorch versions; ops/dp_spliced_udh.py holds the
+linear-space path over them.  Every problem keeps its own band
 placement ``lw`` and its own genome-indexed operand rows, so nothing is
 reversed, shifted or padded for a compiler: operands are indexed by the
 genome boundary position n directly.
@@ -31,6 +32,25 @@ from ..score.splice import SpliceSignals
 NCAND = 4
 NEV = int(np.int32(NEVSEL))
 NSPJ = 3                          # junction planes: H, E, F (single affine)
+
+# UDH link streams per slab, (S, NLINK, B, T) int32, indexed by the
+# wavefront step t at which the slab emits the value (K4,
+# spliced_slab_links): the boundary row's H and F (lane L-1, column
+# m0 + lw + 2 - L + t), the final row (lane M - m0, column
+# m0 + lw + 1 - (M - m0) + t) and the right column (the lane at
+# column N, row 2*m0 + lw + 1 - N + t).  Beside them each slab keeps a
+# snapshot (S, 2, B, T+2) of its entry boundary H and F over the
+# columns lane 0 reads, n = m0 + lw + k.  O(S * T) int32 per problem,
+# against the planes' 13 * S * T * L bytes.
+LK_BND_H, LK_BND_F, LK_ROW, LK_RC = range(4)
+NLINK = 4
+
+# device-memory budget for the traceback planes of one launch (13 B per
+# cell: a flag byte and three int32 junction planes): 16 GiB of the
+# H100's 80 GB, leaving room for operands, links, walk records and the
+# caching allocator
+PLANE_BYTES_BUDGET = 16 << 30
+PLANE_BYTES_PER_CELL = 13
 
 # rows of BatchProblem.gops, each indexed by the genome boundary n
 G_RES, G_ISDON, G_ISACC, G_SIG5, G_ACCB, G_DINC5 = range(6)
@@ -93,6 +113,25 @@ def walk_bound(S: int, L: int, W: int) -> int:
     64 over its geometry-bucketed Mpad (dp_spliced_pallas.py:1201), so a
     walk that would run out of steps ends at the same step in both."""
     return 2 * (_geom_bucket(S) * L + W) + 64
+
+
+def strip_walk_bound(L: int, W: int) -> int:
+    """Step bound of a walk inside one slab: it moves at most L rows and
+    L + W columns (the band), and every state change is followed by a
+    move."""
+    return 2 * (2 * L + W) + 64
+
+
+def pack_link(col, state):
+    """Hirschberg crossing record (dp_spliced_scan.py:212-220): column *
+    8 + state of the cell where a path crossed the previous slab
+    boundary (state 0 = H, 2 = F)."""
+    return col * 8 + state
+
+
+def unpack_link(lk):
+    """(column, state) of a link (floor division: a column may be -1)."""
+    return lk // 8, lk % 8
 
 
 def build_operands(a: np.ndarray, b: np.ndarray, prm: DpParams,

@@ -1,0 +1,179 @@
+"""Multi-intermediate unidirectional Hirschberg (UDH) traceback: the
+linear-space path of the banded spliced DP.
+
+The counterpart of spaln_tpu/ops/dp_spliced_udh.py (the reference's
+lspS_ng multi-intermediate path, fwd2s1.cc:1801-1897).  The slab
+boundaries (every L-th query row) are the intermediate rows:
+
+1. links pass (K4, spliced_slab_links): every value carries the packed
+   link (column * 8 + state) of the cell where its path crossed the
+   previous slab boundary; each slab emits four link streams of T ints
+   and a snapshot of its entry boundary (layout in ops/dp_spliced.py).
+   No planes: O(S * T) int32 per problem.  K2e takes the ends from its
+   row / right column as on the plane path.
+2. backwalk (backwalk): from each end cell's link, one batched gather per
+   slab boundary over the device link streams gives every problem's
+   crossing at each boundary row its path spans; one small tensor is
+   copied to the host.
+3. retrace (_retrace): each slab a path spans is re-run with planes (K1
+   in retrace mode, from the snapshot, so bit-identical to the links
+   pass) for the problems that need it only, in sub-batches within the
+   plane budget, and walked from the crossing above down to the one
+   below (K3 in strip mode); the strips, stitched, are the op stream of
+   the full-plane walk.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .dp_spliced import (BatchProblem, LK_BND_F, LK_BND_H, LK_RC, LK_ROW,
+                         NLINK, PLANE_BYTES_BUDGET, PLANE_BYTES_PER_CELL,
+                         ops_from_records, strip_walk_bound, unpack_link)
+from .dp_spliced_cuda import (spliced_last_ends, spliced_slab_links,
+                              spliced_slab_retrace, spliced_tb_strip)
+from .params import DpParams
+from ..utils.metrics import metrics
+
+I32 = torch.int32
+
+
+def run_spliced_batch_udh(bp: BatchProblem, prm: DpParams,
+                          plane_budget: int = PLANE_BYTES_BUDGET):
+    """Full UDH pipeline over a prepared batch on its device.
+
+    Returns (scores (B,) int64, ends (B, 2) int64, ops_list): the same
+    op streams as the full-plane walk (run_bucket), with one slab of
+    planes for at most ``plane_budget`` bytes live at a time."""
+    _, snaps, se, cr = links_pass(bp, prm)
+    ops_list = _retrace(bp, prm, snaps, cr, se, plane_budget)
+    return se[:, 0].astype(np.int64), se[:, 1:].astype(np.int64), ops_list
+
+
+def links_pass(bp: BatchProblem, prm: DpParams):
+    """K4, K2e and the backwalk.  Returns (links, snaps) on the device
+    and, on the host, the ends (B, 3) = (score, m, n) and the crossings
+    (B, S, 2) of backwalk."""
+    links, snaps, row, rc = spliced_slab_links(bp, prm)
+    se = spliced_last_ends(bp, prm, row, rc)
+    cr = backwalk(bp, links, se)
+    B = bp.B
+    host = torch.cat([se.reshape(-1), cr.reshape(-1)]).cpu().numpy()
+    se_h = host[:3 * B].reshape(B, 3)
+    cr_h = host[3 * B:].reshape(B, bp.S, 2)
+    if cr_h[:, 0, 1].any():
+        bad = np.flatnonzero(cr_h[:, 0, 1]).tolist()
+        raise RuntimeError(f"UDH backwalk of problems {bad}: a crossing "
+                           f"link points outside its slab's streams")
+    return links, snaps, se_h, cr_h
+
+
+def end_link_t(bp: BatchProblem, ends: torch.Tensor):
+    """_end_link_t (spaln_tpu dp_spliced_udh.py:88) for every problem:
+    (slab, stream, step t, ok) of the end cell's link emission; ok is
+    False where the end is not a computed DP cell (stale band-edge or
+    column-0 corner candidates), which traces to an empty op stream."""
+    L = bp.L
+    bm, bn = ends[:, 1].long(), ends[:, 2].long()
+    sf = torch.div(bm - 1, L, rounding_mode="floor").clamp(min=0)
+    lane = bm - (sf * L + 1)
+    t = (bn - bm) - bp.lws_t.long() - 1 + 2 * lane
+    stream = torch.where(bm == bp.Ms_t.long(), LK_ROW, LK_RC)
+    ok = ((t >= 0) & (t < bp.T) & (lane >= 0) & (lane < L)
+          & (t - 2 * lane >= 0) & (t - 2 * lane < bp.W))
+    return sf, stream, t, ok
+
+
+def backwalk(bp: BatchProblem, links: torch.Tensor,
+             ends: torch.Tensor) -> torch.Tensor:
+    """_backwalk (spaln_tpu dp_spliced_udh.py:114) as S batched gathers
+    over the device link streams.  Returns (B, S, 2) int32: [b, s] =
+    (column, state) where problem b's path crosses boundary row s*L, for
+    1 <= s <= its end slab (0, 0 where the path rides column 0 below);
+    [b, 0] = (has crossings, bad link)."""
+    B, L, S, T = bp.B, bp.L, bp.S, bp.T
+    dev = links.device
+    flat = links.reshape(-1)
+    barr = torch.arange(B, device=dev)
+
+    def at(s, k, t):
+        return flat[((s * NLINK + k) * B + barr) * T + t.clamp(0, T - 1)]
+
+    sf, stream, t, ok = end_link_t(bp, ends)
+    valid = (ends[:, 1] >= 1) & (ends[:, 2] >= 1)
+    has = valid & (ok | (sf == 0))
+    cur = at(sf.clamp(0, S - 1), stream, t).long()
+    lw = bp.lws_t.long()
+    cr = torch.zeros((B, S, 2), dtype=I32, device=dev)
+    alive = has & (sf > 0)
+    bad = torch.zeros(B, dtype=torch.bool, device=dev)
+    for s in range(S - 1, 0, -1):
+        here = alive & (sf >= s)
+        col, st = unpack_link(cur)
+        cr[:, s, 0] = torch.where(here, col, 0).to(I32)
+        cr[:, s, 1] = torch.where(here, st, 0).to(I32)
+        # the crossing cell sits on slab s-1's last row; its own link is
+        # in slab s-1's boundary stream for its state
+        cont = here & (col != 0) & (s > 1)
+        tb = col - ((s - 1) * L + 1 + lw + 2 - L)
+        bad |= cont & ((tb < 0) | (tb >= T) | ((st != 0) & (st != 2)))
+        nxt = at(s - 1, torch.where(st == 2, LK_BND_F, LK_BND_H), tb)
+        cur = torch.where(cont, nxt.long(), cur)
+        alive = alive & ~(here & ~cont)
+    cr[:, 0, 0] = has.to(I32)
+    cr[:, 0, 1] = bad.to(I32)
+    return cr
+
+
+def _retrace(bp: BatchProblem, prm: DpParams, snaps: torch.Tensor,
+             cr: np.ndarray, se: np.ndarray, plane_budget: int) -> list:
+    """_retrace (spaln_tpu dp_spliced_udh.py:151): re-run each slab with
+    planes for the problems whose path spans it, in sub-batches of one
+    slab's planes within ``plane_budget``, and walk every problem's
+    strip through it on the device; stitch the strips."""
+    B, L, W, T = bp.B, bp.L, bp.W, bp.T
+    dev = bp.device
+    IT = strip_walk_bound(L, W)
+    mb = max(1, plane_budget // (T * L * PLANE_BYTES_PER_CELL))
+    strips: list[dict[int, list]] = [dict() for _ in range(B)]
+    for s in range(bp.S):
+        want = []
+        for i in range(B):
+            if not cr[i, 0, 0]:
+                continue
+            bm, bn = int(se[i, 1]), int(se[i, 2])
+            sf = (bm - 1) // L
+            if s > sf:
+                continue
+            if s == sf:
+                want.append((i, (bm, bn, 0, s * L)))
+                continue
+            col, st = int(cr[i, s + 1, 0]), int(cr[i, s + 1, 1])
+            if col == 0:
+                strips[i][s] = []
+                continue
+            want.append((i, ((s + 1) * L, col, st, s * L)))
+        for c0 in range(0, len(want), mb):
+            part = want[c0:c0 + mb]
+            sel = torch.tensor([i for i, _ in part], dtype=I32, device=dev)
+            idx = sel.long()
+            snap = snaps[s].index_select(1, idx).contiguous()
+            fl, spj = spliced_slab_retrace(bp, prm, s, 1, snap, sel)
+            metrics.bump("udh_retrace_cells", len(part) * L * W)
+            starts = torch.tensor([st for _, st in part], dtype=I32,
+                                  device=dev)
+            recs = spliced_tb_strip(fl, spj, starts,
+                                    bp.lws_t.index_select(0, idx), s, IT)
+            del fl, spj
+            # walks are short next to the bound: copy back their steps
+            n_steps = int((recs[:, :, 1] != 0).sum(0).max())
+            host = recs[:n_steps].cpu().numpy()
+            for (i, _), ops in zip(part, ops_from_records(host, len(part))):
+                strips[i][s] = ops
+    out = []
+    for i in range(B):
+        allops: list = []
+        for s in sorted(strips[i]):
+            allops.extend(strips[i][s])
+        out.append(allops)
+    return out

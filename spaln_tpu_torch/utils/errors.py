@@ -7,8 +7,9 @@ record must not abort a whole device batch, let alone the run.
 
 `guard_query` wraps one query's host-side work; on failure it logs the
 query name + exception to stderr, bumps the `skipped_queries` metric and
-returns the fallback value.  KeyboardInterrupt/SystemExit always
-propagate.
+returns the fallback value.  KeyboardInterrupt/SystemExit and
+DeviceDPError always propagate: a failed DP build, launch or traceback
+stops the run instead of quietly losing a result.
 """
 from __future__ import annotations
 
@@ -20,6 +21,11 @@ from .metrics import metrics
 
 class QuerySkipped(Exception):
     """Raised internally to mark a query as deliberately skipped."""
+
+
+class DeviceDPError(RuntimeError):
+    """The banded DP (kernel build or launch, its plain version, the UDH
+    backwalk) failed for a query; never isolated per query."""
 
 
 def report_skip(name: str, exc: BaseException, stage: str = "") -> None:
@@ -36,7 +42,7 @@ def guard_query(fn, *args, name: str = "", stage: str = "",
     """Run fn(*args, **kwargs); on error report + return fallback."""
     try:
         return fn(*args, **kwargs)
-    except (KeyboardInterrupt, SystemExit):
+    except (KeyboardInterrupt, SystemExit, DeviceDPError):
         raise
     except BaseException as exc:             # noqa: BLE001 — isolation point
         report_skip(name, exc, stage)

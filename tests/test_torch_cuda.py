@@ -87,7 +87,7 @@ def test_run_bucket_on_card_equals_cpu(cuda, setup):
         qs, gs, prm, sigs=ss, L=32, device="cpu"), prm)
     np.testing.assert_array_equal(on_card[0], on_cpu[0])
     assert on_card[1:] == on_cpu[1:]
-    assert all(K.launches[k] == before[k] + 1 for k in K.KERNELS)
+    assert all(K.launches[k] == before[k] + 1 for k in K.PLANE_PATH)
 
 
 def test_wrapper_checks_raise(cuda, setup):
@@ -102,3 +102,54 @@ def test_wrapper_checks_raise(cuda, setup):
     with pytest.raises(ValueError, match="contiguous"):
         K.spliced_tb_walk(bp, fl, spj, torch.zeros(
             3, bp.B, dtype=torch.int32, device=cuda).t())
+
+
+@pytest.mark.parametrize("B,M,ilen,L,lws", GEOMS)
+def test_links_retrace_strip_equal_plain_on_card(cuda, setup, B, M, ilen,
+                                                 L, lws):
+    """K4 against its plain version; K1's retrace of every slab from
+    K4's snapshot against the full K1 planes of that slab, byte for
+    byte; K3's strip mode against its plain version."""
+    cfg, prm, tables = setup
+    qs, gs, ss = _problems(cfg, tables, B, M, ilen, seed=B + L)
+    band = dict(lws=lws, W=256) if lws else {}
+    bp = dp.prepare_spliced_batch(qs, gs, prm, sigs=ss, L=L, device=cuda,
+                                  **band)
+    k4 = K.spliced_slab_links(bp, prm)
+    for a, b in zip(k4, K.slab_links_plain(bp, prm)):
+        assert torch.equal(a, b)
+    flags, spj, _, _ = K.spliced_slab_trace(bp, prm)
+    links, snaps = k4[0], k4[1]
+    sel = torch.arange(B - 1, -1, -1, dtype=torch.int32, device=cuda)
+    for s in range(bp.S):
+        snap = snaps[s].index_select(1, sel.long()).contiguous()
+        fl, sp = K.spliced_slab_retrace(bp, prm, s, 1, snap, sel)
+        assert torch.equal(fl[0], flags[s][:, sel.long()])
+        assert torch.equal(sp[0], spj[s][:, :, sel.long()])
+        pl = K.slab_retrace_plain(bp, prm, s, 1, snap, sel)
+        assert torch.equal(fl, pl[0]) and torch.equal(sp, pl[1])
+        top = min((s + 1) * L, max(bp.Ms))
+        starts = torch.tensor([[top, top + bp.lws[b] + bp.W // 2, 0, s * L]
+                               for b in sel.tolist()], dtype=torch.int32,
+                              device=cuda)
+        lws_sel = bp.lws_t.index_select(0, sel.long())
+        IT = dp.strip_walk_bound(L, bp.W)
+        r = K.spliced_tb_strip(fl, sp, starts, lws_sel, s, IT)
+        assert torch.equal(r, K.tb_strip_plain(fl, sp, starts, lws_sel, s,
+                                               IT))
+    torch.cuda.synchronize()
+
+
+def test_udh_on_card_equals_cpu(cuda, setup):
+    from spaln_tpu_torch.ops.dp_spliced_udh import run_spliced_batch_udh
+    cfg, prm, tables = setup
+    qs, gs, ss = _problems(cfg, tables, 5, 150, 200, seed=9)
+    before = dict(K.launches)
+    on_card = run_spliced_batch_udh(dp.prepare_spliced_batch(
+        qs, gs, prm, sigs=ss, L=32, device=cuda), prm)
+    on_cpu = run_spliced_batch_udh(dp.prepare_spliced_batch(
+        qs, gs, prm, sigs=ss, L=32, device="cpu"), prm)
+    np.testing.assert_array_equal(on_card[0], on_cpu[0])
+    np.testing.assert_array_equal(on_card[1], on_cpu[1])
+    assert on_card[2] == on_cpu[2]
+    assert all(K.launches[k] > before[k] for k in K.UDH_PATH)

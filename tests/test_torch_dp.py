@@ -222,7 +222,7 @@ def test_wrappers_count_plain_calls_and_no_launch_on_cpu(ctx, runs):
     before = dict(K.plain_calls)
     launched = dict(K.launches)
     K.run_bucket(tb, pprm)
-    for k in K.KERNELS:
+    for k in K.PLANE_PATH:
         assert K.plain_calls[k] == before[k] + 1
     assert K.launches == launched
 

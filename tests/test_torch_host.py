@@ -1,5 +1,5 @@
 """Host state of the port against spaln_tpu: the intron-length penalty
-(its float32 log tail over all 1<<20 cached lengths), DpParams carried
+(its float32 log tail at every length below 1<<22), DpParams carried
 over by params_from_reference, and splice signals.  Integer results,
 tolerance 0."""
 import dataclasses
@@ -98,3 +98,27 @@ def test_splice_signals_identical(table_dir, species):
         else:
             np.testing.assert_array_equal(a, b, err_msg=f.name)
     assert ref.is_donor.sum() > 0 and ref.is_accpt.sum() > 0
+
+
+def test_log_f32_equals_xla_log():
+    """The port's host float32 log (XLA's CPU Cephes polynomial, step for
+    step) equals jax.numpy.log at every integer argument 1..1<<22."""
+    import jax.numpy as jnp
+    from spaln_tpu_torch.score.intron import log_f32
+    x = np.arange(1, (1 << 22) + 1, dtype=np.float32)
+    np.testing.assert_array_equal(log_f32(x), np.asarray(jnp.log(x)))
+
+
+@pytest.mark.parametrize("species", [None, "Dictyost", "Tetrapod"])
+def test_intron_tail_identical_below_1_shl_22(table_dir, species):
+    """The intron tail equals spaln_tpu's at every length below 1<<22
+    (windows of align segments and UDH buckets reach 2 Mb; lengths
+    1,905,743, 3,130,757 and 3,811,011 used to differ)."""
+    ref = _ref_ctx(table_dir, species).ipen
+    port = _port_ctx(table_dir, species).ipen
+    n = 1 << 22
+    t_ref = ref._tail(n)[:n - ref.rlmt]
+    t_port = port._tail(n)[:n - port.rlmt]
+    np.testing.assert_array_equal(t_port, t_ref)
+    lens = np.array([1_905_743, 3_130_757, 3_811_011])
+    np.testing.assert_array_equal(port.penalty(lens), ref.penalty(lens))

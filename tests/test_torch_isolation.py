@@ -13,6 +13,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = ["spaln_tpu_torch", "spaln_tpu_torch.cli",
            "spaln_tpu_torch.align.mapper", "spaln_tpu_torch.align.driver",
            "spaln_tpu_torch.ops.dp_spliced_cuda",
+           "spaln_tpu_torch.ops.dp_spliced_udh",
+           "spaln_tpu_torch.align.segment",
            "spaln_tpu_torch.ops.convert", "spaln_tpu_torch.utils.metrics",
            "spaln_tpu_torch.utils.errors", "spaln_tpu_torch.native"]
 

@@ -98,7 +98,8 @@ def test_map_device_cuda_without_gpu_is_an_error(planted, monkeypatch):
     (["index", "{d}/genome.fa", "-K", "P"], "item 8"),
     (["map", "{d}/prot.fa", "-d", "{d}/port", "--device", "cpu"],
      "item 8"),
-    (["align", "{d}/genome.fa", "{d}/cdna.fa"], "item 7"),
+    (["align", "{d}/genome.fa", "{d}/prot.fa", "--device", "cpu"],
+     "item 8"),
     (["search", "{d}/cdna.fa", "-a", "db.fa"], "item 9"),
 ])
 def test_unported_paths_name_their_roadmap_item(planted, argv, item):
