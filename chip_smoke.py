@@ -2,14 +2,18 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels of the map and align paths from
-spaln_tpu_torch/csrc/spliced_dp.cu (six C entries), then:
+Builds the CUDA kernels of the map, align, search and pair paths from
+spaln_tpu_torch/csrc/spliced_dp.cu (ten C entries), then:
 
 1. kernels: one bucket at main-path shapes (B=8, L=128, W=1152, 2 slabs,
    planted introns) through each kernel and its plain PyTorch version on
    the card; outputs must be exactly equal (integer DP: tolerance 0).
    K4 (links), K1's retrace of slab 1 from K4's snapshot (against the
-   full K1 planes of slab 1) and K3's strip mode included;
+   full K1 planes of slab 1) and K3's strip mode included.  Then the
+   same for the double-affine (-yl3) entries on a bucket of the same
+   shape whose genes also carry 30-90 nt in-exon indels (some path cell
+   must be won by a long-gap state), and the score-only entry on that
+   bucket and on a protein batch of the search (B=64, L=128, full band);
 2. map, small: `index` + `map -O0` and `-O4` of 4 planted genes through
    the CLI, once on the kernels and once with the DP forced through the
    plain versions on the card; the text must be byte-identical;
@@ -28,9 +32,21 @@ spaln_tpu_torch/csrc/spliced_dp.cu (six C entries), then:
    an intron over 16,384 nt, one across the 2 Mb chunk seam), `align -T
    Tetrapod -O0,4`; all 8 must be found at their locus and strand, and
    the counters must show the chunking, the long-intron split and the UDH
-   window path.
+   window path;
+6. map -yl3 (double-affine gaps) on phase 4's genome and index: its 48
+   cDNAs, a third with a 30-90 nt in-exon deletion and a third with a
+   30-90 nt insertion, `map -T Tetrapod -y l3 -O0,4` with the size rule
+   and with -A 3: texts byte-identical, >= 90% at the planted locus and
+   strand, every bucket on the *_dagp entries with no plain call;
+7. protein search at proteome size: a 20,000-entry DB (~8.5 M residues,
+   background amino-acid frequencies, log-normal lengths of median 375
+   aa) and 200 queries copied from random entries with 5-30%
+   substitutions and 0-2 indels, `search -a db.fa --max-hits 10
+   --align-top 1 -O0,1`: >= 95% of queries with their source as the top
+   hit, every score pass on the score-only entry and every traced hit on
+   K1, K2e and K3; then `pair` on the 200 (query, source) pairs.
 
-Phases 3-5 also fail if per-query isolation skipped a query.  Prints
+Phases 3-7 also fail if per-query isolation skipped a query.  Prints
 the card, per-kernel times, map throughput and stage seconds, a
 {"kernels": [...]} line, and last {"ok": true, "device": {...}}.  Exits
 non-zero, with no result, on any failure or without a CUDA device.
@@ -40,6 +56,8 @@ smoke_work/ (removed at the end), map text to smoke_out/.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import hashlib
 import json
 import shutil
 import subprocess
@@ -57,8 +75,12 @@ SEED = 20261016
 
 REPLACES = {
     "spliced_slab_trace": "spaln_tpu/ops/dp_spliced_pallas.py:195",
+    "spliced_slab_trace_dagp": "spaln_tpu/ops/dp_spliced_pallas.py:195",
     "spliced_slab_retrace": "spaln_tpu/ops/dp_spliced_scan.py:592",
+    "spliced_slab_retrace_dagp": "spaln_tpu/ops/dp_spliced_scan.py:592",
     "spliced_slab_links": "spaln_tpu/ops/dp_spliced_pallas.py:195",
+    "spliced_slab_links_dagp": "spaln_tpu/ops/dp_spliced_scan.py:592",
+    "spliced_slab_score": "spaln_tpu/ops/dp_spliced_pallas.py:195",
     "spliced_last_ends": "spaln_tpu/ops/dp_spliced_pallas.py:1122",
     "spliced_tb_walk": "spaln_tpu/ops/dp_spliced_scan.py:1127",
     "spliced_tb_strip": "spaln_tpu/ops/dp_spliced_scan.py:1235",
@@ -70,10 +92,15 @@ REPLACES = {
 # operation each per clock.  The DP's integer operations per band cell,
 # counted from the kernels' source: the recurrence with neighbour reads
 # and the masked commit, its link selects (K4), an acceptor close over 4
-# candidates into 3 states, a donor push.
+# candidates into 3 states, a donor push.  Double-affine gaps add per
+# cell F2 (open, extend, max: 7, ring read, mask, write, commit: 4) and
+# E2 (open, extend, max: 7, psp rule: 6, commit: 1), 4 link selects and
+# 2 ring moves, and two more states to the acceptor close and donor push
+# (per state 70/3 and 12 operations).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 16.7e12
 OPS_CELL, OPS_LINKS, OPS_ACC, OPS_DON, OPS_WALK = 30, 15, 70, 36, 30
+OPS_CELL_DAGP, OPS_LINKS_DAGP, OPS_ACC_DAGP, OPS_DON_DAGP = 55, 21, 117, 60
 
 
 def log(msg: str) -> None:
@@ -99,6 +126,10 @@ def _mutate(rng, s: str, rate: float) -> str:
     for i in hit:
         a[i] = "ACGT"[("ACGT".index(a[i]) + int(rng.integers(1, 4))) % 4]
     return "".join(a)
+
+
+def _md5(path: Path) -> str:
+    return hashlib.md5(path.read_bytes()).hexdigest()
 
 
 def _timed(fn, reps: int) -> float:
@@ -375,6 +406,251 @@ def check_kernels(K, dp, ctx):
     return out
 
 
+def _indel_bucket(dp, ctx):
+    """Phase 1's bucket shape (B=8, L=128, W=1152, 2 slabs) with planted
+    introns, and in every gene a 30-90 nt indel inside an exon: genome
+    only (a long horizontal gap) in even problems, cDNA only (a long
+    vertical gap) in odd ones.  The indel is A/C only, so it holds no
+    GT..AG and stays a gap."""
+    from spaln_tpu_torch.score.splice import build_splice_signals
+    from spaln_tpu_torch.seq.codec import encode_dna
+    rng = np.random.default_rng(SEED + 5)
+    queries, genomes, sigs, lws = [], [], [], []
+    for i in range(8):
+        ins = i % 2 == 1
+        ex = [_seq(rng, int(rng.integers(60, 81)), 0.3)
+              for _ in range(2 if ins else 3)]
+        extra = "".join(np.array(list("AC"))[
+            rng.integers(0, 2, int(rng.integers(30, 91)))])
+        k = len(ex) // 2
+        mid = len(ex[k]) // 2
+        with_indel = ex[k][:mid] + extra + ex[k][mid:]
+        g_ex, q_ex = list(ex), list(ex)
+        (q_ex if ins else g_ex)[k] = with_indel
+        g = _seq(rng, 100, 0.22)
+        for j, e in enumerate(g_ex):
+            g += e
+            if j < len(g_ex) - 1:
+                g += _intron(rng, int(rng.integers(70, 300)))
+        g += _seq(rng, 120, 0.22)
+        gc = encode_dna(g)
+        queries.append(encode_dna(_mutate(rng, "".join(q_ex), 0.01)))
+        genomes.append(gc)
+        sigs.append(build_splice_signals(gc, ctx.cfg, ctx.tables))
+        lws.append(-150 - 7 * i)
+    bp = dp.prepare_spliced_batch(queries, genomes, ctx.prm, sigs=sigs,
+                                  lws=lws, W=1152, L=128, device="cuda")
+    if (bp.S, bp.B, bp.L) != (2, 8, 128):
+        raise AssertionError(f"dagp bucket geometry {bp.S, bp.B, bp.L}")
+    return bp
+
+
+# residue frequencies of Robinson & Robinson (1991), the background of
+# the synthetic protein DB, in the order of AMINO
+AMINO = "ARNDCQEGHILKMFPSTWYV"
+AA_FREQ = np.array([7.805, 5.129, 4.487, 5.364, 1.925, 4.264, 6.295, 7.377,
+                    2.199, 5.142, 9.019, 5.744, 2.243, 3.856, 5.203, 7.120,
+                    5.841, 1.330, 3.216, 6.441])
+AA_FREQ = AA_FREQ / AA_FREQ.sum()
+
+
+def _protein_lengths(rng, n: int) -> np.ndarray:
+    """Entry lengths: log-normal, median 375 aa, clipped to 50-3,000."""
+    x = np.exp(rng.normal(np.log(375), 0.5, n))
+    return np.clip(np.round(x), 50, 3000).astype(np.int64)
+
+
+def _protein(rng, n: int) -> str:
+    return "".join(np.array(list(AMINO))[rng.choice(20, n, p=AA_FREQ)])
+
+
+def _protein_batch(dp):
+    """A candidate batch of the search's score pass at its largest: one
+    query against 64 DB entries, full band (lw = -Mmax, up = Nmax),
+    L = 128, the protein matrix's alphabet and the parameters
+    search_protein_db builds."""
+    from spaln_tpu_torch.config import Config, PvsP, resolve
+    from spaln_tpu_torch.ops.params import DpFlags, DpParams
+    from spaln_tpu_torch.score.simmtx import Simmtx
+    from spaln_tpu_torch.score.tables import find_table_dir
+    from spaln_tpu_torch.seq.codec import encode_protein
+    rng = np.random.default_rng(SEED + 7)
+    lens = _protein_lengths(rng, 64)
+    db = [_protein(rng, int(n)) for n in lens]
+    # the query: a copy of the entry nearest the median length
+    query = _mutate_protein(rng, db[int(np.argmin(abs(lens - 375)))], 0.2)
+    prm = DpParams.build(resolve(Config(), PvsP),
+                         Simmtx.protein(find_table_dir(), slot=0), PvsP)
+    bp = dp.prepare_spliced_batch([encode_protein(query)] * 64,
+                                  [encode_protein(s) for s in db], prm,
+                                  flags=DpFlags(), L=128, device="cuda")
+    return bp, prm
+
+
+def _mutate_protein(rng, s: str, rate: float, n_indels: int = 0) -> str:
+    """Substitutions at ``rate`` (background residues) and ``n_indels``
+    insertions or deletions of 1-10 residues at random places."""
+    a = np.array(list(s))
+    hit = rng.random(len(a)) < rate
+    a[hit] = np.array(list(AMINO))[rng.choice(20, int(hit.sum()),
+                                              p=AA_FREQ)]
+    out = "".join(a)
+    for _ in range(n_indels):
+        k = int(rng.integers(1, 11))
+        p = int(rng.integers(0, len(out)))
+        if rng.random() < 0.5:
+            out = out[:p] + out[p + k:]
+        else:
+            out = out[:p] + _protein(rng, k) + out[p:]
+    return out
+
+
+def _plain_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, (time.perf_counter() - t0) * 1e3
+
+
+def _equal(name: str, got, want) -> int:
+    """max_abs_err over paired outputs; raises unless 0."""
+    err = max(_max_abs_err(a, b) for a, b in zip(got, want))
+    if err:
+        raise AssertionError(f"{name} differs from plain: {err}")
+    return err
+
+
+def check_k5_kernels(K, dp, ctx3):
+    """The double-affine entries (K1, K4, K1 retrace, under ctx3's -yl3
+    parameters) and the 5-state K3 walk and strip on an indel bucket,
+    and the score-only entry on that bucket and on a protein batch, each
+    against its plain version on the card."""
+    bp = _indel_bucket(dp, ctx3)
+    prm = ctx3.prm
+    if not prm.dagp:
+        raise AssertionError("-yl3 did not select double-affine gaps")
+    out, walks = {}, {}
+    k1 = K.spliced_slab_trace(bp, prm)
+    p1, plain1 = _plain_ms(lambda: K.slab_trace_plain(bp, prm))
+    out["spliced_slab_trace_dagp"] = dict(
+        max_abs_err=_equal("spliced_slab_trace_dagp", k1, p1),
+        plain_ms=plain1, ms=_timed(lambda: K.spliced_slab_trace(bp, prm), 5))
+    flags, spj, row, rc = k1
+    if spj.shape[1] != 5:
+        raise AssertionError(f"dagp planes hold {spj.shape[1]} states")
+    e_k = K.spliced_last_ends(bp, prm, row, rc)
+    r_k = K.spliced_tb_walk(bp, flags, spj, e_k)
+    walks["walk"] = _equal("spliced_tb_walk (5 states)", [r_k],
+                           [K.tb_walk_plain(bp, flags, spj, e_k)])
+    ops = dp.ops_from_records(r_k.cpu().numpy(), bp.B)
+    if not all(any(o[0] == "I" for o in x) for x in ops):
+        raise AssertionError("dagp bucket: a planted intron was not "
+                             "recovered")
+    # the winner state of every cell the walks passed through
+    rec = r_k.cpu().numpy()
+    fl_h = flags.cpu().numpy()
+    L = bp.L
+    won = set()
+    for it, b in zip(*np.nonzero((rec[:, :, 1] >= 1) & (rec[:, :, 2] >= 1))):
+        m, n = int(rec[it, b, 1]), int(rec[it, b, 2])
+        s, i = (m - 1) // L, (m - 1) % L
+        t = (n - m) - bp.lws[b] - 1 + 2 * i
+        won.add(int(fl_h[s, t, b, i]) & 7)
+    if not won & {3, 4}:
+        raise AssertionError(f"no path cell won by E2 or F2: {sorted(won)}")
+    k4 = K.spliced_slab_links(bp, prm)
+    p4, plain4 = _plain_ms(lambda: K.slab_links_plain(bp, prm))
+    out["spliced_slab_links_dagp"] = dict(
+        max_abs_err=_equal("spliced_slab_links_dagp", k4, p4),
+        plain_ms=plain4, ms=_timed(lambda: K.spliced_slab_links(bp, prm), 5))
+    if k4[0].shape[1] != 5 or k4[1].shape[1] != 3:
+        raise AssertionError("dagp links: expected 5 streams, 3 rows")
+    if _max_abs_err(k4[2], row) or _max_abs_err(k4[3], rc):
+        raise AssertionError("K4-dagp's row / right column differ from K1's")
+    sel = torch.arange(bp.B, dtype=torch.int32, device="cuda")
+    snap = k4[1][1].contiguous()
+    r1 = K.spliced_slab_retrace(bp, prm, 1, 1, snap, sel)
+    if _max_abs_err(r1[0], flags[1:2]) or _max_abs_err(r1[1], spj[1:2]):
+        raise AssertionError("dagp retrace of slab 1 differs from K1-dagp's "
+                             "planes")
+    p1r, plain1r = _plain_ms(
+        lambda: K.slab_retrace_plain(bp, prm, 1, 1, snap, sel))
+    out["spliced_slab_retrace_dagp"] = dict(
+        max_abs_err=_equal("spliced_slab_retrace_dagp", r1, p1r),
+        plain_ms=plain1r,
+        ms=_timed(lambda: K.spliced_slab_retrace(bp, prm, 1, 1, snap, sel),
+                  5))
+    e_h = e_k.cpu().numpy()
+    starts = torch.tensor([[int(e[1]), int(e[2]), 0, L] if e[1] > L
+                           else [0, 0, 0, L] for e in e_h],
+                          dtype=torch.int32, device="cuda")
+    IT = dp.strip_walk_bound(L, bp.W)
+    rs_k = K.spliced_tb_strip(r1[0], r1[1], starts, bp.lws_t, 1, IT)
+    walks["strip"] = _equal(
+        "spliced_tb_strip (5 states)", [rs_k],
+        [K.tb_strip_plain(r1[0], r1[1], starts, bp.lws_t, 1, IT)])
+    strips = dp.ops_from_records(rs_k.cpu().numpy(), bp.B)
+    if strips != [[o for o in x if o[1] > L] for x in ops]:
+        raise AssertionError("dagp strip walks differ from the full walk")
+    # ---- score-only: both gap models on this bucket, and the protein
+    # batch; the row and right column equal K1's
+    prm1 = dataclasses.replace(prm, dagp=False)
+    for p, want in ((prm, (row, rc)),
+                    (prm1, K.spliced_slab_trace(bp, prm1)[2:])):
+        got = K.spliced_slab_score(bp, p)
+        _equal(f"spliced_slab_score (dagp={p.dagp})", got,
+               K.slab_score_plain(bp, p))
+        _equal(f"spliced_slab_score vs K1 (dagp={p.dagp})", got, want)
+    dagp_score_ms = _timed(lambda: K.spliced_slab_score(bp, prm), 5)
+    pbp, pprm = _protein_batch(dp)
+    ks = K.spliced_slab_score(pbp, pprm)
+    ps, plain_s = _plain_ms(lambda: K.slab_score_plain(pbp, pprm))
+    out["spliced_slab_score"] = dict(
+        max_abs_err=_equal("spliced_slab_score (protein)", ks, ps),
+        plain_ms=plain_s, ms=_timed(lambda: K.spliced_slab_score(pbp, pprm),
+                                    5))
+    # ---- bounds from this run's inputs
+    B, S, T, A = bp.B, bp.S, bp.T, bp.qprof.shape[2]
+    Np = bp.Nmax + 1
+    cells, acc, don = _dp_cells(bp, range(S))
+    ops_dp = (cells * OPS_CELL_DAGP + acc * OPS_ACC_DAGP
+              + don * OPS_DON_DAGP)
+    rowrc = 4 * B * (Np + bp.Mpad + 1)
+    c1, a1, d1 = _dp_cells(bp, [1])
+    pcells, _, _ = _dp_cells(pbp, range(pbp.S))
+    prowrc = 4 * pbp.B * (pbp.Nmax + 1 + pbp.Mpad + 1)
+    work = {
+        "spliced_slab_trace_dagp": (_operand_bytes(bp) + 21 * cells + rowrc,
+                                    ops_dp),
+        "spliced_slab_links_dagp": (_operand_bytes(bp) + rowrc
+                                    + 4 * S * B * (5 * T + 3 * (T + 2)),
+                                    ops_dp + cells * (OPS_LINKS
+                                                      + OPS_LINKS_DAGP)),
+        "spliced_slab_retrace_dagp": (4 * B * (L * A + (T + L) * 22
+                                               + 3 * (T + 2)) + 21 * c1,
+                                      c1 * OPS_CELL_DAGP + a1 * OPS_ACC_DAGP
+                                      + d1 * OPS_DON_DAGP),
+        "spliced_slab_score": (_operand_bytes(pbp) + prowrc,
+                               pcells * OPS_CELL),
+    }
+    for name, (nb, no) in work.items():
+        out[name]["bound_ms"], out[name]["bound_by"] = _bound(nb, no)
+        out[name]["work"] = (nb, no)
+    for name, r in out.items():
+        log(f"kernel {name}: exact (max_abs_err {r['max_abs_err']}); "
+            f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.7f} ms by {r['bound_by']} ({r['work'][0]} "
+            f"bytes, {r['work'][1]} int32 ops)")
+    log(f"dagp bucket (B=8 L=128 W=1152 S=2 T={T}): {cells} band cells, "
+        f"{acc} acceptor and {don} donor cells; slab 1: {c1}; 5-state walk "
+        f"and strip exact; path winners {sorted(won)}; score-only exact "
+        f"in both gap models ({dagp_score_ms:.3f} ms double affine)")
+    log(f"protein batch (B={pbp.B} L={pbp.L} W={pbp.W} S={pbp.S} "
+        f"T={pbp.T} A={pbp.qprof.shape[2]}): {pcells} band cells")
+    return out
+
+
 # --------------------------------------------------------------- phase 2
 def small_map(K, cli):
     """4 planted genes: kernels vs plain versions, byte for byte."""
@@ -530,7 +806,7 @@ def full_map(K, cli, metrics):
         f"{dev:.3f} s -> {cells / max(dev, 1e-9) / 1e9:.3f} GCUPS")
     log(f"full map: {hit}/{len(truth)} = {100 * frac:.1f}% at the planted "
         f"locus and strand; exon recall {tp / max(n_true, 1):.4f}, "
-        f"precision {tp / max(n_rep, 1):.4f}")
+        f"precision {tp / max(n_rep, 1):.4f}; -O0,4 text md5 {_md5(out)}")
     if frac < 0.95:
         raise AssertionError(f"only {100 * frac:.1f}% of queries at their "
                              f"planted locus and strand")
@@ -716,8 +992,8 @@ def tetrapod_map(K, cli, metrics):
     if runs["udh"]["counters"].get("udh_buckets", 0) < 1:
         raise AssertionError("tetrapod map: -A 3 ran no UDH bucket")
     log(f"tetrapod map: default and -A 3 -O0,4 texts byte-identical "
-        f"({len(texts['udh'])} bytes)")
-    return runs
+        f"({len(texts['udh'])} bytes, md5 {_md5(out)})")
+    return runs, truth
 
 
 # --------------------------------------------------------------- phase 5
@@ -790,6 +1066,239 @@ def segment_align(K, cli, metrics):
     return dict(launches=dict(K.launches), ms=kms)
 
 
+# --------------------------------------------------------------- phase 6
+def _read_fasta(path: Path) -> list[tuple[str, str]]:
+    recs = []
+    for block in path.read_text().split(">")[1:]:
+        name, *body = block.splitlines()
+        recs.append((name.split()[0], "".join(body)))
+    return recs
+
+
+def make_indel_queries(d: Path, truth: list) -> dict:
+    """Phase 4's cDNAs with long indels: query k % 3 == 1 loses 30-90 nt
+    inside its longest exon (a long horizontal gap), k % 3 == 2 gains
+    30-90 nt there (a long vertical gap), the rest stay as they were.
+    Writes d/cdna_yl3.fa; returns the indel length per query."""
+    rng = np.random.default_rng(SEED + 6)
+    by_name = {t["q"]: t for t in truth}
+    recs, indel = [], {}
+    for k, (name, q) in enumerate(_read_fasta(d / "cdna.fa")):
+        t = by_name[name]
+        lens = [b - a + 1 for a, b in sorted(t["exons"])]
+        if t["strand"] == "-":
+            lens = lens[::-1]              # cDNA order
+        j = int(np.argmax(lens))
+        at = sum(lens[:j])
+        n = int(rng.integers(30, min(90, lens[j] - 30) + 1))
+        if k % 3 == 1:
+            p = at + (lens[j] - n) // 2
+            q = q[:p] + q[p + n:]
+            indel[name] = -n
+        elif k % 3 == 2:
+            p = at + lens[j] // 2
+            q = q[:p] + _seq(rng, n, 0.5) + q[p:]
+            indel[name] = n
+        recs.append(f">{name}\n{q}\n")
+    (d / "cdna_yl3.fa").write_text("".join(recs))
+    return indel
+
+
+def _check_dagp_kernels(K, metrics, label: str) -> None:
+    """Every bucket ran on the double-affine entries (K1-dagp on planes,
+    K4-dagp, its retrace and K3 strip on UDH), none on a single-affine
+    slab entry; no plain version ran; no query was skipped."""
+    _check_no_skips(metrics, label)
+    c, n = metrics.counters, K.launches
+    udh, planes = c.get("udh_buckets", 0), c.get("device_buckets", 0)
+    if n["spliced_slab_trace_dagp"] != planes or (udh and not all(
+            n[k] >= udh for k in ("spliced_slab_links_dagp",
+                                  "spliced_slab_retrace_dagp",
+                                  "spliced_tb_strip"))):
+        raise AssertionError(f"{label}: {planes} plane and {udh} UDH "
+                             f"buckets, launches {dict(n)}")
+    single = [k for k in ("spliced_slab_trace", "spliced_slab_links",
+                          "spliced_slab_retrace") if n[k]]
+    if single:
+        raise AssertionError(f"{label}: single-affine entries ran: {single}")
+    if any(K.plain_calls.values()):
+        raise AssertionError(f"{label}: plain versions ran: "
+                             f"{K.plain_calls}")
+
+
+def _long_gap_rows(text: str) -> int:
+    """Exon-table rows (-O4) whose query and genome spans differ by 29 or
+    more: the exon holds a long gap."""
+    n = 0
+    for line in text.splitlines():
+        f = line.split("\t")
+        if len(f) == 14:
+            n += abs((int(f[4]) - int(f[3])) - (int(f[6]) - int(f[5]))) >= 29
+    return n
+
+
+def tetrapod_yl3_map(K, cli, metrics, truth):
+    """map -yl3 on phase 4's genome and index: size rule, then -A 3."""
+    d = WORK / "tetra"
+    indel = make_indel_queries(d, truth)
+    texts, runs = {}, {}
+    for mode, extra in (("default", []), ("udh", ["-A", "3"])):
+        metrics.reset()
+        _reset_counts(K)
+        out = OUT / f"tetra_yl3.{mode}.O0_4"
+        with kernel_clock(K) as kms:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cli.main(["map", str(d / "cdna_yl3.fa"), "-d", str(d / "genome"),
+                      "-T", "Tetrapod", "-y", "l3", "-O", "0,4", "-o",
+                      str(out), "--device", "cuda", *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        _check_dagp_kernels(K, metrics, f"map -yl3 ({mode})")
+        texts[mode] = out.read_text()
+        c = dict(metrics.counters)
+        runs[mode] = dict(launches=dict(K.launches), counters=c, ms=kms,
+                          wall=wall)
+        hit, rec, prec, missed = _score_text(texts[mode], truth)
+        secs = {k: round(v, 3) for k, v in metrics.timings.items()}
+        busy = sum(kms.values()) / 1e3
+        n_del = sum(v < 0 for v in indel.values())
+        n_ins = sum(v > 0 for v in indel.values())
+        log(f"map -yl3 ({mode}): {len(truth)} queries ({n_del} deletions, "
+            f"{n_ins} insertions of 30-90 nt) in {wall:.2f} s = "
+            f"{len(truth) / wall:.3f} queries/s; udh_buckets "
+            f"{c.get('udh_buckets', 0)}, plane buckets "
+            f"{c.get('device_buckets', 0)}; stage seconds "
+            f"{json.dumps(secs, sort_keys=True)}")
+        log(f"map -yl3 ({mode}): kernel ms "
+            f"{json.dumps({k: round(v, 3) for k, v in kms.items() if v})}; "
+            f"kernels busy {busy:.3f} s = {100 * busy / wall:.2f}% of the "
+            f"wall; udh_dp_cells {c.get('udh_dp_cells', 0)}, dp_cells "
+            f"{c.get('dp_cells', 0)}")
+        log(f"map -yl3 ({mode}): {hit}/{len(truth)} = "
+            f"{100 * hit / len(truth):.1f}% at the planted locus and "
+            f"strand; exon recall {rec:.4f}, precision {prec:.4f}; "
+            f"exon rows with a gap of 29+ nt {_long_gap_rows(texts[mode])}; "
+            f"missed {missed}")
+        if hit < 0.9 * len(truth):
+            raise AssertionError(f"map -yl3 ({mode}): only {hit} of "
+                                 f"{len(truth)} at their planted locus")
+    if texts["default"] != texts["udh"]:
+        raise AssertionError("map -yl3: default and -A 3 texts differ")
+    if runs["udh"]["counters"].get("udh_buckets", 0) < 1:
+        raise AssertionError("map -yl3: -A 3 ran no UDH bucket")
+    if _long_gap_rows(texts["udh"]) < 1:
+        raise AssertionError("map -yl3: no exon holds a long gap")
+    log(f"map -yl3: default and -A 3 -O0,4 texts byte-identical "
+        f"({len(texts['udh'])} bytes, md5 {_md5(out)})")
+    return runs
+
+
+# --------------------------------------------------------------- phase 7
+N_DB, N_PROT_QUERIES = 20_000, 200
+
+
+def make_protein_corpus(d: Path) -> dict:
+    """A proteome-size DB (N_DB entries of background residues, lengths
+    log-normal with median 375 aa, clipped to 50-3,000) and
+    N_PROT_QUERIES queries, each a copy of a random entry with 5-30%
+    substitutions and 0-2 indels of 1-10 aa.  Writes db.fa, q.fa and
+    pairs.fa (query, source alternating); returns query -> source."""
+    rng = np.random.default_rng(SEED + 8)
+    lens = _protein_lengths(rng, N_DB)
+    letters = np.array(list(AMINO))[rng.choice(20, int(lens.sum()),
+                                               p=AA_FREQ)]
+    body = letters.astype("S1").tobytes().decode()
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    seqs = [body[offs[i]:offs[i + 1]] for i in range(N_DB)]
+    with open(d / "db.fa", "w") as fh:
+        for i, s in enumerate(seqs):
+            fh.write(f">db{i:05d}\n")
+            for k in range(0, len(s), 60):
+                fh.write(s[k:k + 60] + "\n")
+    src = rng.choice(N_DB, N_PROT_QUERIES, replace=False)
+    truth, qrecs, pairs = {}, [], []
+    for j, i in enumerate(src):
+        q = _mutate_protein(rng, seqs[i], float(rng.uniform(0.05, 0.30)),
+                            int(rng.integers(0, 3)))
+        name = f"pq{j:03d}"
+        truth[name] = f"db{i:05d}"
+        qrecs.append(f">{name}\n{q}\n")
+        pairs.append(f">{name}\n{q}\n>db{i:05d}\n{seqs[i]}\n")
+    (d / "q.fa").write_text("".join(qrecs))
+    (d / "pairs.fa").write_text("".join(pairs))
+    return truth
+
+
+def _hit_lines(text: str, truth: dict) -> dict:
+    """query -> subjects of its -O0 statistics lines, best first."""
+    hits: dict = {}
+    for line in text.splitlines():
+        f = line.split("\t")
+        if len(f) == 8 and f[0] in truth:
+            hits.setdefault(f[0], []).append(f[1])
+    return hits
+
+
+def protein_search(K, cli, metrics):
+    """search -a at proteome size, then pair on the (query, source)
+    pairs."""
+    d = WORK / "protein"
+    d.mkdir(parents=True)
+    t0 = time.perf_counter()
+    truth = make_protein_corpus(d)
+    log(f"protein search: corpus built in {time.perf_counter() - t0:.1f} s "
+        f"({N_DB} entries, {(d / 'db.fa').stat().st_size / 1e6:.1f} MB of "
+        f"fasta, {len(truth)} queries)")
+    runs = {}
+    for cmd in ("search", "pair"):
+        metrics.reset()
+        _reset_counts(K)
+        out = OUT / f"protein.{cmd}"
+        argv = (["search", str(d / "q.fa"), "-a", str(d / "db.fa"),
+                 "--max-hits", "10", "--align-top", "1", "-O", "0,1"]
+                if cmd == "search" else ["pair", str(d / "pairs.fa"), "-O",
+                                         "0"])
+        with kernel_clock(K) as kms:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cli.main([*argv, "-o", str(out), "--device", "cuda"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        _check_no_skips(metrics, cmd)
+        if any(K.plain_calls.values()):
+            raise AssertionError(f"{cmd}: plain versions ran: "
+                                 f"{K.plain_calls}")
+        c, n = dict(metrics.counters), dict(K.launches)
+        batches = c.get("search_score_batches", 0)
+        traced = c.get("search_traced_hits", 0)
+        if (batches < len(truth) or n["spliced_slab_score"] != batches
+                or traced != len(truth)
+                or any(n[k] != traced for k in ("spliced_slab_trace",
+                                                 "spliced_tb_walk"))
+                or n["spliced_last_ends"] != batches + traced):
+            raise AssertionError(f"{cmd}: {batches} score batches, {traced} "
+                                 f"traced hits, launches {n}")
+        hits = _hit_lines(out.read_text(), truth)
+        top = sum(hits.get(q, [None])[0] == s for q, s in truth.items())
+        busy = sum(kms.values()) / 1e3
+        secs = {k: round(v, 3) for k, v in metrics.timings.items()}
+        log(f"{cmd}: {len(truth)} queries in {wall:.2f} s = "
+            f"{len(truth) / wall:.3f} queries/s; {batches} score batches, "
+            f"{traced} traced hits; stage seconds "
+            f"{json.dumps(secs, sort_keys=True)}")
+        log(f"{cmd}: kernel ms "
+            f"{json.dumps({k: round(v, 3) for k, v in kms.items() if v})}; "
+            f"kernels busy {busy:.3f} s = {100 * busy / wall:.2f}% of the "
+            f"wall; source as the top hit for {top}/{len(truth)}; text md5 "
+            f"{_md5(out)}")
+        if top < 0.95 * len(truth):
+            raise AssertionError(f"{cmd}: source the top hit of only {top} "
+                                 f"of {len(truth)} queries")
+        runs[cmd] = dict(launches=n, ms=kms, wall=wall)
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -820,20 +1329,34 @@ def main() -> int:
         ctx = AlignerContext.create(
             TableDir(find_table_dir(), species="Dictyost"), "cuda")
         results = check_kernels(K, dp, ctx)
+        ctx3 = AlignerContext.create(
+            TableDir(find_table_dir(), species="Dictyost"), "cuda",
+            y_args=["-yl3"])
+        results.update(check_k5_kernels(K, dp, ctx3))
         small_map(K, cli)
         plane_launches = full_map(K, cli, metrics)
-        tetra = tetrapod_map(K, cli, metrics)
+        tetra, truth = tetrapod_map(K, cli, metrics)
         segment_align(K, cli, metrics)
+        yl3 = tetrapod_yl3_map(K, cli, metrics, truth)
+        prot = protein_search(K, cli, metrics)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     src = str((ROOT / "spaln_tpu_torch/csrc/spliced_dp.cu")
               .relative_to(ROOT))
     # launches: the plane-path entries from phase 3's map, the UDH ones
-    # from phase 4's forced-UDH map
+    # from phase 4's forced-UDH map, the double-affine ones from phase 6
+    # (K1-dagp from the size rule's run, the UDH entries from -A 3's) and
+    # the score-only entry from phase 7's search
     launches = dict(plane_launches)
     for k in ("spliced_slab_links", "spliced_slab_retrace",
               "spliced_tb_strip"):
         launches[k] = tetra["udh"]["launches"][k]
+    launches["spliced_slab_trace_dagp"] = \
+        yl3["default"]["launches"]["spliced_slab_trace_dagp"]
+    for k in ("spliced_slab_links_dagp", "spliced_slab_retrace_dagp"):
+        launches[k] = yl3["udh"]["launches"][k]
+    launches["spliced_slab_score"] = \
+        prot["search"]["launches"]["spliced_slab_score"]
     if not all(launches[k] > 0 for k in K.KERNELS):
         raise AssertionError(f"a kernel of the path never ran: {launches}")
     print(json.dumps({"kernels": [

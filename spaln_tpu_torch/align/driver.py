@@ -18,7 +18,7 @@ import torch
 
 from ..config import Config, resolve, CvsG, apply_y_args
 from ..ops.params import DpParams, DpFlags
-from ..ops.dp_spliced import (PLANE_BYTES_BUDGET, PLANE_BYTES_PER_CELL,
+from ..ops.dp_spliced import (PLANE_BYTES_BUDGET, plane_bytes_per_cell,
                               prepare_spliced_batch)
 from ..ops.dp_spliced_cuda import run_bucket
 from ..ops.dp_spliced_udh import run_spliced_batch_udh
@@ -36,6 +36,9 @@ from .gene import GeneStructure, build_gene_structure
 # (default PLANE_BYTES_BUDGET, 16 GiB) runs through the linear-space UDH
 # path instead of shrinking the batch (the reference's size rule,
 # spaln_tpu/align/driver.py:554-565, MaxVmfSpace role, vmf.h:26-28).
+# Planes cost plane_bytes_per_cell(prm) bytes per cell: 13, or 21 with
+# double-affine gaps, where the reference counts 13 always; UDH and
+# planes give the same results, so this moves memory, never output.
 # One align window takes the UDH path when its planes would pass 96 MB
 # (spaln_tpu/align/driver.py:764).
 WINDOW_PLANE_BYTES = 96 << 20
@@ -73,10 +76,6 @@ class AlignerContext:
         sm = Simmtx.dna(match=cfg.aln.smn_match,
                         mismatch=cfg.aln.smn_mismatch)
         prm = DpParams.build(cfg, sm, dvsp, ipen=ipen)
-        if prm.dagp:
-            raise NotImplementedError(
-                "double-affine gaps (-yl3) are not ported yet: ROADMAP.md "
-                "Queue 2, K5 (dagp mode of the slab kernel)")
         return cls(cfg=cfg, tables=tables, prm=prm, ipen=ipen,
                    flags=DpFlags(), device=torch.device(device),
                    plane_budget=plane_budget, force_udh=force_udh)
@@ -251,7 +250,7 @@ def execute_jobs(jobs: list[AlignJob], ctx: AlignerContext,
     for (W, Mpad), idxs in buckets.items():
         T = W + 2 * lanes - 2
         n_slabs = max(Mpad // lanes, 1)
-        per = T * lanes * PLANE_BYTES_PER_CELL * n_slabs
+        per = T * lanes * plane_bytes_per_cell(ctx.prm) * n_slabs
         mb_full = max(1, ctx.plane_budget // per)
         udh = ctx.use_udh(n_slabs, mb_full < min(max_batch, len(idxs)))
         mb = min(max_batch, len(idxs) if udh else mb_full)
@@ -328,7 +327,8 @@ def _align_window(q: np.ndarray, g: np.ndarray, ctx: AlignerContext,
     W = job.up - job.lw + 1
     T = W + 2 * lanes - 2
     n_slabs = -(-len(job.q) // lanes)
-    big = T * lanes * PLANE_BYTES_PER_CELL * n_slabs > WINDOW_PLANE_BYTES
+    big = (T * lanes * plane_bytes_per_cell(ctx.prm) * n_slabs
+           > WINDOW_PLANE_BYTES)
     # full planes over WINDOW_PLANE_BYTES: the linear-space path
     udh = ctx.use_udh(n_slabs, big)
     score, em, en, ops = forward_spliced(job.q, job.gw, ctx, sig=job.sig,

@@ -6,13 +6,17 @@
         queries onto the indexed genome (spaln -Q7), the DP on --device
   python -m spaln_tpu_torch.cli align <genomic.fa> <cdna.fa> align cDNA
         queries onto given genomic segments (no index), the DP on --device
+  python -m spaln_tpu_torch.cli search <prot.fa> -a <db.fa>  protein
+        queries against a protein DB (spaln -a), the DP on --device
+  python -m spaln_tpu_torch.cli pair <a.fa> [<b.fa>]          pairwise
+        protein alignment over the SeqServer input modes (--mode)
 
 Same options and output as spaln_tpu.cli for these paths, plus --device
 {cuda,cpu} (default cuda; asking for cuda without a GPU is an error).
 -A 3 sends every multi-slab DP through the linear-space UDH path (1 and
 2 name the reference's two plane-path engines, one engine here: the
 size rule stays), -V sets the plane budget, -G the segment length of
-align.
+align; -y l3 selects double-affine gaps (the K5 modes of the kernels).
 Output formats -O#[,#2,..]: 0 GFF3 gene, 1 alignment text, 2 GFF3
 match, 3 BED12, 4 exon table, 5 intron table, 6 recovered cDNA,
 7 translated protein, 10 SAM, 12 binary shard (.grd.npz), 15 unique
@@ -38,9 +42,7 @@ from .seq.fasta import iter_seqfile, parse_seq_arg
 from .seq.genome import GenomeStore
 
 UNPORTED = {
-    "search": "ROADMAP.md Queue 1, item 9 (protein-DB search)",
     "sortgrcd": "ROADMAP.md Queue 1, item 10 (remaining subcommands)",
-    "pair": "ROADMAP.md Queue 1, item 9 (protein-DB search)",
     "ild": "ROADMAP.md Queue 1, item 10 (tools)",
     "seq": "ROADMAP.md Queue 1, item 10 (tools)",
 }
@@ -282,6 +284,146 @@ def cmd_align(args) -> int:
     return 0
 
 
+def _hit_text(name: str, hit, fmts: list[int], q_len: int,
+              t_len: int) -> str:
+    """Report text of one protein hit: -O0 the hit statistics, the
+    others the alignment of a traced hit in the reference's AvsA forms,
+    one newline-ended block per format (spaln_tpu/cli.py:369-400)."""
+    from .out.formats import (boundary_line, hit_stat_line, psl_line,
+                              skl_lines, sugar_line, xyl_line, xyl2_lines)
+    gs = hit.structure
+    blocks = []
+    for fmt in fmts:
+        if fmt == 0:
+            lines = [f"{name}\t" + hit_stat_line(hit)]
+        elif gs is None:
+            continue
+        elif fmt == 1:
+            lines = alignment_lines(gs)
+        elif fmt == 2:
+            lines = [sugar_line(gs)]
+        elif fmt == 3:
+            lines = [psl_line(gs, q_len=q_len, t_len=t_len)]
+        elif fmt == 8:
+            lines = [gs.cigar()]
+        elif fmt == 9:
+            lines = [gs.vulgar()]
+        elif fmt == 10:
+            lines = [sam_line(gs, q_len=q_len)]
+        elif fmt == 4:
+            lines = [xyl_line(gs)]
+        elif fmt == 5:
+            lines = [boundary_line(gs)]
+        elif fmt == 6:
+            lines = xyl2_lines(gs)
+        elif fmt == 7:
+            lines = skl_lines(gs)
+        else:
+            raise SystemExit(f"unsupported AvsA format -O{fmt}")
+        blocks.append("\n".join(lines) + "\n")
+    return "".join(blocks)
+
+
+def cmd_search(args) -> int:
+    """Protein vs protein-DB search (the spaln -a mode, AvsA; cmd_search,
+    spaln_tpu/cli.py:352-403).  The k-mer index over the DB is built once
+    per run where the search prefilters (over 256 entries); the
+    reference builds the same index per query."""
+    from .align.protein_search import search_protein_db
+    from .seed.dbindex import ProteinDbIndex
+    from .utils.errors import guard_query
+    from .utils.metrics import stage
+    device = _device(args.device)
+    with stage("db_index"):
+        db = [(r.name, r.codes) for r in iter_seqfile(args.db,
+                                                      molc=PROTEIN)]
+        index = ProteinDbIndex.build(db) if len(db) > 256 else None
+    t_len = {name: codes.size for name, codes in db}
+    table_dir = find_table_dir(args.table_dir)
+    out = open(args.output, "w") if args.output else sys.stdout
+    fmts = _parse_fmts(args.fmt)
+    for rec in iter_seqfile(args.queries, molc=PROTEIN):
+        hits = guard_query(search_protein_db, rec.codes, db,
+                           table_dir=table_dir, max_hits=args.max_hits,
+                           align_top=args.align_top, lanes=args.lanes,
+                           db_index=index, device=device, name=rec.name,
+                           stage="search", fallback=[])
+        for hit in hits:
+            out.write(_hit_text(rec.name, hit, fmts, len(rec.codes),
+                                t_len[hit.name]))
+    if args.output:
+        out.close()
+    return 0
+
+
+def make_pairs(recs_a: list, recs_b: list | None, mode: str,
+               split: int = 1) -> list | None:
+    """SeqServer input-mode pairing (cmn.h:104-105, calcserv.h:309-355):
+    para = two parallel files; altr = one file, alternating entries;
+    grup = group 1 (first `split` entries) x group 2 (the rest);
+    every = all-vs-all; fvso = first vs others; self = each vs itself.
+    Returns None on an invalid mode/argument combination."""
+    if recs_b is not None and mode in ("auto", "para"):
+        if len(recs_a) != len(recs_b):
+            print(f"warning: unpaired inputs ({len(recs_a)} vs "
+                  f"{len(recs_b)}); extra entries skipped",
+                  file=sys.stderr)
+        return list(zip(recs_a, recs_b))
+    if mode == "para":
+        print("pair --mode para needs two input files", file=sys.stderr)
+        return None
+    if recs_b is not None:
+        print(f"warning: second input ignored in --mode {mode}",
+              file=sys.stderr)
+    if mode in ("auto", "altr"):           # alternating single file
+        return list(zip(recs_a[0::2], recs_a[1::2]))
+    if mode == "grup":                     # IM_GRUP: g1 x g2 cross
+        if not 0 < split < len(recs_a):
+            print("pair --mode grup needs 0 < --split < n entries",
+                  file=sys.stderr)
+            return None
+        return [(ra, rb) for ra in recs_a[:split]
+                for rb in recs_a[split:]]
+    if mode == "every":                    # IM_EVRY: all-vs-all
+        return [(recs_a[i], recs_a[j]) for i in range(len(recs_a))
+                for j in range(i + 1, len(recs_a))]
+    if mode == "fvso":                     # IM_FvsO: first vs others
+        return [(recs_a[0], rb) for rb in recs_a[1:]]
+    if mode == "self":                     # IM_SELF
+        return [(ra, ra) for ra in recs_a]
+    print(f"unknown pair mode {mode!r}", file=sys.stderr)
+    return None
+
+
+def cmd_pair(args) -> int:
+    """Pairwise alignment over the SeqServer input modes (make_pairs;
+    cmd_pair, spaln_tpu/cli.py:445-483): each pair is a search of one
+    entry against a one-entry DB."""
+    from .align.protein_search import search_protein_db
+    from .utils.errors import guard_query
+    device = _device(args.device)
+    recs_a = list(iter_seqfile(args.a))
+    recs_b = list(iter_seqfile(args.b)) if args.b else None
+    pairs = make_pairs(recs_a, recs_b, args.mode, args.split)
+    if pairs is None:
+        return 2
+    table_dir = find_table_dir(args.table_dir)
+    out = open(args.output, "w") if args.output else sys.stdout
+    fmts = [f for f in _parse_fmts(args.fmt) if f in (0, 1, 2, 3)]
+    for ra, rb in pairs:
+        hits = guard_query(search_protein_db, ra.codes,
+                           [(rb.name, rb.codes)], table_dir=table_dir,
+                           max_hits=1, align_top=1, lanes=args.lanes,
+                           prefilter=False, device=device, name=ra.name,
+                           stage="pair", fallback=[])
+        for hit in hits:
+            out.write(_hit_text(ra.name, hit, fmts, len(ra.codes),
+                                len(rb.codes)))
+    if args.output:
+        out.close()
+    return 0
+
+
 def _unported(args) -> int:
     raise NotImplementedError(
         f"the {args.cmd} subcommand is not ported yet: {UNPORTED[args.cmd]}")
@@ -367,6 +509,36 @@ def build_parser() -> argparse.ArgumentParser:
                     help="queries per device launch")
     common(sp)
     sp.set_defaults(func=cmd_map)
+
+    sp = sub.add_parser("search",
+                        help="protein query vs protein DB (-a mode)")
+    sp.add_argument("queries")
+    sp.add_argument("-a", dest="db", required=True,
+                    help="protein DB fasta")
+    sp.add_argument("--max-hits", dest="max_hits", type=int, default=10)
+    sp.add_argument("--align-top", dest="align_top", type=int, default=1)
+    common(sp)
+    sp.set_defaults(func=cmd_search)
+
+    sp = sub.add_parser("pair", help="align paired entries "
+                        "(two parallel files, or one alternating file)")
+    sp.add_argument("a")
+    sp.add_argument("b", nargs="?", default=None)
+    sp.add_argument("--mode", default="auto",
+                    choices=["auto", "para", "altr", "grup", "every",
+                             "fvso", "self"],
+                    help="input pairing mode (SeqServer IM_*)")
+    sp.add_argument("--split", type=int, default=1,
+                    help="grup mode: size of group 1")
+    sp.add_argument("-O", dest="fmt", default="0")
+    sp.add_argument("-o", dest="output", default=None)
+    sp.add_argument("-T", dest="species", default=None)
+    sp.add_argument("-t", dest="table_dir", default=None)
+    sp.add_argument("--lanes", type=int, default=64)
+    sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where the DP runs (as for the other "
+                         "subcommands)")
+    sp.set_defaults(func=cmd_pair)
 
     for name in UNPORTED:
         sp = sub.add_parser(name, help=f"not ported yet ({UNPORTED[name]})")

@@ -31,26 +31,47 @@ from ..score.splice import SpliceSignals
 
 NCAND = 4
 NEV = int(np.int32(NEVSEL))
-NSPJ = 3                          # junction planes: H, E, F (single affine)
 
-# UDH link streams per slab, (S, NLINK, B, T) int32, indexed by the
-# wavefront step t at which the slab emits the value (K4,
+# UDH link streams per slab, (S, n_links(prm), B, T) int32, indexed by
+# the wavefront step t at which the slab emits the value (K4,
 # spliced_slab_links): the boundary row's H and F (lane L-1, column
 # m0 + lw + 2 - L + t), the final row (lane M - m0, column
-# m0 + lw + 1 - (M - m0) + t) and the right column (the lane at
-# column N, row 2*m0 + lw + 1 - N + t).  Beside them each slab keeps a
-# snapshot (S, 2, B, T+2) of its entry boundary H and F over the
-# columns lane 0 reads, n = m0 + lw + k.  O(S * T) int32 per problem,
-# against the planes' 13 * S * T * L bytes.
-LK_BND_H, LK_BND_F, LK_ROW, LK_RC = range(4)
-NLINK = 4
+# m0 + lw + 1 - (M - m0) + t), the right column (the lane at column N,
+# row 2*m0 + lw + 1 - N + t) and, with double-affine gaps, the boundary
+# row's F2 (the reference's stream 4, spaln_tpu/ops/dp_spliced_udh.py:
+# 46).  Beside them each slab keeps a snapshot (S, n_bounds(prm), B,
+# T+2) of its entry boundary rows (H, F and F2) over the columns lane 0
+# reads, n = m0 + lw + k.  O(S * T) int32 per problem, against the
+# planes' plane_bytes_per_cell(prm) * S * T * L bytes.
+LK_BND_H, LK_BND_F, LK_ROW, LK_RC, LK_BND_F2 = range(5)
 
-# device-memory budget for the traceback planes of one launch (13 B per
-# cell: a flag byte and three int32 junction planes): 16 GiB of the
-# H100's 80 GB, leaving room for operands, links, walk records and the
-# caching allocator
+# device-memory budget for the traceback planes of one launch: 16 GiB of
+# the H100's 80 GB, leaving room for operands, links, walk records and
+# the caching allocator
 PLANE_BYTES_BUDGET = 16 << 30
-PLANE_BYTES_PER_CELL = 13
+
+
+def n_states(prm: DpParams) -> int:
+    """DP states with a junction plane: H, E, F, and with double-affine
+    gaps (-yl3, prm.dagp) the long-gap states E2 and F2."""
+    return 5 if prm.dagp else 3
+
+
+def n_links(prm: DpParams) -> int:
+    """UDH link streams per slab (LK_*): four, and F2's under dagp."""
+    return 5 if prm.dagp else 4
+
+
+def n_bounds(prm: DpParams) -> int:
+    """Rows of a slab boundary: H and F, and F2 under dagp."""
+    return 3 if prm.dagp else 2
+
+
+def plane_bytes_per_cell(prm: DpParams) -> int:
+    """Traceback plane bytes per cell: a flag byte and one int32 junction
+    plane per state (13, or 21 under dagp)."""
+    return 1 + 4 * n_states(prm)
+
 
 # rows of BatchProblem.gops, each indexed by the genome boundary n
 G_RES, G_ISDON, G_ISACC, G_SIG5, G_ACCB, G_DINC5 = range(6)
@@ -224,13 +245,33 @@ def collect_batch_results(bp: BatchProblem, prm: DpParams, row, rc,
     if planes is None:
         return scores, ends, None
     fl = planes[0].cpu().numpy()                      # (S, T, B, L)
-    sp = planes[1].cpu().numpy()                      # (S, NSPJ, T, B, L)
+    sp = planes[1].cpu().numpy()                      # (S, NS, T, B, L)
     btraces = [SliceTrace(flags=[fl[s, :, b] for s in range(bp.S)],
                           spj=[np.moveaxis(sp[s, :, :, b], 0, -1)
                                for s in range(bp.S)],
                           L=bp.L, lw=bp.lws[b], W=bp.W)
                for b in range(bp.B)]
     return scores, ends, btraces
+
+
+def forward_spliced_batch(queries: list, genomes: list, prm: DpParams,
+                          sigs: list | None = None, lw: int = None,
+                          up: int = None, flags: DpFlags | None = None,
+                          L: int = 128, score_only: bool = True,
+                          device: torch.device | str = "cuda"):
+    """Batched forward of B problems on ``device`` (forward_spliced_batch,
+    spaln_tpu/ops/dp_spliced_scan.py:1063-1075): prepare, then the
+    score-only slab kernel (K5) or the trace slab kernel (K1), then the
+    end extraction.  Returns (scores (B,) int64, ends (B, 2) int64,
+    None) or, with planes, (scores, ends, per-problem SliceTraces)."""
+    from .dp_spliced_cuda import spliced_slab_score, spliced_slab_trace
+    bp = prepare_spliced_batch(queries, genomes, prm, sigs=sigs, lw=lw,
+                               up=up, flags=flags, L=L, device=device)
+    if score_only:
+        row, rc = spliced_slab_score(bp, prm)
+        return collect_batch_results(bp, prm, row, rc)
+    fl, spj, row, rc = spliced_slab_trace(bp, prm)
+    return collect_batch_results(bp, prm, row, rc, planes=(fl, spj))
 
 
 def ops_from_records(recs: np.ndarray, B: int) -> list:
@@ -254,7 +295,7 @@ def ops_from_records(recs: np.ndarray, B: int) -> list:
 
 @dataclass
 class SliceTrace:
-    """Traceback planes per slab: flags (T, L) uint8, spj (T, L, 3)."""
+    """Traceback planes per slab: flags (T, L) uint8, spj (T, L, NS)."""
     flags: list
     spj: list
     L: int
@@ -272,7 +313,7 @@ class SliceTrace:
         return int(self.flags[s][t, i]) & 7
 
     def gopen(self, state, m, n):
-        """Did gap state (1=E1, 2=F) open at this cell?"""
+        """Did gap state (1=E1, 2=F, 3=E2, 4=F2) open at this cell?"""
         s, t, i = self.cell(m, n)
         bit = (0, 8, 16, 32, 64)[state]
         return bool(self.flags[s][t, i] & bit)

@@ -5,12 +5,15 @@ The counterpart of spaln_tpu/ops/dp_spliced_udh.py (the reference's
 lspS_ng multi-intermediate path, fwd2s1.cc:1801-1897).  The slab
 boundaries (every L-th query row) are the intermediate rows:
 
-1. links pass (K4, spliced_slab_links): every value carries the packed
-   link (column * 8 + state) of the cell where its path crossed the
-   previous slab boundary; each slab emits four link streams of T ints
-   and a snapshot of its entry boundary (layout in ops/dp_spliced.py).
-   No planes: O(S * T) int32 per problem.  K2e takes the ends from its
-   row / right column as on the plane path.
+1. links pass (K4, spliced_slab_links, or its double-affine mode under
+   prm.dagp): every value carries the packed link (column * 8 + state)
+   of the cell where its path crossed the previous slab boundary; each
+   slab emits four link streams of T ints (five under dagp: the
+   boundary F2's) and a snapshot of its entry boundary rows (layout in
+   ops/dp_spliced.py).  No planes: O(S * T) int32 per problem.  K2e
+   takes the ends from its row / right column as on the plane path.
+   For dagp the reference runs its scan engine's links mode here
+   (spaln_tpu/ops/dp_spliced_udh.py:66-78); the port has one engine.
 2. backwalk (backwalk): from each end cell's link, one batched gather per
    slab boundary over the device link streams gives every problem's
    crossing at each boundary row its path spans; one small tensor is
@@ -27,9 +30,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .dp_spliced import (BatchProblem, LK_BND_F, LK_BND_H, LK_RC, LK_ROW,
-                         NLINK, PLANE_BYTES_BUDGET, PLANE_BYTES_PER_CELL,
-                         ops_from_records, strip_walk_bound, unpack_link)
+from .dp_spliced import (BatchProblem, LK_BND_F, LK_BND_F2, LK_BND_H, LK_RC,
+                         LK_ROW, PLANE_BYTES_BUDGET, ops_from_records,
+                         plane_bytes_per_cell, strip_walk_bound,
+                         unpack_link)
 from .dp_spliced_cuda import (spliced_last_ends, spliced_slab_links,
                               spliced_slab_retrace, spliced_tb_strip)
 from .params import DpParams
@@ -93,11 +97,12 @@ def backwalk(bp: BatchProblem, links: torch.Tensor,
     [b, 0] = (has crossings, bad link)."""
     B, L, S, T = bp.B, bp.L, bp.S, bp.T
     dev = links.device
+    nlk = links.shape[1]
     flat = links.reshape(-1)
     barr = torch.arange(B, device=dev)
 
     def at(s, k, t):
-        return flat[((s * NLINK + k) * B + barr) * T + t.clamp(0, T - 1)]
+        return flat[((s * nlk + k) * B + barr) * T + t.clamp(0, T - 1)]
 
     sf, stream, t, ok = end_link_t(bp, ends)
     valid = (ends[:, 1] >= 1) & (ends[:, 2] >= 1)
@@ -113,11 +118,15 @@ def backwalk(bp: BatchProblem, links: torch.Tensor,
         cr[:, s, 0] = torch.where(here, col, 0).to(I32)
         cr[:, s, 1] = torch.where(here, st, 0).to(I32)
         # the crossing cell sits on slab s-1's last row; its own link is
-        # in slab s-1's boundary stream for its state
+        # in slab s-1's boundary stream for its state (H, F, or F2 with
+        # double-affine gaps)
         cont = here & (col != 0) & (s > 1)
         tb = col - ((s - 1) * L + 1 + lw + 2 - L)
-        bad |= cont & ((tb < 0) | (tb >= T) | ((st != 0) & (st != 2)))
-        nxt = at(s - 1, torch.where(st == 2, LK_BND_F, LK_BND_H), tb)
+        vert = (st == 2) | ((st == 4) & (nlk > LK_BND_F2))
+        bad |= cont & ((tb < 0) | (tb >= T) | ((st != 0) & ~vert))
+        k = torch.where(st == 2, LK_BND_F,
+                        torch.where(st == 4, LK_BND_F2, LK_BND_H))
+        nxt = at(s - 1, k.clamp(max=nlk - 1), tb)
         cur = torch.where(cont, nxt.long(), cur)
         alive = alive & ~(here & ~cont)
     cr[:, 0, 0] = has.to(I32)
@@ -134,7 +143,7 @@ def _retrace(bp: BatchProblem, prm: DpParams, snaps: torch.Tensor,
     B, L, W, T = bp.B, bp.L, bp.W, bp.T
     dev = bp.device
     IT = strip_walk_bound(L, W)
-    mb = max(1, plane_budget // (T * L * PLANE_BYTES_PER_CELL))
+    mb = max(1, plane_budget // (T * L * plane_bytes_per_cell(prm)))
     strips: list[dict[int, list]] = [dict() for _ in range(B)]
     for s in range(bp.S):
         want = []
@@ -148,6 +157,9 @@ def _retrace(bp: BatchProblem, prm: DpParams, snaps: torch.Tensor,
             if s == sf:
                 want.append((i, (bm, bn, 0, s * L)))
                 continue
+            # a path leaves slab s+1 upward by a vertical move, so the
+            # strip starts here in the crossing's state: 0 (H), 2 (F) or
+            # 4 (F2) (dp_spliced_scan.py:1240-1243)
             col, st = int(cr[i, s + 1, 0]), int(cr[i, s + 1, 1])
             if col == 0:
                 strips[i][s] = []

@@ -1,11 +1,14 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, at test sizes (L = 16 and 32 lanes, one to five slabs): exact
-equality of every output, and run_bucket on the card equal to the CPU
-run.  Needs an NVIDIA GPU; skipped without one.  The machine with the
+equality of every output, single and double affine and score-only, and
+run_bucket, the UDH path and the protein search on the card equal to
+the CPU run.  Needs an NVIDIA GPU; skipped without one.  The machine with the
 card has no JAX, so run these without the repo's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -153,3 +156,108 @@ def test_udh_on_card_equals_cpu(cuda, setup):
     np.testing.assert_array_equal(on_card[1], on_cpu[1])
     assert on_card[2] == on_cpu[2]
     assert all(K.launches[k] > before[k] for k in K.UDH_PATH)
+
+
+def _dagp(prm):
+    return dataclasses.replace(prm, dagp=True, lgop=prm.gop // 2,
+                               lgep=prm.gep // 3)
+
+
+@pytest.mark.parametrize("B,M,ilen,L,lws", GEOMS)
+def test_dagp_and_score_kernels_equal_plain_on_card(cuda, setup, B, M,
+                                                    ilen, L, lws):
+    """K5: the *_dagp entries (K1, K4, K1 retrace) and the 5-state K3
+    walk and strip against their plain versions; the score-only entry,
+    single and double affine, against its plain version and K1's row
+    and right column."""
+    cfg, prm, tables = setup
+    prm3 = _dagp(prm)
+    qs, gs, ss = _problems(cfg, tables, B, M, ilen, seed=B + L)
+    band = dict(lws=lws, W=256) if lws else {}
+    bp = dp.prepare_spliced_batch(qs, gs, prm3, sigs=ss, L=L, device=cuda,
+                                  **band)
+    k1 = K.spliced_slab_trace(bp, prm3)
+    assert k1[1].shape[1] == 5
+    for a, b in zip(k1, K.slab_trace_plain(bp, prm3)):
+        assert torch.equal(a, b)
+    se = K.spliced_last_ends(bp, prm3, k1[2], k1[3])
+    recs = K.spliced_tb_walk(bp, k1[0], k1[1], se)
+    assert torch.equal(recs, K.tb_walk_plain(bp, k1[0], k1[1], se))
+    k4 = K.spliced_slab_links(bp, prm3)
+    for a, b in zip(k4, K.slab_links_plain(bp, prm3)):
+        assert torch.equal(a, b)
+    snaps = k4[1]
+    sel = torch.arange(B - 1, -1, -1, dtype=torch.int32, device=cuda)
+    for s in range(bp.S):
+        snap = snaps[s].index_select(1, sel.long()).contiguous()
+        fl, sp = K.spliced_slab_retrace(bp, prm3, s, 1, snap, sel)
+        assert torch.equal(fl[0], k1[0][s][:, sel.long()])
+        assert torch.equal(sp[0], k1[1][s][:, :, sel.long()])
+        top = min((s + 1) * L, max(bp.Ms))
+        starts = torch.tensor([[top, top + bp.lws[b] + bp.W // 2, 4, s * L]
+                               for b in sel.tolist()], dtype=torch.int32,
+                              device=cuda)
+        lws_sel = bp.lws_t.index_select(0, sel.long())
+        IT = dp.strip_walk_bound(L, bp.W)
+        r = K.spliced_tb_strip(fl, sp, starts, lws_sel, s, IT)
+        assert torch.equal(r, K.tb_strip_plain(fl, sp, starts, lws_sel, s,
+                                               IT))
+    for p in (prm, prm3):
+        row, rc = K.spliced_slab_score(bp, p)
+        pr, pc = K.slab_score_plain(bp, p)
+        assert torch.equal(row, pr) and torch.equal(rc, pc)
+    assert torch.equal(row, k1[2]) and torch.equal(rc, k1[3])
+    torch.cuda.synchronize()
+
+
+def test_dagp_paths_on_card_equal_cpu(cuda, setup):
+    """run_bucket and the UDH path with double-affine gaps, on the card
+    and on the CPU, through the *_dagp entries."""
+    from spaln_tpu_torch.ops.dp_spliced_udh import run_spliced_batch_udh
+    cfg, prm, tables = setup
+    prm3 = _dagp(prm)
+    qs, gs, ss = _problems(cfg, tables, 5, 150, 200, seed=9)
+    before = dict(K.launches)
+    res = {}
+    for dev in (cuda, "cpu"):
+        for fn in (K.run_bucket, run_spliced_batch_udh):
+            res[dev, fn] = fn(dp.prepare_spliced_batch(
+                qs, gs, prm3, sigs=ss, L=32, device=dev), prm3)
+    for fn in (K.run_bucket, run_spliced_batch_udh):
+        a, b = res[cuda, fn], res["cpu", fn]
+        np.testing.assert_array_equal(a[0], b[0])
+        np.testing.assert_array_equal(np.asarray(a[1]), np.asarray(b[1]))
+        assert a[2] == b[2]
+    assert all(K.launches[k] > before[k]
+               for k in K.PLANE_PATH_DAGP + K.UDH_PATH_DAGP)
+
+
+def test_protein_search_on_card_equals_cpu(cuda):
+    """search_protein_db's score pass (full band, alphabet 25) on the
+    score-only entry, and its top hit on K1/K2e/K3, equal the CPU run."""
+    from spaln_tpu_torch.align.protein_search import search_protein_db
+    from spaln_tpu_torch.seq.codec import encode_protein
+    rng = np.random.default_rng(3)
+    aas = np.array(list("ARNDCQEGHILKMFPSTWYV"))
+    target = "".join(rng.choice(aas, 150))
+    db = [(f"d{i}", encode_protein("".join(rng.choice(aas, int(
+        rng.integers(80, 300)))))) for i in range(40)]
+    hom = "".join(c if rng.random() > 0.2 else rng.choice(aas)
+                  for c in target)
+    db.insert(13, ("hom", encode_protein(hom)))
+    before = dict(K.launches)
+    kw = dict(table_dir=find_table_dir(), max_hits=5, align_top=2,
+              lanes=64)
+    on_card = search_protein_db(encode_protein(target), db, device=cuda,
+                                **kw)
+    on_cpu = search_protein_db(encode_protein(target), db, device="cpu",
+                               **kw)
+    key = [(h.name, h.score, h.q_span, h.s_span, h.identity)
+           for h in on_card]
+    assert key == [(h.name, h.score, h.q_span, h.s_span, h.identity)
+                   for h in on_cpu]
+    assert key[0][0] == "hom"
+    assert K.launches["spliced_slab_score"] == \
+        before["spliced_slab_score"] + 1
+    assert K.launches["spliced_slab_trace"] == \
+        before["spliced_slab_trace"] + 2

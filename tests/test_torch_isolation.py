@@ -1,6 +1,6 @@
 """The port imports neither jax nor spaln_tpu: checked in a fresh
 interpreter, after importing the package, its CLI and every module of
-the map path."""
+the map, align and search paths."""
 import json
 import os
 import subprocess
@@ -15,6 +15,8 @@ MODULES = ["spaln_tpu_torch", "spaln_tpu_torch.cli",
            "spaln_tpu_torch.ops.dp_spliced_cuda",
            "spaln_tpu_torch.ops.dp_spliced_udh",
            "spaln_tpu_torch.align.segment",
+           "spaln_tpu_torch.align.protein_search",
+           "spaln_tpu_torch.seed.dbindex",
            "spaln_tpu_torch.ops.convert", "spaln_tpu_torch.utils.metrics",
            "spaln_tpu_torch.utils.errors", "spaln_tpu_torch.native"]
 

@@ -93,14 +93,13 @@ def test_map_device_cuda_without_gpu_is_an_error(planted, monkeypatch):
 @pytest.mark.parametrize("argv,item", [
     (["map", "{d}/cdna.fa", "-d", "{d}/port", "-L", "S"], "item 9"),
     (["map", "{d}/cdna.fa", "-d", "{d}/port", "-y", "J30"], "item 9"),
-    (["map", "{d}/cdna.fa", "-d", "{d}/port", "-y", "l3",
-      "--device", "cpu"], "K5"),
+    (["sortgrcd", "{d}/x.grd.npz"], "item 10"),
     (["index", "{d}/genome.fa", "-K", "P"], "item 8"),
     (["map", "{d}/prot.fa", "-d", "{d}/port", "--device", "cpu"],
      "item 8"),
     (["align", "{d}/genome.fa", "{d}/prot.fa", "--device", "cpu"],
      "item 8"),
-    (["search", "{d}/cdna.fa", "-a", "db.fa"], "item 9"),
+    (["ild", "fit", "{d}/x"], "item 10"),
 ])
 def test_unported_paths_name_their_roadmap_item(planted, argv, item):
     if not (planted / "port.bkn.npz").exists():

@@ -247,12 +247,13 @@ def test_retrace_from_snapshot_equals_full_planes(ctx, runs):
 def test_links_pass_holds_no_planes(ctx, runs):
     """The links pass keeps O(S * T) int32 per problem: four link
     streams and a (T + 2)-wide entry snapshot of two boundary rows per
-    slab, and runs no trace-mode slab."""
+    slab (single affine), and runs no trace-mode slab."""
     cfg, prm, pprm, tables = ctx
     r = runs["rightcol"]
     pbp = r["pbp"]
     S, B, T = pbp.S, pbp.B, pbp.T
-    assert tuple(r["links"].shape) == (S, port_dp.NLINK, B, T)
+    assert tuple(r["links"].shape) == (S, port_dp.n_links(pprm), B, T)
+    assert port_dp.n_links(pprm) == 4
     assert tuple(r["snaps"].shape) == (S, 2, B, T + 2)
     before = dict(K.plain_calls)
     port_udh.links_pass(pbp, pprm)
@@ -261,7 +262,7 @@ def test_links_pass_holds_no_planes(ctx, runs):
     assert K.plain_calls["spliced_slab_trace"] == \
         before["spliced_slab_trace"]
     per_problem = (r["links"].numel() + r["snaps"].numel()) * 4 // B
-    planes = S * T * L * port_dp.PLANE_BYTES_PER_CELL
+    planes = S * T * L * port_dp.plane_bytes_per_cell(pprm)
     assert per_problem * 3 < planes
 
 
