@@ -13,7 +13,16 @@ spaln_tpu_torch/csrc/spliced_dp.cu (ten C entries), then:
    same for the double-affine (-yl3) entries on a bucket of the same
    shape whose genes also carry 30-90 nt in-exon indels (some path cell
    must be won by a long-gap state), and the score-only entry on that
-   bucket and on a protein batch of the search (B=64, L=128, full band);
+   bucket and on a protein batch of the search (B=64, L=128, full band).
+   Then a bucket of 17 slabs (B=4, L=128, W=256, queries of different
+   lengths), where the slab kernel's rounds of k slabs in flight wrap
+   twice and end part-full: every slab entry, single and double affine,
+   exactly equal to its plain version (run on CPU copies in parallel
+   processes), the retrace of slabs 2..16 equal to K1's planes.  Last a
+   timing-only bucket at tetrapod width (B=32, L=128, W=16,384, 12
+   slabs): K1, K4 and the retrace (one slab, as the UDH path runs it,
+   and slabs 1..11), each retrace's planes equal to K1's; ms per launch,
+   k, serial steps per launch and us per global step;
 2. map, small: `index` + `map -O0` and `-O4` of 4 planted genes through
    the CLI, once on the kernels and once with the DP forced through the
    plain versions on the card; the text must be byte-identical;
@@ -46,12 +55,19 @@ spaln_tpu_torch/csrc/spliced_dp.cu (ten C entries), then:
    hit, every score pass on the score-only entry and every traced hit on
    K1, K2e and K3; then `pair` on the 200 (query, source) pairs.
 
-Phases 3-7 also fail if per-query isolation skipped a query.  Prints
+Phases 3-7 also fail if per-query isolation skipped a query or a text's
+md5 differs from the one the phase has given since it was added.  Prints
 the card, per-kernel times, map throughput and stage seconds, a
 {"kernels": [...]} line, and last {"ok": true, "device": {...}}.  Exits
 non-zero, with no result, on any failure or without a CUDA device.
 Everything is made from fixed numpy seeds; scratch files go to
 smoke_work/ (removed at the end), map text to smoke_out/.
+
+    python3 chip_smoke.py --slab-timing [--package-root DIR]
+
+runs phase 1's tetrapod-width timing alone, of the package under DIR (an
+unpacked checkout of another commit; its tables from $ALN_TAB), and
+prints one JSON line: two commits timed in turns on one card.
 """
 from __future__ import annotations
 
@@ -130,6 +146,21 @@ def _mutate(rng, s: str, rate: float) -> str:
 
 def _md5(path: Path) -> str:
     return hashlib.md5(path.read_bytes()).hexdigest()
+
+
+# md5 (or its first 8 hex digits) of each deployment's text since its
+# phase was added; the dictdisc map's equals spaln_tpu's CPU run
+TEXT_MD5 = {"dictdisc map": "0ea2caf5ae1dcc3a7ddbe77efb9bf55c",
+            "tetrapod map": "2ff07584", "map -yl3": "d1d7735f",
+            "search": "efc6189b", "pair": "5c28654d"}
+
+
+def _check_md5(label: str, path: Path) -> str:
+    md5 = _md5(path)
+    if not md5.startswith(TEXT_MD5[label]):
+        raise AssertionError(f"{label}: text md5 {md5}, expected "
+                             f"{TEXT_MD5[label]}")
+    return md5
 
 
 def _timed(fn, reps: int) -> float:
@@ -220,6 +251,13 @@ def kernel_clock(K):
         torch.cuda.synchronize()
         for k, ev in events.items():
             out[k] = sum(a.elapsed_time(b) for a, b in ev)
+
+
+def _ms_launches(K, kms: dict) -> str:
+    """name -> [summed device ms, launches] of the entries a phase ran
+    (the counts are reset at the phase's start)."""
+    return json.dumps({k: [round(v, 3), K.launches[k]] for k, v in
+                       kms.items() if v or K.launches[k]})
 
 
 def _reset_counts(K) -> None:
@@ -651,6 +689,199 @@ def check_k5_kernels(K, dp, ctx3):
     return out
 
 
+def _cpu_bucket(bp):
+    """The bucket with its operands on the CPU."""
+    return dataclasses.replace(
+        bp, **{f.name: getattr(bp, f.name).cpu()
+               for f in dataclasses.fields(bp)
+               if isinstance(getattr(bp, f.name), torch.Tensor)})
+
+
+def _plain_job(job):
+    """One plain slab version on the CPU; a worker of check_tall_kernels.
+    Returns (outputs, ms)."""
+    from spaln_tpu_torch.ops import dp_spliced_cuda as K
+    torch.set_num_threads(1)
+    mode, bp, prm, extra = job
+    t0 = time.perf_counter()
+    if mode == "retrace":
+        out = K.slab_retrace_plain(bp, prm, *extra)
+    else:
+        out = K._slab_plain(bp, prm, mode=mode)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _tall_bucket(dp, ctx):
+    """B=4 planted one-intron genes whose cDNAs have 2,176, 1,700, 2,100
+    and 1,200 nt: S=17 slabs of L=128 in a band of W=256.  K1 runs 7
+    slabs in flight there (K1-dagp 5, K4 4, the score entries 8 and 4),
+    so every entry wraps two rounds and ends part-full, and the shorter
+    queries leave later sub-slabs past their last row."""
+    from spaln_tpu_torch.score.splice import build_splice_signals
+    from spaln_tpu_torch.seq.codec import encode_dna
+    rng = np.random.default_rng(SEED + 10)
+    queries, genomes, sigs, lws = [], [], [], []
+    for i, M in enumerate((2176, 1700, 2100, 1200)):
+        e1, e2 = _seq(rng, M // 2, 0.3), _seq(rng, M - M // 2, 0.3)
+        g = (_seq(rng, 60 + 5 * i, 0.22) + e1 + _intron(rng, 90 + 20 * i)
+             + e2 + _seq(rng, 80, 0.22))
+        gc = encode_dna(g)
+        queries.append(encode_dna(_mutate(rng, e1 + e2, 0.01)))
+        genomes.append(gc)
+        sigs.append(build_splice_signals(gc, ctx.cfg, ctx.tables))
+        lws.append(-40 - 3 * i)
+    bp = dp.prepare_spliced_batch(queries, genomes, ctx.prm, sigs=sigs,
+                                  lws=lws, W=256, L=128, device="cuda")
+    if (bp.S, bp.B, bp.L) != (17, 4, 128):
+        raise AssertionError(f"tall bucket geometry {bp.S, bp.B, bp.L}")
+    return bp
+
+
+def check_tall_kernels(K, dp, ctx, ctx3):
+    """Every slab entry against its plain version on a bucket of S=17
+    slabs (S >= 2k+1 for every entry), single and double affine: K1, K4
+    (links and snapshots at every position), the score entry and the
+    retrace of slabs 2..16 (more than k) from K4's snapshot, which also
+    equals K1's planes.  The plain versions run on CPU copies of the
+    operands, in parallel worker processes."""
+    from concurrent.futures import ProcessPoolExecutor
+    import multiprocessing
+    bp = _tall_bucket(dp, ctx)
+    cpu = _cpu_bucket(bp)
+    s0, nslab = 2, bp.S - 2
+    sel = torch.tensor([3, 0, 2, 1], dtype=torch.int32, device="cuda")
+    got, jobs = {}, {}
+    for prm in (ctx.prm, ctx3.prm):
+        d = "_dagp" if prm.dagp else ""
+        got["trace" + d] = K.spliced_slab_trace(bp, prm)
+        got["links" + d] = K.spliced_slab_links(bp, prm)
+        got["score" + d] = K.spliced_slab_score(bp, prm)
+        snap = got["links" + d][1][s0].index_select(1, sel.long())
+        snap = snap.contiguous()
+        got["retrace" + d] = K.spliced_slab_retrace(bp, prm, s0, nslab, snap,
+                                                    sel)
+        for mode in ("trace", "links", "score"):
+            jobs[mode + d] = (mode, cpu, prm, ())
+        jobs["retrace" + d] = ("retrace", cpu, prm,
+                               (s0, nslab, snap.cpu(), sel.cpu()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=len(jobs),
+                             mp_context=multiprocessing.get_context(
+                                 "spawn")) as pool:
+        futs = {name: pool.submit(_plain_job, job)
+                for name, job in jobs.items()}
+        plain = {name: f.result() for name, f in futs.items()}
+    wall = time.perf_counter() - t0
+    idx = sel.long()
+    for name, (want, ms) in plain.items():
+        have = [x.cpu() for x in got[name]]
+        _equal(f"tall bucket: {name}", have, want)
+        if name.startswith("retrace"):
+            k1 = got[name.replace("retrace", "trace")]
+            _equal(f"tall bucket: {name} vs K1's planes", got[name],
+                   (k1[0][s0:][:, :, idx], k1[1][s0:][:, :, :, idx]))
+    for d in ("", "_dagp"):
+        _equal(f"tall bucket: score{d} vs K1", got["score" + d],
+               got["trace" + d][2:])
+    if not (got["trace"][1] > 0).any():
+        raise AssertionError("no intron closed in the tall bucket")
+    A = bp.qprof.shape[2]
+    ks = {name: K.slab_geometry(name.split("_")[0].replace("retrace",
+                                                           "trace"),
+                                name.endswith("dagp"), bp.L, A,
+                                nslab if name.startswith("retrace")
+                                else bp.S)[0] for name in jobs}
+    log(f"tall bucket (B={bp.B} L={bp.L} W={bp.W} S={bp.S} T={bp.T}, "
+        f"queries of {bp.Ms}): every slab entry exact against its plain "
+        f"version, the retrace of slabs {s0}..{bp.S - 1} equal to K1's "
+        f"planes; k per entry {json.dumps(ks)}; plain versions on the "
+        f"CPU in {len(jobs)} processes, {wall:.1f} s")
+    return ks
+
+
+def _tetrapod_width_bucket(dp, ctx, B=32, W=16384):
+    """A bucket at tetrapod width: B genes of 8-11 exons of 60-300 nt
+    (cDNAs of 1,000-1,536 nt, S=12 slabs of L=128) whose introns
+    (log-uniform 0.5-5 kb) fill 50-90% of a band of W columns, in a
+    genome of GC ~41% with 300 nt flanks."""
+    from spaln_tpu_torch.score.splice import build_splice_signals
+    from spaln_tpu_torch.seq.codec import encode_dna
+    rng = np.random.default_rng(SEED + 11)
+    queries, genomes, sigs, lws = [], [], [], []
+    while len(queries) < B:
+        n_ex = int(rng.integers(8, 12))
+        lens = np.exp(rng.uniform(np.log(500), np.log(5000), n_ex - 1))
+        lens = lens * rng.uniform(0.5, 0.9) * W / lens.sum()
+        g, _, ex = _gene_parts(rng, n_ex, lambda j: int(lens[j]), 0.5, 0.38)
+        q = "".join(ex)
+        if not 1000 <= len(q) <= 1536:
+            continue
+        flank = 300
+        gc = encode_dna(_seq(rng, flank, 0.41) + g + _seq(rng, flank, 0.41))
+        queries.append(encode_dna(_mutate(rng, q, 0.01)))
+        genomes.append(gc)
+        sigs.append(build_splice_signals(gc, ctx.cfg, ctx.tables))
+        lws.append(flank - 201)
+    bp = dp.prepare_spliced_batch(queries, genomes, ctx.prm, sigs=sigs,
+                                  lws=lws, W=W, L=128, device="cuda")
+    if (bp.S, bp.B) != (12, B):
+        raise AssertionError(f"tetrapod-width bucket {bp.S, bp.B}")
+    return bp
+
+
+def slab_timing(K, dp, ctx):
+    """Times K1, K4 and the retrace (one slab, as the UDH path runs it,
+    and slabs 1..11) on the tetrapod-width bucket; the retraces' planes
+    must equal K1's.  Returns name -> ms per launch, k, CTAs per problem,
+    serial steps per launch (the critical path, slab_serial_steps) and
+    us per global step."""
+    bp = _tetrapod_width_bucket(dp, ctx)
+    prm, L, T, S = ctx.prm, bp.L, bp.T, bp.S
+    A = bp.qprof.shape[2]
+    sel = torch.arange(bp.B, dtype=torch.int32, device="cuda")
+    k1 = K.spliced_slab_trace(bp, prm)
+    snaps = K.spliced_slab_links(bp, prm)[1]
+    runs = {"spliced_slab_trace": ("trace", S,
+                                   lambda: K.spliced_slab_trace(bp, prm)),
+            "spliced_slab_links": ("links", S,
+                                   lambda: K.spliced_slab_links(bp, prm))}
+    for s0, nslab in ((1, 1), (1, S - 1)):
+        snap = snaps[s0].contiguous()
+        r = K.spliced_slab_retrace(bp, prm, s0, nslab, snap, sel)
+        if (_max_abs_err(r[0], k1[0][s0:s0 + nslab])
+                or _max_abs_err(r[1], k1[1][s0:s0 + nslab])):
+            raise AssertionError(f"tetrapod-width retrace of slabs "
+                                 f"{s0}..{s0 + nslab - 1} differs from "
+                                 f"K1's planes")
+        runs[f"spliced_slab_retrace x{nslab}"] = (
+            "trace", nslab,
+            lambda s0=s0, nslab=nslab, snap=snap: K.spliced_slab_retrace(
+                bp, prm, s0, nslab, snap, sel))
+        del r
+    del k1
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for name, (mode, nslab, fn) in runs.items():
+        # (a checkout from before a helper ran one CTA, or one slab, at
+        # a time)
+        k = (K.slab_geometry(mode, False, L, A, nslab)[0]
+             if hasattr(K, "slab_geometry") else 1)
+        ncta = (K.slab_ctas(k, nslab, bp.B, n_sm)
+                if hasattr(K, "slab_ctas") else 1)
+        steps = sum(T + 2 * (min(k, nslab - r) - 1) * L
+                    for r in range(0, nslab, k)) if ncta == 1 else \
+            K.slab_serial_steps(T, L, k, nslab, ncta)
+        ms = _timed(fn, 3)
+        out[name] = dict(ms=ms, k=k, ncta=ncta, steps=steps,
+                         us_per_step=ms * 1e3 / steps)
+        log(f"tetrapod-width bucket (B={bp.B} L={L} W={bp.W} S={S} T={T}): "
+            f"{name}: {ms:.3f} ms per launch, k={k} on {ncta} CTA(s) per "
+            f"problem, {steps} serial steps, {ms * 1e3 / steps:.4f} us per "
+            f"global step")
+    return out
+
+
 # --------------------------------------------------------------- phase 2
 def small_map(K, cli):
     """4 planted genes: kernels vs plain versions, byte for byte."""
@@ -806,7 +1037,8 @@ def full_map(K, cli, metrics):
         f"{dev:.3f} s -> {cells / max(dev, 1e-9) / 1e9:.3f} GCUPS")
     log(f"full map: {hit}/{len(truth)} = {100 * frac:.1f}% at the planted "
         f"locus and strand; exon recall {tp / max(n_true, 1):.4f}, "
-        f"precision {tp / max(n_rep, 1):.4f}; -O0,4 text md5 {_md5(out)}")
+        f"precision {tp / max(n_rep, 1):.4f}; -O0,4 text md5 "
+        f"{_check_md5('dictdisc map', out)}")
     if frac < 0.95:
         raise AssertionError(f"only {100 * frac:.1f}% of queries at their "
                              f"planted locus and strand")
@@ -974,8 +1206,8 @@ def tetrapod_map(K, cli, metrics):
             f"{c.get('udh_buckets', 0)}, plane buckets "
             f"{c.get('device_buckets', 0)}; stage seconds "
             f"{json.dumps(secs, sort_keys=True)}")
-        log(f"tetrapod map ({mode}): kernel ms "
-            f"{json.dumps({k: round(v, 3) for k, v in kms.items()})}; "
+        log(f"tetrapod map ({mode}): kernel ms, launches "
+            f"{_ms_launches(K, kms)}; "
             f"kernels busy {busy:.3f} s = {100 * busy / wall:.2f}% of the "
             f"wall; udh_dp_cells {c.get('udh_dp_cells', 0)}, "
             f"udh_retrace_cells {c.get('udh_retrace_cells', 0)}, "
@@ -992,7 +1224,8 @@ def tetrapod_map(K, cli, metrics):
     if runs["udh"]["counters"].get("udh_buckets", 0) < 1:
         raise AssertionError("tetrapod map: -A 3 ran no UDH bucket")
     log(f"tetrapod map: default and -A 3 -O0,4 texts byte-identical "
-        f"({len(texts['udh'])} bytes, md5 {_md5(out)})")
+        f"({len(texts['udh'])} bytes, md5 "
+        f"{_check_md5('tetrapod map', out)})")
     return runs, truth
 
 
@@ -1052,8 +1285,7 @@ def segment_align(K, cli, metrics):
     busy = sum(kms.values()) / 1e3
     log(f"segment align: {len(truth)} queries x {SEGMENT_LEN} nt in "
         f"{wall:.2f} s; counters {json.dumps(c, sort_keys=True)}")
-    log(f"segment align: kernel ms "
-        f"{json.dumps({k: round(v, 3) for k, v in kms.items()})}; kernels "
+    log(f"segment align: kernel ms, launches {_ms_launches(K, kms)}; kernels "
         f"busy {busy:.3f} s = {100 * busy / wall:.2f}% of the wall")
     log(f"segment align: {hit}/{len(truth)} at the planted locus and "
         f"strand; exon recall {rec:.4f}, precision {prec:.4f}; missed "
@@ -1170,8 +1402,8 @@ def tetrapod_yl3_map(K, cli, metrics, truth):
             f"{c.get('udh_buckets', 0)}, plane buckets "
             f"{c.get('device_buckets', 0)}; stage seconds "
             f"{json.dumps(secs, sort_keys=True)}")
-        log(f"map -yl3 ({mode}): kernel ms "
-            f"{json.dumps({k: round(v, 3) for k, v in kms.items() if v})}; "
+        log(f"map -yl3 ({mode}): kernel ms, launches "
+            f"{_ms_launches(K, kms)}; "
             f"kernels busy {busy:.3f} s = {100 * busy / wall:.2f}% of the "
             f"wall; udh_dp_cells {c.get('udh_dp_cells', 0)}, dp_cells "
             f"{c.get('dp_cells', 0)}")
@@ -1190,7 +1422,7 @@ def tetrapod_yl3_map(K, cli, metrics, truth):
     if _long_gap_rows(texts["udh"]) < 1:
         raise AssertionError("map -yl3: no exon holds a long gap")
     log(f"map -yl3: default and -A 3 -O0,4 texts byte-identical "
-        f"({len(texts['udh'])} bytes, md5 {_md5(out)})")
+        f"({len(texts['udh'])} bytes, md5 {_check_md5('map -yl3', out)})")
     return runs
 
 
@@ -1287,11 +1519,10 @@ def protein_search(K, cli, metrics):
             f"{len(truth) / wall:.3f} queries/s; {batches} score batches, "
             f"{traced} traced hits; stage seconds "
             f"{json.dumps(secs, sort_keys=True)}")
-        log(f"{cmd}: kernel ms "
-            f"{json.dumps({k: round(v, 3) for k, v in kms.items() if v})}; "
+        log(f"{cmd}: kernel ms, launches {_ms_launches(K, kms)}; "
             f"kernels busy {busy:.3f} s = {100 * busy / wall:.2f}% of the "
             f"wall; source as the top hit for {top}/{len(truth)}; text md5 "
-            f"{_md5(out)}")
+            f"{_check_md5(cmd, out)}")
         if top < 0.95 * len(truth):
             raise AssertionError(f"{cmd}: source the top hit of only {top} "
                                  f"of {len(truth)} queries")
@@ -1299,10 +1530,39 @@ def protein_search(K, cli, metrics):
     return runs
 
 
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
+def timing_main(argv: list) -> int:
+    """--slab-timing [--package-root DIR]: phase 1's tetrapod-width
+    timing alone, of the package under DIR (default: this checkout), so
+    that two commits are timed on one card; prints one JSON line."""
+    if argv[:1] == ["--package-root"]:
+        sys.path.insert(0, str(Path(argv[1]).resolve()))
+    from spaln_tpu_torch.align.driver import AlignerContext
+    from spaln_tpu_torch.ops import dp_spliced as dp
+    from spaln_tpu_torch.ops import dp_spliced_cuda as K
+    from spaln_tpu_torch.score.tables import TableDir, find_table_dir
+    log(_card())
+    so, secs, _ = K.build_library()
+    log(f"kernels of {K.__file__} built in {secs:.1f} s")
+    ctx = AlignerContext.create(
+        TableDir(find_table_dir(), species="Tetrapod"), "cuda")
+    print(json.dumps({"slab_timing": slab_timing(K, dp, ctx),
+                      "package": K.__file__}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--slab-timing"]:
+        return timing_main(sys.argv[2:])
     from spaln_tpu_torch import cli
     from spaln_tpu_torch.align.driver import AlignerContext
     from spaln_tpu_torch.ops import dp_spliced as dp
@@ -1310,11 +1570,7 @@ def main() -> int:
     from spaln_tpu_torch.score.tables import TableDir, find_table_dir
     from spaln_tpu_torch.utils.metrics import metrics
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
-    log(card)
+    log(_card())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     shutil.rmtree(WORK, ignore_errors=True)
@@ -1333,6 +1589,9 @@ def main() -> int:
             TableDir(find_table_dir(), species="Dictyost"), "cuda",
             y_args=["-yl3"])
         results.update(check_k5_kernels(K, dp, ctx3))
+        check_tall_kernels(K, dp, ctx, ctx3)
+        slab_timing(K, dp, AlignerContext.create(
+            TableDir(find_table_dir(), species="Tetrapod"), "cuda"))
         small_map(K, cli)
         plane_launches = full_map(K, cli, metrics)
         tetra, truth = tetrapod_map(K, cli, metrics)

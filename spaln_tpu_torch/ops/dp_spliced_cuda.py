@@ -41,6 +41,11 @@ raises: nothing falls back.  ``launches`` counts kernel launches per C
 entry and ``plain_calls`` calls of the plain versions under the same
 names, so a run can show which path it took.
 
+The slab entries run k slabs of a problem at once in one CTA, and a
+problem's rounds of k slabs on a cluster of CTAs: slab_geometry picks k
+and the shared memory, slab_ctas the CTAs per problem, for each launch;
+a launch the kernel cannot take raises.
+
 The kernels are built at first use with nvcc into csrc/build/ (one
 shared library with a plain C interface, bound with ctypes); a failed
 build raises.
@@ -131,12 +136,14 @@ def _library() -> ctypes.CDLL:
     so, _, _ = build_library()
     lib = ctypes.CDLL(str(so))
     P, I = ctypes.c_void_p, ctypes.c_int
-    # operands (7), then B, L, A, S and the 12 of _dp_ints
-    slab = [P] * 7 + [I] * 16
+    # operands (7), then B, L, A, S, k, smem, ncta, prog and the 12 of
+    # _dp_ints
+    slab = [P] * 7 + [I] * 7 + [P] + [I] * 12
     for name in ("spliced_slab_trace", "spliced_slab_trace_dagp"):
         getattr(lib, name).argtypes = slab + [P] * 5 + [P]
     for name in ("spliced_slab_retrace", "spliced_slab_retrace_dagp"):
-        getattr(lib, name).argtypes = [P] * 8 + [I] * 17 + [P] * 4 + [P]
+        getattr(lib, name).argtypes = ([P] * 8 + [I] * 8 + [P] + [I] * 12
+                                       + [P] * 4 + [P])
     for name in ("spliced_slab_links", "spliced_slab_links_dagp"):
         getattr(lib, name).argtypes = slab + [P] * 5 + [P]
     lib.spliced_slab_score.argtypes = slab + [I] + [P] * 3 + [P]
@@ -194,25 +201,130 @@ def _operand_checks(bp: BatchProblem) -> None:
         _check(nm, getattr(bp, nm), I32, (bp.B,), dev)
 
 
-def _slab_checks(bp: BatchProblem, prm: DpParams, links: bool) -> None:
-    """What the slab kernel (every mode) does not take."""
+# The slab kernel's geometry, as csrc/spliced_dp.cu has it (max_threads,
+# STAGE_C, slab_smem_ints): the most threads of each instance (mode,
+# dagp), its __launch_bounds__, set from its registers (nvcc -Xptxas -v)
+# so that none spills; genome columns per staged chunk; and the shared
+# memory one block of an H100 may take.
+SLAB_MAX_THREADS = {("trace", False): 896, ("trace", True): 640,
+                    ("links", False): 512, ("links", True): 512,
+                    ("score", False): 1024, ("score", True): 512}
+STAGE_C = 32
+SMEM_MAX = 232_448
+K_LANES = 128        # k sub-slabs at most as fit the thread budget at L=128
+CLUSTER_MAX = 8      # CTAs per problem at most (a portable cluster)
+
+
+def slab_smem(mode: str, dagp: bool, KL: int, A: int) -> int:
+    """Dynamic shared memory (bytes) of one CTA of KL threads: joint rows
+    and packed operands of k*L + 2*STAGE_C staged genome columns, two
+    landing chunks of the raw operand rows, the H/F(/F2) rings (and their
+    links in links mode) and the substitution rows (csrc slab_smem_ints)."""
+    rings = 7 if dagp else 5                 # H x3, F x2 (, F2 x2)
+    if mode == "links":
+        rings *= 2
+    return 4 * (19 * (KL + 2 * STAGE_C) + 12 * STAGE_C + rings * KL
+                + KL * A)
+
+
+def slab_geometry(mode: str, dagp: bool, L: int, A: int,
+                  S: int) -> tuple[int, int, int]:
+    """(k, threads, smem bytes) of one launch of the slab kernel in
+    ``mode`` ("trace", also for the retrace, "links" or "score") over S
+    slabs of L lanes and an alphabet of A: k slabs of a problem in flight
+    per CTA, as many as the instance's thread budget holds at L = 128
+    (k * max(L, 128) <= its threads), no more than S, and fewer where the
+    shared memory would pass the card's.  Raises ValueError for what the
+    kernel cannot take even one slab at a time."""
+    maxt = SLAB_MAX_THREADS[mode, dagp]
+    if not 3 <= L <= maxt:
+        raise ValueError(f"lanes L={L}: the slab kernel runs 3..{maxt} in "
+                         f"{mode} mode")
+    if A > 256:
+        raise ValueError(f"alphabet of {A}: residue codes are packed in a "
+                         f"byte")
+    k = max(1, min(maxt // max(L, K_LANES), S))
+    while k > 1 and slab_smem(mode, dagp, k * L, A) > SMEM_MAX:
+        k -= 1
+    smem = slab_smem(mode, dagp, k * L, A)
+    if smem > SMEM_MAX:
+        raise ValueError(f"slab kernel needs {smem} B of shared memory "
+                         f"(L={L}, A={A})")
+    return k, k * L, smem
+
+
+def slab_ctas(k: int, nslab: int, nb: int, n_sm: int) -> int:
+    """CTAs per problem (a cluster) for nb problems of nslab slabs, k in
+    flight: one per round of k slabs, at most CLUSTER_MAX, and no more
+    than the card's n_sm SMs hold for all nb problems at once (one CTA
+    fills an SM)."""
+    rounds = -(-nslab // k)
+    return max(1, min(CLUSTER_MAX, rounds, n_sm // max(nb, 1)))
+
+
+def slab_serial_steps(T: int, L: int, k: int, nslab: int,
+                      ncta: int = 1) -> int:
+    """Global steps of the critical path of nslab slabs, k at a time, on
+    ncta CTAs: a round of k' slabs takes T + 2 (k' - 1) L steps; on one
+    CTA the rounds run one after another, on more, round r runs on CTA
+    r % ncta after that CTA's previous round, and each STAGE_C steps of
+    it as soon as round r-1 has published (every STAGE_C steps) that it
+    is 2 k' L + STAGE_C steps ahead or done."""
+    C = STAGE_C
+    starts: list[list[int]] = []     # start of each chunk of each round
+    nsteps: list[int] = []
+
+    def end(r):                      # the step after round r's last
+        return starts[r][-1] + nsteps[r] - (len(starts[r]) - 1) * C
+
+    for r in range(-(-nslab // k)):
+        nstep = T + 2 * (min(k, nslab - r * k) - 1) * L
+        t = end(r - ncta) if r >= ncta else 0
+        chunks = []
+        for q in range(-(-nstep // C)):
+            if r and ncta > 1:
+                kp = min(k, nslab - (r - 1) * k)
+                need = min(q * C + 2 * kp * L + C, nsteps[r - 1])
+                # round r-1 publishes at its chunk ends and at its end
+                pub = need if need == nsteps[r - 1] else -(-need // C) * C
+                t = max(t, starts[r - 1][(pub - 1) // C] + (pub - 1) % C + 1)
+            chunks.append(t)
+            t += C
+        starts.append(chunks)
+        nsteps.append(nstep)
+    return max(end(r) for r in range(len(starts)))
+
+
+def _slab_checks(bp: BatchProblem, prm: DpParams, mode: str,
+                 nslab: int) -> tuple[int, int] | None:
+    """What the slab kernel (every mode) does not take; for tensors on a
+    CUDA device, the (k, smem) of slab_geometry for a launch over nslab
+    slabs."""
     if bp.flags.local:
         raise NotImplementedError(
             "the local mode of the slab kernel is not ported yet "
             "(ROADMAP.md Queue 1, item 9: K6)")
-    if links and bp.Nmax >= (1 << 28) - 2:
+    if mode == "links" and bp.Nmax >= (1 << 28) - 2:
         raise ValueError(f"window of {bp.Nmax} columns: links are "
                          f"column * 8 + state in int32")
     if bp.device.type == "cpu":
-        return
-    L, A = bp.L, bp.qprof.shape[2]
-    if not 3 <= L <= 256:
-        raise ValueError(f"lanes L={L}: the slab kernel runs 3..256")
-    rings = 7 if prm.dagp else 5          # H x3, F x2 (, F2 x2) per lane
-    smem = ((2 if links else 1) * rings * L + L * A) * 4
-    if smem > 48 * 1024:
-        raise ValueError(f"slab kernel needs {smem} B of shared memory")
+        return None
+    k, _, smem = slab_geometry(mode, prm.dagp, bp.L, bp.qprof.shape[2],
+                               nslab)
     _operand_checks(bp)
+    return k, smem
+
+
+def _geom_args(bp: BatchProblem, geom: tuple[int, int], nb: int,
+               nslab: int) -> tuple[torch.Tensor, tuple]:
+    """The progress scratch (nb * rounds ints, set by the kernel; the
+    caller holds it until the launch is queued) and the (k, smem, ncta,
+    prog) arguments of a launch over nb problems of nslab slabs, ncta
+    from slab_ctas for this card."""
+    k, smem = geom
+    n_sm = torch.cuda.get_device_properties(bp.device).multi_processor_count
+    prog = torch.empty(nb * -(-nslab // k), dtype=I32, device=bp.device)
+    return prog, (k, smem, slab_ctas(k, nslab, nb, n_sm), _ptr(prog))
 
 
 def _dp_ints(bp: BatchProblem, prm: DpParams) -> tuple:
@@ -244,7 +356,7 @@ def spliced_slab_trace(bp: BatchProblem, prm: DpParams):
     bit 4 F opened, bit 5 E2 opened, bit 6 F2 opened, 255 = inactive
     cell; spj[k]: 1 + donor boundary of the intron closed into state k
     here, 0 if none."""
-    _slab_checks(bp, prm, links=False)
+    geom = _slab_checks(bp, prm, "trace", bp.S)
     if bp.device.type == "cpu":
         return slab_trace_plain(bp, prm)
     B, L, S, T = bp.B, bp.L, bp.S, bp.T
@@ -254,8 +366,9 @@ def spliced_slab_trace(bp: BatchProblem, prm: DpParams):
     row = torch.empty((B, Np), dtype=I32, device=dev)
     rc = torch.empty((B, bp.Mpad + 1), dtype=I32, device=dev)
     bnd = _scratch(bp, prm, B)
+    prog, gargs = _geom_args(bp, geom, B, S)
     _launch(entry("spliced_slab_trace", prm), dev, *_operand_ptrs(bp), B,
-            L, bp.qprof.shape[2], S, *_dp_ints(bp, prm), _ptr(bnd),
+            L, bp.qprof.shape[2], S, *gargs, *_dp_ints(bp, prm), _ptr(bnd),
             _ptr(flags), _ptr(spj), _ptr(row), _ptr(rc))
     return flags, spj, row, rc
 
@@ -269,7 +382,7 @@ def spliced_slab_retrace(bp: BatchProblem, prm: DpParams, s0: int,
     boundary row at columns n = s0*L + 1 + lw + k, k = 0..T+1 (K4's
     snapshot of slab s0).  Returns (flags (nslab, T, B', L), spj (nslab,
     NS, T, B', L)), equal to K1's planes of those slabs and problems."""
-    _slab_checks(bp, prm, links=False)
+    geom = _slab_checks(bp, prm, "trace", nslab)
     nb = int(sel.shape[0])
     if not 0 <= s0 < s0 + nslab <= bp.S:
         raise ValueError(f"slabs {s0}..{s0 + nslab - 1} of {bp.S}")
@@ -282,8 +395,9 @@ def spliced_slab_retrace(bp: BatchProblem, prm: DpParams, s0: int,
     spj = torch.empty((nslab, n_states(prm), T, nb, L), dtype=I32,
                       device=dev)
     bnd = _scratch(bp, prm, nb)
+    prog, gargs = _geom_args(bp, geom, nb, nslab)
     _launch(entry("spliced_slab_retrace", prm), dev, *_operand_ptrs(bp),
-            _ptr(sel), nb, L, bp.qprof.shape[2], s0, nslab,
+            _ptr(sel), nb, L, bp.qprof.shape[2], s0, nslab, *gargs,
             *_dp_ints(bp, prm), _ptr(snap), _ptr(bnd), _ptr(flags),
             _ptr(spj))
     return flags, spj
@@ -302,7 +416,7 @@ def spliced_slab_links(bp: BatchProblem, prm: DpParams):
     where there is none), 4 boundary F2 of lane L-1.  snaps[s] is the H,
     F (and F2) boundary lane 0 reads in slab s, columns n = m0 + lw + k
     for k = 0..T+1 (NEV outside 0..Nmax+1)."""
-    _slab_checks(bp, prm, links=True)
+    geom = _slab_checks(bp, prm, "links", bp.S)
     if bp.device.type == "cpu":
         return slab_links_plain(bp, prm)
     B, L, S, T = bp.B, bp.L, bp.S, bp.T
@@ -313,8 +427,9 @@ def spliced_slab_links(bp: BatchProblem, prm: DpParams):
     row = torch.empty((B, Np), dtype=I32, device=dev)
     rc = torch.empty((B, bp.Mpad + 1), dtype=I32, device=dev)
     bnd = _scratch(bp, prm, B)
+    prog, gargs = _geom_args(bp, geom, B, S)
     _launch(entry("spliced_slab_links", prm), dev, *_operand_ptrs(bp), B,
-            L, bp.qprof.shape[2], S, *_dp_ints(bp, prm), _ptr(bnd),
+            L, bp.qprof.shape[2], S, *gargs, *_dp_ints(bp, prm), _ptr(bnd),
             _ptr(row), _ptr(rc), _ptr(links), _ptr(snaps))
     return links, snaps, row, rc
 
@@ -324,7 +439,7 @@ def spliced_slab_score(bp: BatchProblem, prm: DpParams):
     """K5, score-only mode: every slab of every problem with no planes
     and no links (single or double affine, by prm.dagp).  Returns (row,
     rc) as K1's, for K2e."""
-    _slab_checks(bp, prm, links=False)
+    geom = _slab_checks(bp, prm, "score", bp.S)
     if bp.device.type == "cpu":
         return slab_score_plain(bp, prm)
     B, L, S = bp.B, bp.L, bp.S
@@ -332,8 +447,9 @@ def spliced_slab_score(bp: BatchProblem, prm: DpParams):
     row = torch.empty((B, Np), dtype=I32, device=dev)
     rc = torch.empty((B, bp.Mpad + 1), dtype=I32, device=dev)
     bnd = _scratch(bp, prm, B)
+    prog, gargs = _geom_args(bp, geom, B, S)
     _launch("spliced_slab_score", dev, *_operand_ptrs(bp), B, L,
-            bp.qprof.shape[2], S, *_dp_ints(bp, prm), int(prm.dagp),
+            bp.qprof.shape[2], S, *gargs, *_dp_ints(bp, prm), int(prm.dagp),
             _ptr(bnd), _ptr(row), _ptr(rc))
     return row, rc
 

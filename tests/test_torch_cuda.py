@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card, at test sizes (L = 16 and 32 lanes, one to five slabs): exact
+card, at test sizes (L = 16 and 32 lanes, one to five slabs, and 19
+slabs of problems of different lengths, so that the slab kernel's
+rounds of k slabs in flight wrap twice and end part-full): exact
 equality of every output, single and double affine and score-only, and
 run_bucket, the UDH path and the protein search on the card equal to
 the CPU run.  Needs an NVIDIA GPU; skipped without one.  The machine with the
@@ -42,10 +44,14 @@ def setup():
 
 
 def _problems(cfg, tables, B, M, ilen, seed):
+    """B planted one-intron genes; M is the query length, or a list of
+    lengths taken in turn."""
     rng = np.random.default_rng(seed)
     bases = np.array(list("ACGT"))
     qs, gs, ss = [], [], []
+    Ms = M if isinstance(M, list) else [M]
     for i in range(B):
+        M = Ms[i % len(Ms)]
         e1 = "".join(rng.choice(bases, M // 2))
         e2 = "".join(rng.choice(bases, M - M // 2))
         gi = "GTAAGT" + "".join(rng.choice(bases, ilen - 13)) + "TTTCTAG"
@@ -261,3 +267,69 @@ def test_protein_search_on_card_equals_cpu(cuda):
         before["spliced_slab_score"] + 1
     assert K.launches["spliced_slab_trace"] == \
         before["spliced_slab_trace"] + 2
+
+
+@pytest.mark.parametrize("dagp,B", [(False, 3), (True, 3), (False, 45)])
+def test_tall_slab_rounds_equal_plain_on_card(cuda, setup, dagp, B):
+    """19 slabs of L = 16 and queries of 300, 170 and 260 rows: K1 runs
+    7 slabs in flight (K1-dagp 5, K4 4, the score entries 8 and 4), so its
+    rounds wrap twice and the last is part-full, and later sub-slabs
+    hold rows past a shorter query; the rounds run on a cluster of one
+    CTA per round, or with B = 45 problems on fewer CTAs than rounds.
+    Every slab entry equals its plain version, K4's links and snapshots
+    at every position; the retrace of slabs 1..18 (more than k) from
+    K4's snapshot equals K1's planes and its plain version."""
+    cfg, prm, tables = setup
+    p = _dagp(prm) if dagp else prm
+    qs, gs, ss = _problems(cfg, tables, B, [300, 170, 260], 70, seed=11)
+    bp = dp.prepare_spliced_batch(qs, gs, p, sigs=ss, L=16, device=cuda,
+                                  lws=[-20, -28, -24] * (B // 3), W=128)
+    A = bp.qprof.shape[2]
+    ks = [K.slab_geometry(m, dagp, 16, A, bp.S)[0]
+          for m in ("trace", "links", "score")]
+    assert bp.S == 19 and all(bp.S >= 2 * k + 1 for k in ks)
+    k1 = K.spliced_slab_trace(bp, p)
+    for a, b in zip(k1, K.slab_trace_plain(bp, p)):
+        assert torch.equal(a, b)
+    assert (k1[1] > 0).any()
+    k4 = K.spliced_slab_links(bp, p)
+    for a, b in zip(k4, K.slab_links_plain(bp, p)):
+        assert torch.equal(a, b)
+    row, rc = K.spliced_slab_score(bp, p)
+    pr, pc = K.slab_score_plain(bp, p)
+    assert torch.equal(row, pr) and torch.equal(rc, pc)
+    assert torch.equal(row, k1[2]) and torch.equal(rc, k1[3])
+    sel = torch.arange(B, dtype=torch.int32, device=cuda).roll(1)
+    idx = sel.long()
+    snap = k4[1][1].index_select(1, idx).contiguous()
+    fl, sp = K.spliced_slab_retrace(bp, p, 1, 18, snap, sel)
+    assert torch.equal(fl, k1[0][1:][:, :, idx])
+    assert torch.equal(sp, k1[1][1:][:, :, :, idx])
+    pl = K.slab_retrace_plain(bp, p, 1, 18, snap, sel)
+    assert torch.equal(fl, pl[0]) and torch.equal(sp, pl[1])
+    torch.cuda.synchronize()
+
+
+def test_refused_slab_launch_raises_on_card(cuda, setup):
+    """A geometry the slab kernel cannot take raises: in slab_geometry
+    before the launch, and from the C entry's refusal (more sub-slabs
+    than the instance's thread budget) through _launch; nothing falls
+    back to fewer slabs in flight or to the plain version."""
+    cfg, prm, tables = setup
+    qs, gs, ss = _problems(cfg, tables, 2, 40, 60, seed=1)
+    wide = dp.prepare_spliced_batch(qs, gs, _dagp(prm), sigs=ss, L=700,
+                                    device=cuda)
+    before = dict(K.plain_calls)
+    with pytest.raises(ValueError, match="lanes L=700"):
+        K.spliced_slab_trace(wide, _dagp(prm))
+    bp = dp.prepare_spliced_batch(qs, gs, prm, sigs=ss, L=16, device=cuda)
+    A = bp.qprof.shape[2]
+    bnd = K._scratch(bp, prm, bp.B)
+    out = [torch.empty(1, dtype=torch.int32, device=cuda) for _ in range(4)]
+    smem = K.slab_smem("trace", False, 128 * 16, A)
+    prog = torch.empty(bp.B * bp.S, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        K._launch("spliced_slab_trace", cuda, *K._operand_ptrs(bp), bp.B,
+                  16, A, bp.S, 128, smem, 1, K._ptr(prog),
+                  *K._dp_ints(bp, prm), K._ptr(bnd), *map(K._ptr, out))
+    assert K.plain_calls == before
