@@ -9,7 +9,8 @@ spaln_tpu_torch/csrc/spliced_dp.cu (ten C entries), then:
    planted introns) through each kernel and its plain PyTorch version on
    the card; outputs must be exactly equal (integer DP: tolerance 0).
    K4 (links), K1's retrace of slab 1 from K4's snapshot (against the
-   full K1 planes of slab 1) and K3's strip mode included.  Then the
+   full K1 planes of slab 1) and K3's strip mode (spliced_tb_strips)
+   included.  Then the
    same for the double-affine (-yl3) entries on a bucket of the same
    shape whose genes also carry 30-90 nt in-exon indels (some path cell
    must be won by a long-gap state), and the score-only entry on that
@@ -18,11 +19,17 @@ spaln_tpu_torch/csrc/spliced_dp.cu (ten C entries), then:
    lengths), where the slab kernel's rounds of k slabs in flight wrap
    twice and end part-full: every slab entry, single and double affine,
    exactly equal to its plain version (run on CPU copies in parallel
-   processes), the retrace of slabs 2..16 equal to K1's planes.  Last a
-   timing-only bucket at tetrapod width (B=32, L=128, W=16,384, 12
-   slabs): K1, K4 and the retrace (one slab, as the UDH path runs it,
-   and slabs 1..11), each retrace's planes equal to K1's; ms per launch,
-   k, serial steps per launch and us per global step;
+   processes), the retrace of slabs 2..16 equal to K1's planes, and the
+   UDH path on that bucket as it runs (every path's slab run in one
+   retrace launch, every strip in one spliced_tb_strips launch, exact
+   against its plain version) with the same op streams as the one-slab
+   path (one problem-slab a retrace launch) and as run_bucket.  Last
+   timing-only buckets at tetrapod width (B=32, L=128, W=16,384, 12
+   slabs) and of a one-problem align window (B=1, W=65,536, 12 slabs):
+   K1, K4 and the retrace (one slab; slabs 1..11; all 12 slabs of every
+   problem, as the UDH path launches them, at its own k and at k = 1, 2,
+   3, 4, 7), each retrace's planes equal to K1's; ms per launch, k, CTAs
+   per problem, serial steps per launch and us per global step;
 2. map, small: `index` + `map -O0` and `-O4` of 4 planted genes through
    the CLI, once on the kernels and once with the DP forced through the
    plain versions on the card; the text must be byte-identical;
@@ -35,8 +42,9 @@ spaln_tpu_torch/csrc/spliced_dp.cu (ten C entries), then:
    48 planted genes of 4-10 exons and kilobase introns, `map -T Tetrapod
    -O0,4` with the size-driven choice and again with every multi-slab
    bucket forced through UDH (-A 3): the texts must be byte-identical,
-   every UDH bucket must run on K4, K1 retrace and K3 strip with no plain
-   call, and >= 90% of queries must be at their planted locus and strand;
+   every UDH bucket must run on K4, K1 retrace and K3 strip (one strip
+   launch per retrace launch) with no plain call, and >= 90% of queries
+   must be at their planted locus and strand;
 5. align: one 2.4 Mb genomic segment with 8 planted cDNA genes (two with
    an intron over 16,384 nt, one across the 2 Mb chunk seam), `align -T
    Tetrapod -O0,4`; all 8 must be found at their locus and strand, and
@@ -65,7 +73,7 @@ smoke_work/ (removed at the end), map text to smoke_out/.
 
     python3 chip_smoke.py --slab-timing [--package-root DIR]
 
-runs phase 1's tetrapod-width timing alone, of the package under DIR (an
+runs phase 1's timing buckets alone, of the package under DIR (an
 unpacked checkout of another commit; its tables from $ALN_TAB), and
 prints one JSON line: two commits timed in turns on one card.
 """
@@ -99,7 +107,7 @@ REPLACES = {
     "spliced_slab_score": "spaln_tpu/ops/dp_spliced_pallas.py:195",
     "spliced_last_ends": "spaln_tpu/ops/dp_spliced_pallas.py:1122",
     "spliced_tb_walk": "spaln_tpu/ops/dp_spliced_scan.py:1127",
-    "spliced_tb_strip": "spaln_tpu/ops/dp_spliced_scan.py:1235",
+    "spliced_tb_strips": "spaln_tpu/ops/dp_spliced_scan.py:1235",
 }
 
 # Least time the card could take: H100 SXM HBM3 at 3.35 TB/s; int32 at
@@ -228,9 +236,11 @@ def _operand_bytes(bp) -> int:
 
 
 @contextlib.contextmanager
-def kernel_clock(K):
+def kernel_clock(K, retraces: list | None = None):
     """Time every C entry's launches with CUDA events while the block
-    runs; yields a dict name -> device ms, filled on exit."""
+    runs; yields a dict name -> device ms, filled on exit.  Appends each
+    retrace launch's (problems, slabs, k, CTAs per problem) to
+    ``retraces``."""
     events = {k: [] for k in K.KERNELS}
     orig = K._launch
 
@@ -241,6 +251,8 @@ def kernel_clock(K):
         orig(name, device, *args)
         e1.record()
         events[name].append((e0, e1))
+        if retraces is not None and name.startswith("spliced_slab_retrace"):
+            retraces.append((args[8], args[12], args[13], args[15]))
 
     out: dict = {}
     K._launch = timed
@@ -251,6 +263,14 @@ def kernel_clock(K):
         torch.cuda.synchronize()
         for k, ev in events.items():
             out[k] = sum(a.elapsed_time(b) for a, b in ev)
+
+
+def _retrace_shapes(retraces: list) -> str:
+    """'count x (problems, slabs, k, CTAs)' of a phase's retrace launches."""
+    c = {}
+    for r in retraces:
+        c[r] = c.get(r, 0) + 1
+    return ", ".join(f"{n} x {r}" for r, n in sorted(c.items()))
 
 
 def _ms_launches(K, kms: dict) -> str:
@@ -386,27 +406,24 @@ def check_kernels(K, dp, ctx):
     # ---- K3 strip mode: slab 1's strips from the end cells, against its
     # plain version and against the full walk's ops below the boundary
     L = bp.L
-    e_h = e_k.cpu().numpy()
-    starts = torch.tensor([[int(e[1]), int(e[2]), 0, L] if e[1] > L
-                           else [0, 0, 0, L] for e in e_h],
-                          dtype=torch.int32, device="cuda")
+    starts = _end_strips(e_k, L)
     IT = dp.strip_walk_bound(L, bp.W)
-    rs_k = K.spliced_tb_strip(r1[0], r1[1], starts, bp.lws_t, 1, IT)
-    rs_p = K.tb_strip_plain(r1[0], r1[1], starts, bp.lws_t, 1, IT)
+    rs_k = K.spliced_tb_strips(r1[0], r1[1], starts, bp.lws_t, 1, IT)
+    rs_p = K.tb_strips_plain(r1[0], r1[1], starts, bp.lws_t, 1, IT)
     err = _max_abs_err(rs_k, rs_p)
     if err:
-        raise AssertionError(f"spliced_tb_strip differs from plain: {err}")
+        raise AssertionError(f"spliced_tb_strips differs from plain: {err}")
     strips = dp.ops_from_records(rs_k.cpu().numpy(), bp.B)
     if strips != [[o for o in x if o[1] > L] for x in ops]:
         raise AssertionError("strip walks differ from the full walk")
     if sum(map(len, strips)) == 0:
         raise AssertionError("no strip walked in slab 1")
-    out["spliced_tb_strip"] = dict(
+    out["spliced_tb_strips"] = dict(
         max_abs_err=err,
-        ms=_timed(lambda: K.spliced_tb_strip(r1[0], r1[1], starts,
-                                             bp.lws_t, 1, IT), 20),
-        plain_ms=_timed(lambda: K.tb_strip_plain(r1[0], r1[1], starts,
-                                                 bp.lws_t, 1, IT), 2))
+        ms=_timed(lambda: K.spliced_tb_strips(r1[0], r1[1], starts,
+                                              bp.lws_t, 1, IT), 20),
+        plain_ms=_timed(lambda: K.tb_strips_plain(r1[0], r1[1], starts,
+                                                  bp.lws_t, 1, IT), 2))
     # ---- bounds from this run's inputs
     B, S, T, A = bp.B, bp.S, bp.T, bp.qprof.shape[2]
     Np = bp.Nmax + 1
@@ -428,7 +445,7 @@ def check_kernels(K, dp, ctx):
                                  + d1 * OPS_DON),
         "spliced_last_ends": (rowrc + 24 * B, 2 * B * (Np + bp.Mpad)),
         "spliced_tb_walk": (25 * steps, OPS_WALK * steps),
-        "spliced_tb_strip": (25 * steps_s, OPS_WALK * steps_s),
+        "spliced_tb_strips": (25 * steps_s, OPS_WALK * steps_s),
     }
     for name, (nb, no) in work.items():
         out[name]["bound_ms"], out[name]["bound_by"] = _bound(nb, no)
@@ -442,6 +459,15 @@ def check_kernels(K, dp, ctx):
             f"{S * T * B * L} lane-steps, {acc} acceptor and {don} donor "
             f"cells; slab 1: {c1} band cells)")
     return out
+
+
+def _end_strips(ends, L):
+    """Strip starts (m, n, state, m_stop, problem) of slab 1 from each
+    problem's end cell (no walk where the end lies above the slab)."""
+    return torch.tensor([[int(e[1]), int(e[2]), 0, L, b] if e[1] > L
+                         else [0, 0, 0, L, b]
+                         for b, e in enumerate(ends.cpu().numpy())],
+                        dtype=torch.int32, device="cuda")
 
 
 def _indel_bucket(dp, ctx):
@@ -619,15 +645,12 @@ def check_k5_kernels(K, dp, ctx3):
         plain_ms=plain1r,
         ms=_timed(lambda: K.spliced_slab_retrace(bp, prm, 1, 1, snap, sel),
                   5))
-    e_h = e_k.cpu().numpy()
-    starts = torch.tensor([[int(e[1]), int(e[2]), 0, L] if e[1] > L
-                           else [0, 0, 0, L] for e in e_h],
-                          dtype=torch.int32, device="cuda")
+    starts = _end_strips(e_k, L)
     IT = dp.strip_walk_bound(L, bp.W)
-    rs_k = K.spliced_tb_strip(r1[0], r1[1], starts, bp.lws_t, 1, IT)
+    rs_k = K.spliced_tb_strips(r1[0], r1[1], starts, bp.lws_t, 1, IT)
     walks["strip"] = _equal(
-        "spliced_tb_strip (5 states)", [rs_k],
-        [K.tb_strip_plain(r1[0], r1[1], starts, bp.lws_t, 1, IT)])
+        "spliced_tb_strips (5 states)", [rs_k],
+        [K.tb_strips_plain(r1[0], r1[1], starts, bp.lws_t, 1, IT)])
     strips = dp.ops_from_records(rs_k.cpu().numpy(), bp.B)
     if strips != [[o for o in x if o[1] > L] for x in ops]:
         raise AssertionError("dagp strip walks differ from the full walk")
@@ -786,6 +809,8 @@ def check_tall_kernels(K, dp, ctx, ctx3):
                got["trace" + d][2:])
     if not (got["trace"][1] > 0).any():
         raise AssertionError("no intron closed in the tall bucket")
+    udh = {("_dagp" if prm.dagp else ""): _udh_both_ways(K, dp, bp, prm)
+           for prm in (ctx.prm, ctx3.prm)}
     A = bp.qprof.shape[2]
     ks = {name: K.slab_geometry(name.split("_")[0].replace("retrace",
                                                            "trace"),
@@ -797,14 +822,62 @@ def check_tall_kernels(K, dp, ctx, ctx3):
         f"version, the retrace of slabs {s0}..{bp.S - 1} equal to K1's "
         f"planes; k per entry {json.dumps(ks)}; plain versions on the "
         f"CPU in {len(jobs)} processes, {wall:.1f} s")
+    for d, (n_one, n_strips) in udh.items():
+        log(f"tall bucket: UDH{d or ' (single affine)'}: every path's slab "
+            f"run in one retrace launch and its {n_strips} strips in one "
+            f"spliced_tb_strips launch, exact against its plain version; "
+            f"op streams equal to the one-slab path's ({n_one} retrace "
+            f"launches of one problem-slab) and to run_bucket's")
     return ks
 
 
-def _tetrapod_width_bucket(dp, ctx, B=32, W=16384):
+def _udh_both_ways(K, dp, bp, prm):
+    """The UDH path on a bucket as it runs (every path's slab run in one
+    retrace launch, all strips in one strip launch) against the one-slab
+    path (the retrace at a budget of one problem-slab a launch) and the
+    plane path (run_bucket); the strip launch's records against its
+    plain version.  Returns (launches of the one-slab path, strips)."""
+    from spaln_tpu_torch.ops import dp_spliced_udh as U
+    seen = []
+    orig = U.spliced_tb_strips
+
+    def capture(*args):
+        seen.append((*args, orig(*args)))
+        return seen[-1][-1]
+
+    U.spliced_tb_strips = capture
+    try:
+        multi = U.run_spliced_batch_udh(bp, prm)
+        n_multi = len(seen)
+        before = K.launches[K.entry("spliced_slab_retrace", prm)]
+        one = U.run_spliced_batch_udh(
+            bp, prm, bp.T * bp.L * dp.plane_bytes_per_cell(prm))
+        n_one = K.launches[K.entry("spliced_slab_retrace", prm)] - before
+    finally:
+        U.spliced_tb_strips = orig
+    label = f"tall bucket UDH (dagp={prm.dagp})"
+    if n_multi != 1 or n_one < bp.S:
+        raise AssertionError(f"{label}: {n_multi} strip launches, {n_one} "
+                             f"one-slab retrace launches")
+    *args, recs = seen[0]
+    _equal(f"{label}: spliced_tb_strips", [recs],
+           [K.tb_strips_plain(*args)])
+    planes = K.run_bucket(bp, prm)
+    for name, other in (("the one-slab path", one), ("run_bucket", planes)):
+        if (not np.array_equal(multi[0], other[0])
+                or [tuple(e) for e in multi[1]] != [tuple(e) for e in other[1]]
+                or multi[2] != other[2]):
+            raise AssertionError(f"{label}: differs from {name}")
+    if not all(any(o[0] == "I" for o in ops) for ops in multi[2]):
+        raise AssertionError(f"{label}: a planted intron was not recovered")
+    return n_one, int(args[2].shape[0])
+
+
+def _tetrapod_width_bucket(dp, ctx, B=32, W=16384, min_len=1000):
     """A bucket at tetrapod width: B genes of 8-11 exons of 60-300 nt
-    (cDNAs of 1,000-1,536 nt, S=12 slabs of L=128) whose introns
-    (log-uniform 0.5-5 kb) fill 50-90% of a band of W columns, in a
-    genome of GC ~41% with 300 nt flanks."""
+    (cDNAs of min_len-1,536 nt, S=12 slabs of L=128 for B=32) whose
+    introns (log-uniform 0.5-5 kb) fill 50-90% of a band of W columns, in
+    a genome of GC ~41% with 300 nt flanks."""
     from spaln_tpu_torch.score.splice import build_splice_signals
     from spaln_tpu_torch.seq.codec import encode_dna
     rng = np.random.default_rng(SEED + 11)
@@ -815,7 +888,7 @@ def _tetrapod_width_bucket(dp, ctx, B=32, W=16384):
         lens = lens * rng.uniform(0.5, 0.9) * W / lens.sum()
         g, _, ex = _gene_parts(rng, n_ex, lambda j: int(lens[j]), 0.5, 0.38)
         q = "".join(ex)
-        if not 1000 <= len(q) <= 1536:
+        if not min_len <= len(q) <= 1536:
             continue
         flank = 300
         gc = encode_dna(_seq(rng, flank, 0.41) + g + _seq(rng, flank, 0.41))
@@ -830,56 +903,115 @@ def _tetrapod_width_bucket(dp, ctx, B=32, W=16384):
     return bp
 
 
-def slab_timing(K, dp, ctx):
-    """Times K1, K4 and the retrace (one slab, as the UDH path runs it,
-    and slabs 1..11) on the tetrapod-width bucket; the retraces' planes
-    must equal K1's.  Returns name -> ms per launch, k, CTAs per problem,
-    serial steps per launch (the critical path, slab_serial_steps) and
-    us per global step."""
-    bp = _tetrapod_width_bucket(dp, ctx)
-    prm, L, T, S = ctx.prm, bp.L, bp.T, bp.S
+SWEEP_K = (1, 2, 3, 4, 7)
+
+
+@contextlib.contextmanager
+def _retrace_k(K, k):
+    """Force the retrace's k (the sweep): through retrace_geometry or, in
+    a checkout from before it, through slab_geometry; None leaves the
+    checkout's own choice."""
+    name = ("retrace_geometry" if hasattr(K, "retrace_geometry")
+            else "slab_geometry")
+    orig = getattr(K, name)
+    if k is not None:
+        setattr(K, name, (lambda dagp, L, A, nslab, nb, n_sm:
+                          K.slab_geometry("trace", dagp, L, A, k))
+                if name == "retrace_geometry" else
+                (lambda mode, dagp, L, A, S: orig(mode, dagp, L, A,
+                                                  min(S, k))))
+    try:
+        yield
+    finally:
+        setattr(K, name, orig)
+
+
+def _retrace_geom(K, bp, nslab, k):
+    """(k, CTAs per problem) of a retrace of all bp.B problems over
+    nslab slabs, at k or at the checkout's own choice (None)."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     A = bp.qprof.shape[2]
+    if k is None:
+        k = (K.retrace_geometry(False, bp.L, A, nslab, bp.B, n_sm)[0]
+             if hasattr(K, "retrace_geometry")
+             else K.slab_geometry("trace", False, bp.L, A, nslab)[0])
+    return k, K.slab_ctas(k, nslab, bp.B, n_sm)
+
+
+def slab_timing(K, dp, ctx):
+    """Times, on the tetrapod-width bucket, K1, K4 and the retrace: as
+    the UDH path launches it (the 12 slabs of every problem from K4's
+    snapshot of slab 0 in one launch) at the checkout's own k and at k =
+    1, 2, 3, 4, 7, beside the one-slab launch (slab 1) and slabs 1..11;
+    then the retrace of a one-problem align window (B=1, W=65,536, 12
+    slabs) in the same ways.  Every retrace's planes must equal K1's.
+    Returns name -> ms per launch, k, CTAs per problem, serial steps per
+    launch (the critical path, slab_serial_steps) and us per global
+    step."""
+    out = {}
+    for tag, bp in (("", _tetrapod_width_bucket(dp, ctx)),
+                    (" window", _tetrapod_width_bucket(
+                        dp, ctx, B=1, W=65536, min_len=1409))):
+        out.update(_slab_timing(K, bp, ctx.prm, tag))
+        del bp
+        torch.cuda.empty_cache()
+    return out
+
+
+def _slab_timing(K, bp, prm, tag):
+    L, T, S = bp.L, bp.T, bp.S
+    A = bp.qprof.shape[2]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     sel = torch.arange(bp.B, dtype=torch.int32, device="cuda")
     k1 = K.spliced_slab_trace(bp, prm)
     snaps = K.spliced_slab_links(bp, prm)[1]
-    runs = {"spliced_slab_trace": ("trace", S,
-                                   lambda: K.spliced_slab_trace(bp, prm)),
-            "spliced_slab_links": ("links", S,
-                                   lambda: K.spliced_slab_links(bp, prm))}
-    for s0, nslab in ((1, 1), (1, S - 1)):
+    runs = {}
+    if not tag:
+        runs["spliced_slab_trace"] = ("trace", S, None,
+                                      lambda: K.spliced_slab_trace(bp, prm))
+        runs["spliced_slab_links"] = ("links", S, None,
+                                      lambda: K.spliced_slab_links(bp, prm))
+    for s0, nslab, ks in ((1, 1, [None]), (1, S - 1, [None]),
+                          (0, S, [None, *SWEEP_K])):
         snap = snaps[s0].contiguous()
-        r = K.spliced_slab_retrace(bp, prm, s0, nslab, snap, sel)
-        if (_max_abs_err(r[0], k1[0][s0:s0 + nslab])
-                or _max_abs_err(r[1], k1[1][s0:s0 + nslab])):
-            raise AssertionError(f"tetrapod-width retrace of slabs "
-                                 f"{s0}..{s0 + nslab - 1} differs from "
-                                 f"K1's planes")
-        runs[f"spliced_slab_retrace x{nslab}"] = (
-            "trace", nslab,
-            lambda s0=s0, nslab=nslab, snap=snap: K.spliced_slab_retrace(
-                bp, prm, s0, nslab, snap, sel))
-        del r
+        for k in ks:
+            with _retrace_k(K, k):
+                r = K.spliced_slab_retrace(bp, prm, s0, nslab, snap, sel)
+            if not (torch.equal(r[0], k1[0][s0:s0 + nslab])
+                    and torch.equal(r[1], k1[1][s0:s0 + nslab])):
+                raise AssertionError(f"retrace of slabs {s0}..{s0 + nslab - 1}"
+                                     f"{tag} at k={k} differs from K1's "
+                                     f"planes")
+            del r
+            name = (f"spliced_slab_retrace{tag} x{nslab}"
+                    + (f" from {s0}" if s0 == 0 else "")
+                    + (f" k={k}" if k is not None else ""))
+            runs[name] = ("retrace", nslab, k,
+                          lambda s0=s0, nslab=nslab, snap=snap, k=k:
+                          _with_k(K, k, lambda: K.spliced_slab_retrace(
+                              bp, prm, s0, nslab, snap, sel)))
     del k1
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
-    for name, (mode, nslab, fn) in runs.items():
-        # (a checkout from before a helper ran one CTA, or one slab, at
-        # a time)
-        k = (K.slab_geometry(mode, False, L, A, nslab)[0]
-             if hasattr(K, "slab_geometry") else 1)
-        ncta = (K.slab_ctas(k, nslab, bp.B, n_sm)
-                if hasattr(K, "slab_ctas") else 1)
-        steps = sum(T + 2 * (min(k, nslab - r) - 1) * L
-                    for r in range(0, nslab, k)) if ncta == 1 else \
-            K.slab_serial_steps(T, L, k, nslab, ncta)
+    for name, (mode, nslab, kf, fn) in runs.items():
+        if mode == "retrace":
+            k, ncta = _retrace_geom(K, bp, nslab, kf)
+        else:
+            k = K.slab_geometry(mode, False, L, A, nslab)[0]
+            ncta = K.slab_ctas(k, nslab, bp.B, n_sm)
+        steps = K.slab_serial_steps(T, L, k, nslab, ncta)
         ms = _timed(fn, 3)
         out[name] = dict(ms=ms, k=k, ncta=ncta, steps=steps,
                          us_per_step=ms * 1e3 / steps)
-        log(f"tetrapod-width bucket (B={bp.B} L={L} W={bp.W} S={S} T={T}): "
-            f"{name}: {ms:.3f} ms per launch, k={k} on {ncta} CTA(s) per "
-            f"problem, {steps} serial steps, {ms * 1e3 / steps:.4f} us per "
-            f"global step")
+        log(f"tetrapod-width bucket{tag} (B={bp.B} L={L} W={bp.W} S={S} "
+            f"T={T}): {name}: {ms:.3f} ms per launch, k={k} on {ncta} "
+            f"CTA(s) per problem, {steps} serial steps, "
+            f"{ms * 1e3 / steps:.4f} us per global step")
     return out
+
+
+def _with_k(K, k, fn):
+    with _retrace_k(K, k):
+        return fn()
 
 
 # --------------------------------------------------------------- phase 2
@@ -1159,11 +1291,12 @@ def _check_udh_kernels(K, metrics, label: str) -> None:
     version ran; no query was skipped."""
     _check_no_skips(metrics, label)
     udh = metrics.counters.get("udh_buckets", 0)
-    if udh and not all(K.launches[k] >= udh for k in
-                       ("spliced_slab_links", "spliced_slab_retrace",
-                        "spliced_tb_strip")):
+    n = K.launches
+    if udh and not (n["spliced_slab_links"] >= udh
+                    and n["spliced_tb_strips"] == n["spliced_slab_retrace"]
+                    >= udh):
         raise AssertionError(f"{label}: {udh} UDH buckets, launches "
-                             f"{dict(K.launches)}")
+                             f"{dict(n)}")
     if any(K.plain_calls.values()):
         raise AssertionError(f"{label}: plain versions ran: "
                              f"{K.plain_calls}")
@@ -1185,7 +1318,8 @@ def tetrapod_map(K, cli, metrics):
         metrics.reset()
         _reset_counts(K)
         out = OUT / f"tetra.{mode}.O0_4"
-        with kernel_clock(K) as kms:
+        retraces = []
+        with kernel_clock(K, retraces) as kms:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             cli.main(["map", str(d / "cdna.fa"), "-d", str(d / "genome"),
@@ -1211,7 +1345,8 @@ def tetrapod_map(K, cli, metrics):
             f"kernels busy {busy:.3f} s = {100 * busy / wall:.2f}% of the "
             f"wall; udh_dp_cells {c.get('udh_dp_cells', 0)}, "
             f"udh_retrace_cells {c.get('udh_retrace_cells', 0)}, "
-            f"dp_cells {c.get('dp_cells', 0)}")
+            f"dp_cells {c.get('dp_cells', 0)}; retrace launches (problems, "
+            f"slabs, k, CTAs) {_retrace_shapes(retraces)}")
         log(f"tetrapod map ({mode}): {hit}/{len(truth)} = "
             f"{100 * hit / len(truth):.1f}% at the planted locus and "
             f"strand; exon recall {rec:.4f}, precision {prec:.4f}; "
@@ -1271,7 +1406,8 @@ def segment_align(K, cli, metrics):
     metrics.reset()
     _reset_counts(K)
     out = OUT / "segment.O0_4"
-    with kernel_clock(K) as kms:
+    retraces = []
+    with kernel_clock(K, retraces) as kms:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         cli.main(["align", str(d / "segment.fa"), str(d / "cdna.fa"), "-T",
@@ -1286,7 +1422,8 @@ def segment_align(K, cli, metrics):
     log(f"segment align: {len(truth)} queries x {SEGMENT_LEN} nt in "
         f"{wall:.2f} s; counters {json.dumps(c, sort_keys=True)}")
     log(f"segment align: kernel ms, launches {_ms_launches(K, kms)}; kernels "
-        f"busy {busy:.3f} s = {100 * busy / wall:.2f}% of the wall")
+        f"busy {busy:.3f} s = {100 * busy / wall:.2f}% of the wall; retrace "
+        f"launches (problems, slabs, k, CTAs) {_retrace_shapes(retraces)}")
     log(f"segment align: {hit}/{len(truth)} at the planted locus and "
         f"strand; exon recall {rec:.4f}, precision {prec:.4f}; missed "
         f"{missed}")
@@ -1343,10 +1480,10 @@ def _check_dagp_kernels(K, metrics, label: str) -> None:
     _check_no_skips(metrics, label)
     c, n = metrics.counters, K.launches
     udh, planes = c.get("udh_buckets", 0), c.get("device_buckets", 0)
-    if n["spliced_slab_trace_dagp"] != planes or (udh and not all(
-            n[k] >= udh for k in ("spliced_slab_links_dagp",
-                                  "spliced_slab_retrace_dagp",
-                                  "spliced_tb_strip"))):
+    if n["spliced_slab_trace_dagp"] != planes or (udh and not (
+            n["spliced_slab_links_dagp"] >= udh
+            and n["spliced_tb_strips"] == n["spliced_slab_retrace_dagp"]
+            >= udh)):
         raise AssertionError(f"{label}: {planes} plane and {udh} UDH "
                              f"buckets, launches {dict(n)}")
     single = [k for k in ("spliced_slab_trace", "spliced_slab_links",
@@ -1378,7 +1515,8 @@ def tetrapod_yl3_map(K, cli, metrics, truth):
         metrics.reset()
         _reset_counts(K)
         out = OUT / f"tetra_yl3.{mode}.O0_4"
-        with kernel_clock(K) as kms:
+        retraces = []
+        with kernel_clock(K, retraces) as kms:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             cli.main(["map", str(d / "cdna_yl3.fa"), "-d", str(d / "genome"),
@@ -1406,7 +1544,8 @@ def tetrapod_yl3_map(K, cli, metrics, truth):
             f"{_ms_launches(K, kms)}; "
             f"kernels busy {busy:.3f} s = {100 * busy / wall:.2f}% of the "
             f"wall; udh_dp_cells {c.get('udh_dp_cells', 0)}, dp_cells "
-            f"{c.get('dp_cells', 0)}")
+            f"{c.get('dp_cells', 0)}; retrace launches (problems, slabs, k, "
+            f"CTAs) {_retrace_shapes(retraces)}")
         log(f"map -yl3 ({mode}): {hit}/{len(truth)} = "
             f"{100 * hit / len(truth):.1f}% at the planted locus and "
             f"strand; exon recall {rec:.4f}, precision {prec:.4f}; "
@@ -1608,7 +1747,7 @@ def main() -> int:
     # the score-only entry from phase 7's search
     launches = dict(plane_launches)
     for k in ("spliced_slab_links", "spliced_slab_retrace",
-              "spliced_tb_strip"):
+              "spliced_tb_strips"):
         launches[k] = tetra["udh"]["launches"][k]
     launches["spliced_slab_trace_dagp"] = \
         yl3["default"]["launches"]["spliced_slab_trace_dagp"]

@@ -45,9 +45,11 @@
 //                             columns lane 0 reads, n = m0 + lw + k
 //   snap  (NB, nb, T + 2)     a retrace's entry boundary (from snaps)
 //   ends  (B, 3)              (score, end m, end n)
-//   starts (nb, 4)            strip walk start (m, n, state, m_stop)
-//   recs  (IT, nb, 4)         walk records (kind, m, n, jnc - 1), zeroed
-//                             by the caller
+//   starts (nw, 5)            strip walk start (m, n, state, m_stop,
+//                             problem column b of the planes)
+//   recs  (IT, nw, 4)         walk records (kind, m, n, jnc - 1) of nw
+//                             walks (B for the full walk), zeroed by the
+//                             caller
 // A link is column * 8 + state: where the cell's path crossed the
 // previous slab boundary (state 0 = H, 2 = F, 4 = F2).
 #include <cooperative_groups.h>
@@ -73,9 +75,12 @@ enum { MODE_TRACE, MODE_LINKS, MODE_SCORE };
 //   STAGE_C: genome columns per staged chunk; the ring holds
 //     k * L + 2 * STAGE_C columns;
 //   slab_smem_ints: the dynamic shared memory of one CTA;
-//   CLUSTER_MAX: CTAs per problem at most (a portable cluster).
+//   CLUSTER_MAX: CTAs per problem at most (a portable cluster);
+//   LANES_PER_THREAD: lanes a thread runs at most (a slab wider than
+//     max_threads).
 constexpr int STAGE_C = 32;
 constexpr int CLUSTER_MAX = 8;
+constexpr int LANES_PER_THREAD = 2;
 
 constexpr int max_threads(int mode, bool dagp) {
   return mode == MODE_TRACE ? (dagp ? 640 : 896)
@@ -125,16 +130,21 @@ __device__ __forceinline__ int colinit(int k, int b_exgl, int gop,
 // links mode asserts not dagp, dp_spliced_pallas.py:213).
 //
 // Design: one CTA per problem runs k consecutive slabs of it at once
-// ("tall slab"): k sub-slabs of L threads step in lockstep, one
+// ("tall slab"): k sub-slabs of L lanes step in lockstep, one
 // __syncthreads() per global step.  Sub-slab j of round r runs slab
 // s0 + r*k + j and is at its local step t = tau - 2*j*L at global step
 // tau, so a round takes T + 2*(k-1)*L global steps where the slabs one
-// after another took k*T.  Thread i of a sub-slab owns query row
+// after another took k*T.  Lane i of a sub-slab owns query row
 // m = m0 + i of its slab and at local step t computes cell
-// n = m0 + lw + 1 + t - i.  Up and diagonal values come from thread i-1
+// n = m0 + lw + 1 + t - i.  Up and diagonal values come from lane i-1
 // of the same sub-slab through a ring in shared memory (H of steps t-1
 // and t-2, F and F2 of step t-1, and their links); E and E2 stay in the
-// thread's registers.
+// lane's registers (struct Lane).  A thread runs P lanes, v = thread +
+// p * threads (p < P): P = 1 (one lane a thread) up to the instance's
+// thread budget, P = 2 for a slab of up to twice as many lanes (then
+// k = 1).  A lane reads the ring slots of steps t-1 and t-2 and writes
+// that of step t, so the lanes of a thread may run in any order within
+// a step.
 //
 // Lane 0 of every sub-slab reads the previous slab's last row from the
 // global boundary row bnd, which lane L-1 of the previous sub-slab (or,
@@ -192,7 +202,20 @@ __device__ __forceinline__ int colinit(int k, int b_exgl, int gop,
 // (21 B under DAGP), are its only large traffic; K4 writes 16-20 B per
 // step and problem instead, and the score mode nothing but the final
 // row and column.
-template <int MODE, bool DAGP, bool MULTI, int MAXT>
+// One lane's registers: its place in the CTA's round (set at the round's
+// start) and the DP state it carries from one step to the next.
+struct Lane {
+  int i, j, ls, m0, m, col_m, col_m1, li, slot;
+  bool live, internal;
+  unsigned char* fl_out;
+  int* spj_out;
+  int* lk_out;
+  int* sn_out;
+  int h1, e1, e2, psp, lkh1, lke, lke2;
+  int cv[NCAND], cj[NCAND], cd[NCAND], c5[NCAND], lkc[NCAND];
+};
+
+template <int MODE, bool DAGP, bool MULTI, int MAXT, int P>
 __global__ void __launch_bounds__(MAXT)
 slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
             const int* __restrict__ joint, const int* __restrict__ ipen,
@@ -213,11 +236,10 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
   constexpr int NLK = DAGP ? 5 : 4;       // link streams per slab
   constexpr int C = STAGE_C;
   extern __shared__ int smem[];
-  const int KL = blockDim.x;                 // k sub-slabs of L lanes
-  const int ksub = KL / L;
+  const int nthr = blockDim.x;               // P lanes a thread
+  const int ksub = nthr * P / L;             // k sub-slabs of L lanes
+  const int KL = ksub * L;
   const int g = threadIdx.x;
-  const int j = g / L;                       // sub-slab
-  const int i = g - j * L;                   // lane in the sub-slab
   const int ncta = MULTI ? ncta_arg : 1;     // CTAs per problem
   const int ob = blockIdx.x / ncta;          // output slot
   const int cq = blockIdx.x - ob * ncta;     // CTA of the problem
@@ -253,7 +275,7 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
   const int* gb = gops + (size_t)b * N_GOPS * Np;
   const int* jb = joint + (size_t)b * Np * 16;
   const int nround = (nslab + ksub - 1) / ksub;
-  const int g0 = cq * KL + g, gstep = ncta * KL;   // the problem's threads
+  const int g0 = cq * nthr + g, gstep = ncta * nthr;   // the problem's threads
   if (snap) {                 // entry boundary of slab s0 (retrace)
     const int w0 = s0 * L + 1 + lw;
     for (int n = g0; n < nbnd; n += gstep) {
@@ -284,13 +306,8 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
   const size_t tstride = (size_t)nb * L;
 
   for (int r = cq; r < nround; r += ncta) {
-    const int ls = r * ksub + j;                // this sub-slab's slab - s0
-    const bool live = ls < nslab;
-    const int s = s0 + ls;
-    const int m0 = s * L + 1;
-    const int m = m0 + i;
-    const int q0 = (s0 + r * ksub) * L;         // query row of thread 0
-    const int base = q0 + 2 + lw;            // column of thread 0, step 0
+    const int q0 = (s0 + r * ksub) * L;         // query row of lane 0
+    const int base = q0 + 2 + lw;            // column of lane 0, step 0
     const int nstep = T + 2 * (min(ksub, nslab - r * ksub) - 1) * L;
     // round r-1 (another CTA of the problem) must stay 2*k'*L steps
     // ahead of this one: wait until it has done `ahead` more steps than
@@ -319,7 +336,7 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
     // ring slots (q*C + c) mod R; each staging thread packs the columns
     // it issued itself, so its own wait makes them visible to it
     auto issue = [&](int q) {
-      for (int c = g; c < C; c += KL) {
+      for (int c = g; c < C; c += nthr) {
         const int n = base + q * C + c;
         if (n < 0 || n >= Np) continue;
         int* lb = land + (q & 1) * 6 * C + c;
@@ -334,7 +351,7 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
       __pipeline_commit();
     };
     auto pack = [&](int q) {
-      for (int c = g; c < C; c += KL) {
+      for (int c = g; c < C; c += nthr) {
         const int n = base + q * C + c;
         if (n < 0 || n >= Np) continue;
         const int* lb = land + (q & 1) * 6 * C + c;
@@ -347,94 +364,114 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
     };
     __syncthreads();          // this CTA's previous round is done
     sync_rounds(0);
-    if (LINKS && live && i == 0) {         // snapshot entry T+1
-      const int n = m0 + lw + T + 1;
-      for (int rr = 0; rr < NB; ++rr)
-        snaps[((size_t)(s * NB + rr) * nb + ob) * TS + T + 1] =
-            (n >= 0 && n < nbnd)
-                ? ld_bnd(bnd + ((size_t)rr * nb + ob) * nbnd + n) : NEV;
+    // the thread's lanes v = g + p * nthr (p < P), those below KL live
+    Lane ln[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      Lane& x = ln[p];
+      const int v = g + p * nthr;
+      x.j = v / L;                           // sub-slab
+      x.i = v - x.j * L;                     // lane in the sub-slab
+      x.ls = r * ksub + x.j;                 // its slab - s0
+      x.live = v < KL && x.ls < nslab;
+      const int s = s0 + x.ls;
+      x.m0 = s * L + 1;
+      x.m = x.m0 + x.i;
+      if (LINKS && x.live && x.i == 0) {     // snapshot entry T+1
+        const int n = x.m0 + lw + T + 1;
+        for (int rr = 0; rr < NB; ++rr)
+          snaps[((size_t)(s * NB + rr) * nb + ob) * TS + T + 1] =
+              (n >= 0 && n < nbnd)
+                  ? ld_bnd(bnd + ((size_t)rr * nb + ob) * nbnd + n) : NEV;
+      }
+      if (v < KL) {
+        Hs[v] = NEV; Hs[KL + v] = NEV; Hs[2 * KL + v] = NEV;
+        Fs[v] = NEV; Fs[KL + v] = NEV;
+        if (DAGP) { F2s[v] = NEV; F2s[KL + v] = NEV; }
+        if (LINKS) {
+          HLs[v] = 0; HLs[KL + v] = 0; HLs[2 * KL + v] = 0;
+          FLs[v] = 0; FLs[KL + v] = 0;
+          if (DAGP) { F2Ls[v] = 0; F2Ls[KL + v] = 0; }
+        }
+      }
+      x.h1 = NEV; x.e1 = NEV; x.e2 = NEV; x.psp = 0;
+#pragma unroll
+      for (int l = 0; l < NCAND; ++l) {
+        x.cv[l] = NEV; x.cj[l] = x.cd[l] = x.c5[l] = 0; x.lkc[l] = 0;
+      }
+      x.lkh1 = 0; x.lke = 0; x.lke2 = 0;
+      x.col_m = colinit(x.m, b_exgl, gop, gep);
+      x.col_m1 = colinit(x.m - 1, b_exgl, gop, gep);
+      x.internal = !a_exgr || x.m < M;
+      x.li = min(max(M - x.m0, 0), L - 1);    // lane of row M
+      x.fl_out = nullptr;
+      x.spj_out = nullptr;
+      x.lk_out = nullptr;
+      x.sn_out = nullptr;
+      if (LINKS) {
+        x.lk_out = links + ((size_t)(s * NLK) * nb + ob) * T;
+        x.sn_out = snaps + ((size_t)(s * NB) * nb + ob) * TS;
+      } else if (TRACE) {
+        x.fl_out = flags + (size_t)x.ls * plane + (size_t)ob * L + x.i;
+        x.spj_out = spj + (size_t)x.ls * NS * plane + (size_t)ob * L + x.i;
+      }
+      x.slot = v == 0 ? 0 : R - v;           // ring slot of its column
     }
     const int* qsrc = qprof + (size_t)b * Mpad * A + (size_t)q0 * A;
     const int qlim = (Mpad - q0) * A;
-    for (int x = g; x < KL * A; x += KL) qp[x] = x < qlim ? qsrc[x] : 0;
-    Hs[g] = NEV; Hs[KL + g] = NEV; Hs[2 * KL + g] = NEV;
-    Fs[g] = NEV; Fs[KL + g] = NEV;
-    if (DAGP) { F2s[g] = NEV; F2s[KL + g] = NEV; }
-    int h1 = NEV, e1 = NEV, e2 = NEV, psp = 0;
-    int cv[NCAND], cj[NCAND], cd[NCAND], c5[NCAND], lkc[NCAND];
-#pragma unroll
-    for (int l = 0; l < NCAND; ++l) {
-      cv[l] = NEV; cj[l] = cd[l] = c5[l] = 0; lkc[l] = 0;
-    }
-    int lkh1 = 0, lke = 0, lke2 = 0;
-    if (LINKS) {
-      HLs[g] = 0; HLs[KL + g] = 0; HLs[2 * KL + g] = 0;
-      FLs[g] = 0; FLs[KL + g] = 0;
-      if (DAGP) { F2Ls[g] = 0; F2Ls[KL + g] = 0; }
-    }
-    const int col_m = colinit(m, b_exgl, gop, gep);
-    const int col_m1 = colinit(m - 1, b_exgl, gop, gep);
-    const bool internal = !a_exgr || m < M;
-    const int li = min(max(M - m0, 0), L - 1);     // lane of row M
-    unsigned char* fl_out = nullptr;
-    int* spj_out = nullptr;
-    int* lk_out = nullptr;
-    int* sn_out = nullptr;
-    if (LINKS) {
-      lk_out = links + ((size_t)(s * NLK) * nb + ob) * T;
-      sn_out = snaps + ((size_t)(s * NB) * nb + ob) * TS;
-    } else if (TRACE) {
-      fl_out = flags + (size_t)ls * plane + (size_t)ob * L + i;
-      spj_out = spj + (size_t)ls * NS * plane + (size_t)ob * L + i;
-    }
+    for (int x = g; x < KL * A; x += nthr) qp[x] = x < qlim ? qsrc[x] : 0;
     issue(0);
     __pipeline_wait_prior(0);
     pack(0);
     issue(1);
     __syncthreads();
 
-    int slot = g == 0 ? 0 : R - g;           // ring slot of column n
-    int p3 = 0;                              // tau mod 3
-    for (int tau = 0; tau < nstep; ++tau) {
-      const int t = tau - 2 * j * L;
-      if (live && t >= 0 && t < T) {
-        const int n = m0 + lw + 1 + t - i;
+    // one step of lane v (of this thread's lanes, x its registers) at
+    // global step tau, p3 = tau mod 3
+    auto lane_step = [&](Lane& x, const int v, const int tau,
+                         const int p3) {
+      const int i = x.i;
+      const int t = tau - 2 * x.j * L;
+      if (x.live && t >= 0 && t < T) {
+        const int m = x.m;
+        const int n = x.m0 + lw + 1 + t - i;
         const int r_off = t - 2 * i;
         const bool first = r_off == 0;
         const bool active =
             r_off >= 0 && r_off < W && n >= 1 && n <= N && m <= M;
         if (first) {
-          e1 = NEV;
-          e2 = NEV;
-          psp = 0;
+          x.e1 = NEV;
+          x.e2 = NEV;
+          x.psp = 0;
 #pragma unroll
           for (int l = 0; l < NCAND; ++l) {
-            cv[l] = NEV; cj[l] = cd[l] = c5[l] = 0;
+            x.cv[l] = NEV; x.cj[l] = x.cd[l] = x.c5[l] = 0;
           }
         }
         if (!LINKS && !active) {
           // Trace and score modes: an inactive cell emits H, F, F2 = NEV,
           // flag 255 and no junction, and leaves every state a later cell
-          // of the thread reads as it was (a thread's active cells are one
+          // of the lane reads as it was (a lane's active cells are one
           // run of steps; before it psp stays 0 from the reset above).
           // Links mode runs the recurrence: the F and E links it carries
           // through inactive cells reach the boundary streams.
-          h1 = NEV;
-          Hs[p3 * KL + g] = NEV;
-          Fs[(tau & 1) * KL + g] = NEV;
-          if (DAGP) F2s[(tau & 1) * KL + g] = NEV;
+          x.h1 = NEV;
+          Hs[p3 * KL + v] = NEV;
+          Fs[(tau & 1) * KL + v] = NEV;
+          if (DAGP) F2s[(tau & 1) * KL + v] = NEV;
           if constexpr (TRACE) {
-            fl_out[(size_t)t * tstride] = 255;
+            x.fl_out[(size_t)t * tstride] = 255;
 #pragma unroll
             for (int k = 0; k < NS; ++k)
-              spj_out[(size_t)k * plane + (size_t)t * tstride] = 0;
+              x.spj_out[(size_t)k * plane + (size_t)t * tstride] = 0;
           }
         } else {
           int score = 0, isdon = 0, isacc = 0, sig5 = 0, accb = 0;
           int dinc5 = 0;
+          const int slot = x.slot;
           if (active) {
             const int w = gw[slot];
-            score = qp[g * A + (w & 255)];
+            score = qp[v * A + (w & 255)];
             if (n < N) {
               isdon = (w >> 8) & 1;
               isacc = (w >> 9) & 1;
@@ -445,13 +482,13 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
           }
           // the intron penalties of an acceptor close, gathered before the
           // neighbour values so that their loads overlap lane 0's
-          const bool closes = isacc && internal;
+          const bool closes = isacc && x.internal;
           bool ok[NCAND];
           int pen[NCAND];
 #pragma unroll
           for (int l = 0; l < NCAND; ++l) {
-            const int ilen = n - cj[l];
-            ok[l] = closes && ilen >= llmt && cv[l] > NEV / 2;
+            const int ilen = n - x.cj[l];
+            ok[l] = closes && ilen >= llmt && x.cv[l] > NEV / 2;
             pen[l] = !ok[l] ? 0
                      : ilen < 0 ? NEV / 2 : __ldg(ipen + min(ilen, Np - 1));
           }
@@ -476,22 +513,22 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
               lk_diag = (n - 1) * 8;
               // the snapshot: entry t+1 is the column read here, entry 0
               // the diagonal of step 0
-              sn_out[t + 1] = raw_h;
-              sn_out[(size_t)nb * TS + t + 1] = raw_f;
-              if (DAGP) sn_out[(size_t)2 * nb * TS + t + 1] = raw_f2;
+              int* sn = x.sn_out;
+              sn[t + 1] = raw_h;
+              sn[(size_t)nb * TS + t + 1] = raw_f;
+              if (DAGP) sn[(size_t)2 * nb * TS + t + 1] = raw_f2;
               if (t == 0) {
                 const bool in0 = n >= 1 && n - 1 < nbnd;
-                sn_out[0] = in0 ? ld_bnd(bh + n - 1) : NEV;
-                sn_out[(size_t)nb * TS] = in0 ? ld_bnd(bf + n - 1) : NEV;
+                sn[0] = in0 ? ld_bnd(bh + n - 1) : NEV;
+                sn[(size_t)nb * TS] = in0 ? ld_bnd(bf + n - 1) : NEV;
                 if (DAGP)
-                  sn_out[(size_t)2 * nb * TS] =
-                      in0 ? ld_bnd(bf2 + n - 1) : NEV;
+                  sn[(size_t)2 * nb * TS] = in0 ? ld_bnd(bf2 + n - 1) : NEV;
               }
             }
           } else {
-            const int up = ((p3 + 2) % 3) * KL + g - 1;   // lane i-1, t-1
-            const int dg = ((p3 + 1) % 3) * KL + g - 1;   // lane i-1, t-2
-            const int up2 = ((tau + 1) & 1) * KL + g - 1;
+            const int up = ((p3 + 2) % 3) * KL + v - 1;   // lane i-1, t-1
+            const int dg = ((p3 + 1) % 3) * KL + v - 1;   // lane i-1, t-2
+            const int up2 = ((tau + 1) & 1) * KL + v - 1;
             up_h = Hs[up];
             up_f = Fs[up2];
             if (DAGP) up_f2 = F2s[up2];
@@ -507,9 +544,9 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
           // descend from column 0, link 0
           const bool edge = first && n != 1;
           const int left_h =
-              n == 1 ? col_m : (edge ? e_const : (first ? NEV : h1));
-          const int lk_left = (n == 1 || first) ? 0 : lkh1;
-          if (n == 1) { diag_h = col_m1; lk_diag = 0; }
+              n == 1 ? x.col_m : (edge ? e_const : (first ? NEV : x.h1));
+          const int lk_left = (n == 1 || first) ? 0 : x.lkh1;
+          if (n == 1) { diag_h = x.col_m1; lk_diag = 0; }
           if (r_off >= W - 1) { up_h = NEV; up_f = NEV; up_f2 = NEV; }
           // ---- recurrence (order = fwd2s1.cc:276-431)
           int sv[NS], jn[NS], lks[NS];
@@ -530,27 +567,27 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
             sv[4] = f2_val;
             lks[4] = lkf2;
           }
-          const int prev_psp = psp;                // pre-E value for E and E2
+          const int prev_psp = x.psp;              // pre-E value for E and E2
           xo = left_h + gop;
-          const bool e_open = xo >= e1;
-          const int e_val = (e_open ? xo : e1) + gep;
-          if (e_open) lke = lk_left;
-          psp = e_open ? (prev_psp != 0 ? 1 : 0) : (prev_psp & 1);
-          if (e_val >= mx) { mx = e_val; mk = 1; lk_mx = lke; }
+          const bool e_open = xo >= x.e1;
+          const int e_val = (e_open ? xo : x.e1) + gep;
+          if (e_open) x.lke = lk_left;
+          x.psp = e_open ? (prev_psp != 0 ? 1 : 0) : (prev_psp & 1);
+          if (e_val >= mx) { mx = e_val; mk = 1; lk_mx = x.lke; }
           bool e2_open = false;
           if constexpr (DAGP) {                    // E2, >= into the max
             xo = left_h + lgop;
-            e2_open = xo >= e2;
-            const int e2_val = (e2_open ? xo : e2) + lgep;
-            if (e2_open) lke2 = lk_left;
-            psp = e2_open ? (prev_psp != 0 ? (psp | 2) : psp)
-                          : (psp | (prev_psp & 2));
-            if (e2_val >= mx) { mx = e2_val; mk = 3; lk_mx = lke2; }
+            e2_open = xo >= x.e2;
+            const int e2_val = (e2_open ? xo : x.e2) + lgep;
+            if (e2_open) x.lke2 = lk_left;
+            x.psp = e2_open ? (prev_psp != 0 ? (x.psp | 2) : x.psp)
+                            : (x.psp | (prev_psp & 2));
+            if (e2_val >= mx) { mx = e2_val; mk = 3; lk_mx = x.lke2; }
             sv[3] = e2_val;
-            lks[3] = lke2;
+            lks[3] = x.lke2;
           }
           sv[0] = h_val; sv[1] = e_val; sv[2] = f_val;
-          lks[0] = lk_diag; lks[1] = lke; lks[2] = lkf;
+          lks[0] = lk_diag; lks[1] = x.lke; lks[2] = lkf;
 #pragma unroll
           for (int k = 0; k < NS; ++k) jn[k] = 0;
           // ---- acceptor close (fwd2s1.cc:333-354)
@@ -558,53 +595,53 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
             int xc[NCAND];
 #pragma unroll
             for (int l = 0; l < NCAND; ++l)
-              xc[l] = ok[l] ? cv[l] + pen[l] + accb + jr[slot * 16 + c5[l]]
+              xc[l] = ok[l] ? x.cv[l] + pen[l] + accb + jr[slot * 16 + x.c5[l]]
                             : NEV;
 #pragma unroll
             for (int k = 0; k < NS; ++k) {
               int cur = sv[k], jnc = 0;
 #pragma unroll
               for (int l = 0; l < NCAND; ++l)             // best-first order
-                if (cd[l] == k && ok[l] && xc[l] >= cur) {
+                if (x.cd[l] == k && ok[l] && xc[l] >= cur) {
                   cur = xc[l];
-                  jnc = cj[l] + 1;
-                  lks[k] = lkc[l];
+                  jnc = x.cj[l] + 1;
+                  lks[k] = x.lkc[l];
                 }
               sv[k] = cur;
               jn[k] = jnc;
               if (jnc > 0) {
-                psp |= PSP_BIT[k];
+                x.psp |= PSP_BIT[k];
                 if (cur >= mx) { mx = cur; mk = k; lk_mx = lks[k]; }
               }
             }
           }
           // ---- donor push (fwd2s1.cc:380-406): sorted insertion, ties keep
           // existing entries first; the candidate carries its value's link
-          if (isdon && internal) {
+          if (isdon && x.internal) {
 #pragma unroll
             for (int k = 0; k < NS; ++k) {
               const int fv = sv[k];
-              bool elig = (k != 0 || mk == 0) && (psp & PSP_BIT[k]) == 0;
+              bool elig = (k != 0 || mk == 0) && (x.psp & PSP_BIT[k]) == 0;
               const int gopk = k / 2 == 0 ? 0 : (k / 2 == 1 ? gop : lgop);
               const int gk = (mk == 0 || ((k - mk) & 1)) ? gopk : 0;
               if (k != mk && fv <= mx + gk) elig = false;
               if (elig) {
-                const int x = fv + sig5;
+                const int xv = fv + sig5;
                 int pos = 0;
 #pragma unroll
-                for (int l = 0; l < NCAND; ++l) pos += cv[l] >= x;
+                for (int l = 0; l < NCAND; ++l) pos += x.cv[l] >= xv;
 #pragma unroll
                 for (int l = NCAND - 1; l >= 1; --l)
                   if (l > pos) {
-                    cv[l] = cv[l - 1]; cj[l] = cj[l - 1];
-                    cd[l] = cd[l - 1]; c5[l] = c5[l - 1];
-                    lkc[l] = lkc[l - 1];
+                    x.cv[l] = x.cv[l - 1]; x.cj[l] = x.cj[l - 1];
+                    x.cd[l] = x.cd[l - 1]; x.c5[l] = x.c5[l - 1];
+                    x.lkc[l] = x.lkc[l - 1];
                   }
 #pragma unroll
                 for (int l = 0; l < NCAND; ++l)
                   if (l == pos) {
-                    cv[l] = x; cj[l] = n; cd[l] = k; c5[l] = dinc5;
-                    lkc[l] = lks[k];
+                    x.cv[l] = xv; x.cj[l] = n; x.cd[l] = k; x.c5[l] = dinc5;
+                    x.lkc[l] = lks[k];
                   }
               }
             }
@@ -613,44 +650,45 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
           const int h_out = active ? mx : NEV;
           const int f_out = active ? sv[2] : NEV;
           int f2_out = NEV;
-          if (active) e1 = sv[1];
+          if (active) x.e1 = sv[1];
           if constexpr (DAGP) {
             f2_out = active ? sv[4] : NEV;
-            if (active) e2 = sv[3];
-            F2s[(tau & 1) * KL + g] = f2_out;
+            if (active) x.e2 = sv[3];
+            F2s[(tau & 1) * KL + v] = f2_out;
           }
-          h1 = h_out;
-          Hs[p3 * KL + g] = h_out;
-          Fs[(tau & 1) * KL + g] = f_out;
+          x.h1 = h_out;
+          Hs[p3 * KL + v] = h_out;
+          Fs[(tau & 1) * KL + v] = f_out;
           if constexpr (LINKS) {
+            int* lk = x.lk_out;
             const int lkh = active ? lk_mx : 0;
-            lkh1 = lkh;
-            lke = lks[1];
-            HLs[p3 * KL + g] = lkh;
-            FLs[(tau & 1) * KL + g] = lks[2];
+            x.lkh1 = lkh;
+            x.lke = lks[1];
+            HLs[p3 * KL + v] = lkh;
+            FLs[(tau & 1) * KL + v] = lks[2];
             if constexpr (DAGP) {
-              lke2 = lks[3];
-              F2Ls[(tau & 1) * KL + g] = lks[4];
+              x.lke2 = lks[3];
+              F2Ls[(tau & 1) * KL + v] = lks[4];
             }
             if (i == L - 1) {
-              lk_out[t] = lkh;                          // boundary H
-              lk_out[(size_t)nb * T + t] = lks[2];      // boundary F
+              lk[t] = lkh;                          // boundary H
+              lk[(size_t)nb * T + t] = lks[2];      // boundary F
               if constexpr (DAGP)
-                lk_out[(size_t)4 * nb * T + t] = lks[4];   // boundary F2
+                lk[(size_t)4 * nb * T + t] = lks[4];   // boundary F2
             }
-            if (i == li) lk_out[(size_t)2 * nb * T + t] = lkh;   // final row
-            const int rcl = m0 + lw + 1 + t - N;        // lane with n == N
-            if (i == rcl) lk_out[(size_t)3 * nb * T + t] = lkh;
+            if (i == x.li) lk[(size_t)2 * nb * T + t] = lkh;   // final row
+            const int rcl = x.m0 + lw + 1 + t - N;      // lane with n == N
+            if (i == rcl) lk[(size_t)3 * nb * T + t] = lkh;
             else if (i == 0 && (rcl < 0 || rcl >= L))
-              lk_out[(size_t)3 * nb * T + t] = 0;
+              lk[(size_t)3 * nb * T + t] = 0;
           } else if constexpr (TRACE) {
-            fl_out[(size_t)t * tstride] =
+            x.fl_out[(size_t)t * tstride] =
                 active ? (unsigned char)(mk | (e_open << 3) | (f_open << 4)
                                          | (e2_open << 5) | (f2_open << 6))
                        : (unsigned char)255;
 #pragma unroll
             for (int k = 0; k < NS; ++k)
-              spj_out[(size_t)k * plane + (size_t)t * tstride] = jn[k];
+              x.spj_out[(size_t)k * plane + (size_t)t * tstride] = jn[k];
           }
           if (active) {
             if (rowb && m == M) rowb[n] = h_out;
@@ -663,7 +701,13 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
           }
         }
       }
-      if (++slot == R) slot = 0;
+      if (++x.slot == R) x.slot = 0;
+    };
+
+    int p3 = 0;                              // tau mod 3
+    for (int tau = 0; tau < nstep; ++tau) {
+#pragma unroll
+      for (int p = 0; p < P; ++p) lane_step(ln[p], g + p * nthr, tau, p3);
       if (++p3 == 3) p3 = 0;
       const bool chunk = (tau + 1) % C == 0;
       if (chunk) {                  // chunk q is due at step q*C
@@ -767,35 +811,41 @@ __global__ void last_ends_kernel(const int* __restrict__ row,
 // (ops/dp_spliced_scan.py:1127-1196): from each problem's end cell it
 // follows the winner state, gap-open bits and junction planes back to
 // row or column 0, one (kind, m, n, jnc - 1) record per step.  Its strip
-// mode (spliced_tb_strip) replaces the host strip walks of the UDH
-// retrace (traceback_spliced_strip, dp_spliced_scan.py:1235): it starts
-// at a given (m, n, state) on planes of slabs s0.. and stops once
-// m <= m_stop, a slab boundary, where the full walk stops at m < 1.
-// NS is the planes' state count (3, or 5 under DAGP: states 1 and 3 are
-// horizontal, 2 and 4 vertical, _tb_walker 1137-1184).
+// mode (spliced_tb_strips) replaces the host strip walks of the UDH
+// retrace (traceback_spliced_strip, dp_spliced_scan.py:1235): every
+// (slab, problem) strip of one retrace launch's planes (slabs s0..), each
+// from a given (m, n, state) in the planes of a given problem column b,
+// stops once m <= m_stop, its slab's upper boundary, where the full walk
+// stops at m < 1.  NS is the planes' state count (3, or 5 under DAGP:
+// states 1 and 3 are horizontal, 2 and 4 vertical, _tb_walker
+// 1137-1184).
 //
 // Design: one thread per walk, a loop of at most IT steps that stops
 // when the walk ends (the caller zeroes the records).  Bound on the
 // H100: the chain of dependent global loads, two or three per step, one
-// step per path cell; B threads leave the card nearly idle, but a walk
-// is ~M + W steps against the forward's S * T * L cells per problem.
+// step per path cell; a full walk is ~M + W steps against the forward's
+// S * T * L cells per problem, a strip ~L + its introns' jumps.  One
+// launch takes every strip of a retrace launch (nb problems x nslab
+// slabs), so the walks of a bucket run in one or two launches, all in
+// flight at once, not one launch of nb walks per slab.
 __global__ void tb_walk_kernel(const unsigned char* __restrict__ flags,
                                const int* __restrict__ spj,
                                const int* __restrict__ ends,
                                const int* __restrict__ starts,
-                               const int* __restrict__ lws, int B, int L,
-                               int S, int T, int IT, int NS, int s0,
+                               const int* __restrict__ lws, int nw, int B,
+                               int L, int S, int T, int IT, int NS, int s0,
                                int* __restrict__ recs) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int lw = lws[b];
-  int m, n, st, m_stop;
-  if (starts) {
-    m = starts[b * 4]; n = starts[b * 4 + 1];
-    st = starts[b * 4 + 2]; m_stop = starts[b * 4 + 3];
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= nw) return;
+  int b, m, n, st, m_stop;
+  if (starts) {             // (m, n, state, m_stop, problem column)
+    const int* x = starts + (size_t)w * 5;
+    m = x[0]; n = x[1]; st = x[2]; m_stop = x[3]; b = x[4];
   } else {
+    b = w;
     m = ends[b * 3 + 1]; n = ends[b * 3 + 2]; st = 0; m_stop = 0;
   }
+  const int lw = lws[b];
   bool done = m <= m_stop || n < 1;
   const size_t plane = (size_t)T * B * L;
   for (int it = 0; it < IT && !done; ++it) {
@@ -827,7 +877,7 @@ __global__ void tb_walk_kernel(const unsigned char* __restrict__ flags,
     const int jncv = is0 ? jnc_0 : jnc_s;
     const int kind = (!ok || dead || trans) ? 0
                      : i_close ? 4 : diag ? 1 : horiz ? 2 : 3;
-    int* r = recs + ((size_t)it * B + b) * 4;
+    int* r = recs + ((size_t)it * nw + w) * 4;
     r[0] = kind; r[1] = m; r[2] = n; r[3] = jncv - 1;
     const int n2 = i_close ? jncv - 1 : ((diag || horiz) ? n - 1 : n);
     const int m2 = (diag || vert) ? m - 1 : m;
@@ -838,10 +888,18 @@ __global__ void tb_walk_kernel(const unsigned char* __restrict__ flags,
   }
 }
 
-// One launch of the slab kernel: nb CTAs of k sub-slabs of L threads
-// and smem bytes of dynamic shared memory, as slab_geometry chose them.
-// A launch the instance cannot take is refused with
-// cudaErrorInvalidValue; nothing is launched with other numbers.
+// One launch of the slab kernel: nb CTAs of k sub-slabs of L lanes,
+// ceil(k*L / P) threads of P = ceil(k*L / MAXT) lanes each, and smem
+// bytes of dynamic shared memory, as slab_geometry chose them.  A launch
+// the instance cannot take is refused with cudaErrorInvalidValue;
+// nothing is launched with other numbers.
+template <int MODE, bool DAGP, int P>
+auto slab_instance(int ncta) {
+  constexpr int MAXT = max_threads(MODE, DAGP);
+  return ncta > 1 ? slab_kernel<MODE, DAGP, true, MAXT, P>
+                  : slab_kernel<MODE, DAGP, false, MAXT, P>;
+}
+
 template <int MODE, bool DAGP>
 int launch_slab(const int* qprof, const int* gops, const int* joint,
                 const int* ipen, const int* Ms, const int* Ns,
@@ -853,12 +911,14 @@ int launch_slab(const int* qprof, const int* gops, const int* joint,
                 int* row, int* rc, int* links, int* snaps,
                 cudaStream_t stream) {
   constexpr int MAXT = max_threads(MODE, DAGP);
-  auto kernel = ncta > 1 ? slab_kernel<MODE, DAGP, true, MAXT>
-                         : slab_kernel<MODE, DAGP, false, MAXT>;
   const int KL = k * L;
-  if (k < 1 || KL > MAXT || A > 256 || ncta < 1 || ncta > CLUSTER_MAX
+  const int P = (KL + MAXT - 1) / MAXT;      // lanes a thread
+  if (k < 1 || P > LANES_PER_THREAD || (P > 1 && k > 1) || A > 256
+      || ncta < 1 || ncta > CLUSTER_MAX
       || smem < 4 * slab_smem_ints(KL, A, MODE, DAGP))
     return (int)cudaErrorInvalidValue;
+  auto kernel = P == 1 ? slab_instance<MODE, DAGP, 1>(ncta)
+                       : slab_instance<MODE, DAGP, 2>(ncta);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -867,7 +927,7 @@ int launch_slab(const int* qprof, const int* gops, const int* joint,
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   cfg.gridDim = dim3(nb * ncta);
-  cfg.blockDim = dim3(KL);
+  cfg.blockDim = dim3((KL + P - 1) / P);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   if (ncta > 1) {                   // the CTAs of a problem, together
@@ -1001,17 +1061,17 @@ int spliced_tb_walk(const unsigned char* flags, const int* spj,
                     int T, int IT, int NS, int* recs, cudaStream_t stream) {
   const int threads = 32;
   tb_walk_kernel<<<(B + threads - 1) / threads, threads, 0, stream>>>(
-      flags, spj, ends, nullptr, lws, B, L, S, T, IT, NS, 0, recs);
+      flags, spj, ends, nullptr, lws, B, B, L, S, T, IT, NS, 0, recs);
   return (int)cudaGetLastError();
 }
 
-int spliced_tb_strip(const unsigned char* flags, const int* spj,
-                     const int* starts, const int* lws, int B, int L,
-                     int S, int T, int IT, int NS, int s0, int* recs,
-                     cudaStream_t stream) {
+int spliced_tb_strips(const unsigned char* flags, const int* spj,
+                      const int* starts, const int* lws, int nw, int B,
+                      int L, int S, int T, int IT, int NS, int s0,
+                      int* recs, cudaStream_t stream) {
   const int threads = 32;
-  tb_walk_kernel<<<(B + threads - 1) / threads, threads, 0, stream>>>(
-      flags, spj, nullptr, starts, lws, B, L, S, T, IT, NS, s0, recs);
+  tb_walk_kernel<<<(nw + threads - 1) / threads, threads, 0, stream>>>(
+      flags, spj, nullptr, starts, lws, nw, B, L, S, T, IT, NS, s0, recs);
   return (int)cudaGetLastError();
 }
 

@@ -31,9 +31,10 @@ run_bucket.
                         dp_spliced_scan.py:938-1006)
   spliced_tb_walk       K3: the traceback walk over 3 or 5 states
                         (_tb_walker, dp_spliced_scan.py:1127-1196)
-  spliced_tb_strip      K3, strip mode: walks from given starts down to a
-                        slab boundary (traceback_spliced_strip,
-                        dp_spliced_scan.py:1235)
+  spliced_tb_strips     K3, strip mode: the walks of every (slab, problem)
+                        strip of one retrace launch's planes, each from
+                        its start down to its slab's upper boundary
+                        (traceback_spliced_strip, dp_spliced_scan.py:1235)
 
 Each wrapper runs the plain version for tensors on the CPU, and for
 tensors on a CUDA device launches its kernel on the current stream or
@@ -43,8 +44,10 @@ names, so a run can show which path it took.
 
 The slab entries run k slabs of a problem at once in one CTA, and a
 problem's rounds of k slabs on a cluster of CTAs: slab_geometry picks k
-and the shared memory, slab_ctas the CTAs per problem, for each launch;
-a launch the kernel cannot take raises.
+and the shared memory (retrace_geometry for the retrace), slab_ctas the
+CTAs per problem, for each launch; a slab of more lanes than an
+instance's thread budget runs alone in its CTA, two lanes a thread; a
+launch the kernel cannot take raises.
 
 The kernels are built at first use with nvcc into csrc/build/ (one
 shared library with a plain C interface, bound with ctypes); a failed
@@ -80,16 +83,16 @@ KERNELS = ("spliced_slab_trace", "spliced_slab_trace_dagp",
            "spliced_slab_retrace", "spliced_slab_retrace_dagp",
            "spliced_slab_links", "spliced_slab_links_dagp",
            "spliced_slab_score", "spliced_last_ends", "spliced_tb_walk",
-           "spliced_tb_strip")
+           "spliced_tb_strips")
 # the C entries each path launches once per batch (the UDH path launches
-# the retrace and strip entries once per slab and sub-batch)
+# the retrace and strip entries once per sub-batch of slab runs)
 PLANE_PATH = ("spliced_slab_trace", "spliced_last_ends", "spliced_tb_walk")
 PLANE_PATH_DAGP = ("spliced_slab_trace_dagp", "spliced_last_ends",
                    "spliced_tb_walk")
 UDH_PATH = ("spliced_slab_links", "spliced_last_ends",
-            "spliced_slab_retrace", "spliced_tb_strip")
+            "spliced_slab_retrace", "spliced_tb_strips")
 UDH_PATH_DAGP = ("spliced_slab_links_dagp", "spliced_last_ends",
-                 "spliced_slab_retrace_dagp", "spliced_tb_strip")
+                 "spliced_slab_retrace_dagp", "spliced_tb_strips")
 SCORE_PATH = ("spliced_slab_score", "spliced_last_ends")
 launches = {k: 0 for k in KERNELS}
 plain_calls = {k: 0 for k in KERNELS}
@@ -149,7 +152,7 @@ def _library() -> ctypes.CDLL:
     lib.spliced_slab_score.argtypes = slab + [I] + [P] * 3 + [P]
     lib.spliced_last_ends.argtypes = [P] * 5 + [I] * 10 + [P, P]
     lib.spliced_tb_walk.argtypes = [P] * 4 + [I] * 6 + [P, P]
-    lib.spliced_tb_strip.argtypes = [P] * 4 + [I] * 7 + [P, P]
+    lib.spliced_tb_strips.argtypes = [P] * 4 + [I] * 8 + [P, P]
     for name in KERNELS:
         getattr(lib, name).restype = I
     lib.spliced_error_string.argtypes = [I]
@@ -213,6 +216,7 @@ STAGE_C = 32
 SMEM_MAX = 232_448
 K_LANES = 128        # k sub-slabs at most as fit the thread budget at L=128
 CLUSTER_MAX = 8      # CTAs per problem at most (a portable cluster)
+LANES_PER_THREAD = 2     # lanes a thread carries at most (a wide slab)
 
 
 def slab_smem(mode: str, dagp: bool, KL: int, A: int) -> int:
@@ -230,16 +234,18 @@ def slab_smem(mode: str, dagp: bool, KL: int, A: int) -> int:
 def slab_geometry(mode: str, dagp: bool, L: int, A: int,
                   S: int) -> tuple[int, int, int]:
     """(k, threads, smem bytes) of one launch of the slab kernel in
-    ``mode`` ("trace", also for the retrace, "links" or "score") over S
-    slabs of L lanes and an alphabet of A: k slabs of a problem in flight
-    per CTA, as many as the instance's thread budget holds at L = 128
-    (k * max(L, 128) <= its threads), no more than S, and fewer where the
-    shared memory would pass the card's.  Raises ValueError for what the
-    kernel cannot take even one slab at a time."""
+    ``mode`` ("trace", "links" or "score") over S slabs of L lanes and an
+    alphabet of A: k slabs of a problem in flight per CTA, as many as the
+    instance's thread budget holds at L = 128 (k * max(L, 128) <= its
+    threads), no more than S, and fewer where the shared memory would
+    pass the card's.  A slab of more lanes than the budget runs alone in
+    its CTA, each thread carrying P = ceil(L / budget) lanes (at most
+    LANES_PER_THREAD), so threads = ceil(k L / P).  Raises ValueError for
+    what the kernel cannot take even one slab at a time."""
     maxt = SLAB_MAX_THREADS[mode, dagp]
-    if not 3 <= L <= maxt:
-        raise ValueError(f"lanes L={L}: the slab kernel runs 3..{maxt} in "
-                         f"{mode} mode")
+    if not 3 <= L <= LANES_PER_THREAD * maxt:
+        raise ValueError(f"lanes L={L}: the slab kernel runs "
+                         f"3..{LANES_PER_THREAD * maxt} in {mode} mode")
     if A > 256:
         raise ValueError(f"alphabet of {A}: residue codes are packed in a "
                          f"byte")
@@ -250,7 +256,22 @@ def slab_geometry(mode: str, dagp: bool, L: int, A: int,
     if smem > SMEM_MAX:
         raise ValueError(f"slab kernel needs {smem} B of shared memory "
                          f"(L={L}, A={A})")
-    return k, k * L, smem
+    P = -(-k * L // maxt)
+    return k, -(-k * L // P), smem
+
+
+def retrace_geometry(dagp: bool, L: int, A: int, nslab: int, nb: int,
+                     n_sm: int) -> tuple[int, int, int]:
+    """slab_geometry of a retrace launch over nb problems of nslab slabs:
+    the smallest k whose rounds, ceil(nslab / k), fit the CTAs a problem
+    may take (slab_ctas' cap, min(CLUSTER_MAX, n_sm // nb)), else the
+    largest.  The rounds then run at once on a cluster, so the critical
+    path stays near T + 2 (nslab - 1) L global steps whatever k, and a
+    smaller k makes each step cheaper (fewer warps per barrier)."""
+    kmax = slab_geometry("trace", dagp, L, A, nslab)[0]
+    cap = max(1, min(CLUSTER_MAX, n_sm // max(nb, 1)))
+    k = next((k for k in range(1, kmax) if -(-nslab // k) <= cap), kmax)
+    return slab_geometry("trace", dagp, L, A, k)
 
 
 def slab_ctas(k: int, nslab: int, nb: int, n_sm: int) -> int:
@@ -322,9 +343,13 @@ def _geom_args(bp: BatchProblem, geom: tuple[int, int], nb: int,
     prog) arguments of a launch over nb problems of nslab slabs, ncta
     from slab_ctas for this card."""
     k, smem = geom
-    n_sm = torch.cuda.get_device_properties(bp.device).multi_processor_count
     prog = torch.empty(nb * -(-nslab // k), dtype=I32, device=bp.device)
-    return prog, (k, smem, slab_ctas(k, nslab, nb, n_sm), _ptr(prog))
+    return prog, (k, smem, slab_ctas(k, nslab, nb, _n_sm(bp.device)),
+                  _ptr(prog))
+
+
+def _n_sm(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _dp_ints(bp: BatchProblem, prm: DpParams) -> tuple:
@@ -381,8 +406,9 @@ def spliced_slab_retrace(bp: BatchProblem, prm: DpParams, s0: int,
     boundary ``snap`` (n_bounds, B', T+2) int32: H, F (and F2) of the
     boundary row at columns n = s0*L + 1 + lw + k, k = 0..T+1 (K4's
     snapshot of slab s0).  Returns (flags (nslab, T, B', L), spj (nslab,
-    NS, T, B', L)), equal to K1's planes of those slabs and problems."""
-    geom = _slab_checks(bp, prm, "trace", nslab)
+    NS, T, B', L)), equal to K1's planes of those slabs and problems.
+    k and the CTAs per problem come from retrace_geometry."""
+    _slab_checks(bp, prm, "trace", nslab)
     nb = int(sel.shape[0])
     if not 0 <= s0 < s0 + nslab <= bp.S:
         raise ValueError(f"slabs {s0}..{s0 + nslab - 1} of {bp.S}")
@@ -395,7 +421,9 @@ def spliced_slab_retrace(bp: BatchProblem, prm: DpParams, s0: int,
     spj = torch.empty((nslab, n_states(prm), T, nb, L), dtype=I32,
                       device=dev)
     bnd = _scratch(bp, prm, nb)
-    prog, gargs = _geom_args(bp, geom, nb, nslab)
+    k, _, smem = retrace_geometry(prm.dagp, L, bp.qprof.shape[2], nslab, nb,
+                                  _n_sm(dev))
+    prog, gargs = _geom_args(bp, (k, smem), nb, nslab)
     _launch(entry("spliced_slab_retrace", prm), dev, *_operand_ptrs(bp),
             _ptr(sel), nb, L, bp.qprof.shape[2], s0, nslab, *gargs,
             *_dp_ints(bp, prm), _ptr(snap), _ptr(bnd), _ptr(flags),
@@ -946,24 +974,30 @@ def spliced_tb_walk(bp: BatchProblem, flags: torch.Tensor,
     return out
 
 
-def spliced_tb_strip(flags: torch.Tensor, spj: torch.Tensor,
-                     starts: torch.Tensor, lws: torch.Tensor, s0: int,
-                     IT: int) -> torch.Tensor:
-    """K3, strip mode: one walk per problem of planes (S', T, B', L) of
-    slabs s0.., from ``starts`` (B', 4) int32 = (m, n, state, m_stop),
-    down to row m_stop (exclusive).  ``lws`` (B',) are the problems'
-    band placements.  Records as K3's, (IT, B', 4)."""
+def spliced_tb_strips(flags: torch.Tensor, spj: torch.Tensor,
+                      starts: torch.Tensor, lws: torch.Tensor, s0: int,
+                      IT: int) -> torch.Tensor:
+    """K3, strip mode: every strip of one retrace launch in one launch.
+    ``flags`` (S', T, B', L) and ``spj`` are the planes of slabs s0.. of
+    B' problems; ``starts`` (nw, 5) int32 = (m, n, state, m_stop, b), one
+    walk per row, from cell (m, n) in ``state`` down to row m_stop
+    (exclusive) through the planes of problem column b; ``lws`` (B',)
+    are the problems' band placements.  Records as K3's, (IT, nw, 4)."""
     S, T, B, L = flags.shape
     if flags.device.type == "cpu":
-        return tb_strip_plain(flags, spj, starts, lws, s0, IT)
+        return tb_strips_plain(flags, spj, starts, lws, s0, IT)
     dev = flags.device
     NS = _walk_states(spj)
+    nw = int(starts.shape[0])
+    _check("flags", flags, torch.uint8, (S, T, B, L), dev)
     _check("spj", spj, I32, (S, NS, T, B, L), dev)
-    _check("starts", starts, I32, (B, 4), dev)
+    _check("starts", starts, I32, (nw, 5), dev)
     _check("lws", lws, I32, (B,), dev)
-    out = torch.zeros((IT, B, 4), dtype=I32, device=dev)
-    _launch("spliced_tb_strip", dev, _ptr(flags), _ptr(spj), _ptr(starts),
-            _ptr(lws), B, L, S, T, IT, NS, s0, _ptr(out))
+    out = torch.zeros((IT, nw, 4), dtype=I32, device=dev)
+    if nw:
+        _launch("spliced_tb_strips", dev, _ptr(flags), _ptr(spj),
+                _ptr(starts), _ptr(lws), nw, B, L, S, T, IT, NS, s0,
+                _ptr(out))
     return out
 
 
@@ -976,27 +1010,31 @@ def tb_walk_plain(bp: BatchProblem, flags: torch.Tensor, spj: torch.Tensor,
                        bp.L, 0, bp.IT)
 
 
-def tb_strip_plain(flags, spj, starts, lws, s0: int, IT: int):
+def tb_strips_plain(flags, spj, starts, lws, s0: int, IT: int):
     """Plain version of K3's strip mode."""
-    plain_calls["spliced_tb_strip"] += 1
-    return _walk_plain(flags, spj, lws, starts[:, 0], starts[:, 1],
-                       starts[:, 2], starts[:, 3], flags.shape[3], s0, IT)
+    plain_calls["spliced_tb_strips"] += 1
+    col = starts[:, 4].long()
+    return _walk_plain(flags, spj, lws[col], starts[:, 0], starts[:, 1],
+                       starts[:, 2], starts[:, 3], flags.shape[3], s0, IT,
+                       col)
 
 
 def _walk_plain(flags, spj, lw, m, n, st, m_stop, L: int, s0: int,
-                IT: int) -> torch.Tensor:
+                IT: int, col: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of K3 (_tb_walker) in both modes: a loop over the
-    walk's steps, vectorized over the walks."""
+    walk's steps, vectorized over the walks; walk w reads the planes of
+    problem column col[w] (default w)."""
     S, T, B, _ = flags.shape
     NS = _walk_states(spj)
     dev = flags.device
     FL = flags.reshape(-1)
     SPJ = spj.reshape(-1)
-    barr = torch.arange(B, device=dev, dtype=torch.int64)
+    barr = (torch.arange(B, device=dev, dtype=torch.int64) if col is None
+            else col)
     bits = torch.tensor([0, 8, 16, 32, 64], dtype=I32, device=dev)
     m, n, st = m.clone(), n.clone(), st.clone()
     done = (m <= m_stop) | (n < 1)
-    recs = torch.zeros((IT, B, 4), dtype=I32, device=dev)
+    recs = torch.zeros((IT, m.shape[0], 4), dtype=I32, device=dev)
     for it in range(IT):
         if it % 64 == 0 and bool(done.all()):
             break

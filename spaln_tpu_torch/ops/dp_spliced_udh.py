@@ -18,12 +18,15 @@ boundaries (every L-th query row) are the intermediate rows:
    slab boundary over the device link streams gives every problem's
    crossing at each boundary row its path spans; one small tensor is
    copied to the host.
-3. retrace (_retrace): each slab a path spans is re-run with planes (K1
-   in retrace mode, from the snapshot, so bit-identical to the links
-   pass) for the problems that need it only, in sub-batches within the
-   plane budget, and walked from the crossing above down to the one
-   below (K3 in strip mode); the strips, stitched, are the op stream of
-   the full-plane walk.
+3. retrace (_retrace): the slab run of each path, from the first slab it
+   enters to its end slab, is re-run with planes (K1 in retrace mode,
+   from K4's snapshot of the run's first slab, so bit-identical to the
+   links pass), sub-batches of runs in one launch each within the plane
+   budget (retrace_launches), and every (slab, problem) strip of a
+   launch is walked in one launch (K3 in strip mode), each from the
+   crossing above down to the one below; one copy brings every strip's
+   records back, and the strips, stitched, are the op stream of the
+   full-plane walk.
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ from .dp_spliced import (BatchProblem, LK_BND_F, LK_BND_F2, LK_BND_H, LK_RC,
                          plane_bytes_per_cell, strip_walk_bound,
                          unpack_link)
 from .dp_spliced_cuda import (spliced_last_ends, spliced_slab_links,
-                              spliced_slab_retrace, spliced_tb_strip)
+                              spliced_slab_retrace, spliced_tb_strips)
 from .params import DpParams
 from ..utils.metrics import metrics
 
@@ -47,8 +50,8 @@ def run_spliced_batch_udh(bp: BatchProblem, prm: DpParams,
     """Full UDH pipeline over a prepared batch on its device.
 
     Returns (scores (B,) int64, ends (B, 2) int64, ops_list): the same
-    op streams as the full-plane walk (run_bucket), with one slab of
-    planes for at most ``plane_budget`` bytes live at a time."""
+    op streams as the full-plane walk (run_bucket), with at most
+    ``plane_budget`` bytes of planes live at a time."""
     _, snaps, se, cr = links_pass(bp, prm)
     ops_list = _retrace(bp, prm, snaps, cr, se, plane_budget)
     return se[:, 0].astype(np.int64), se[:, 1:].astype(np.int64), ops_list
@@ -134,53 +137,91 @@ def backwalk(bp: BatchProblem, links: torch.Tensor,
     return cr
 
 
+def retrace_launches(runs: list, max_ps: int) -> list:
+    """The retrace's launches over ``runs`` [(problem, first slab, end
+    slab)], each launch (s0, nslab, problems) holding at most ``max_ps``
+    problem-slabs of planes: problems in order of their runs, grouped
+    while the group's size times its slab span fits, and a span that does
+    not fit cut into consecutive pieces, each from K4's snapshot of its
+    own first slab (a run split mid-way, outputs unchanged)."""
+    groups: list = []
+    for r in sorted(runs, key=lambda r: (r[1], r[2])):
+        g = groups[-1] if groups else None
+        if g is not None and (len(g) + 1) * (max(r[2], *(x[2] for x in g))
+                                             - g[0][1] + 1) <= max_ps:
+            g.append(r)
+        else:
+            groups.append([r])
+    out = []
+    for g in groups:
+        lo, hi = g[0][1], max(x[2] for x in g)
+        step = max(1, max_ps // len(g))
+        for a in range(lo, hi + 1, step):
+            b = min(a + step, hi + 1)
+            out.append((a, b - a, [x[0] for x in g if x[1] < b and x[2] >= a]))
+    return out
+
+
 def _retrace(bp: BatchProblem, prm: DpParams, snaps: torch.Tensor,
              cr: np.ndarray, se: np.ndarray, plane_budget: int) -> list:
-    """_retrace (spaln_tpu dp_spliced_udh.py:151): re-run each slab with
-    planes for the problems whose path spans it, in sub-batches of one
-    slab's planes within ``plane_budget``, and walk every problem's
-    strip through it on the device; stitch the strips."""
+    """_retrace (spaln_tpu dp_spliced_udh.py:151): re-run each path's
+    slab run with planes in launches of whole runs within
+    ``plane_budget`` (retrace_launches), walk every strip of a launch in
+    one launch on the device, copy every strip back at once and stitch
+    the strips."""
     B, L, W, T = bp.B, bp.L, bp.W, bp.T
     dev = bp.device
     IT = strip_walk_bound(L, W)
-    mb = max(1, plane_budget // (T * L * plane_bytes_per_cell(prm)))
-    strips: list[dict[int, list]] = [dict() for _ in range(B)]
-    for s in range(bp.S):
-        want = []
-        for i in range(B):
-            if not cr[i, 0, 0]:
-                continue
+    max_ps = max(1, plane_budget // (T * L * plane_bytes_per_cell(prm)))
+    runs = []
+    for i in range(B):
+        if not cr[i, 0, 0]:
+            continue
+        sf = (int(se[i, 1]) - 1) // L
+        # slab s < sf holds a strip where the path crosses boundary row
+        # (s+1)*L off column 0; below the first crossing on column 0 the
+        # path rides column 0 (backwalk), so the strips form one run
+        s0 = sf
+        while s0 > 0 and cr[i, s0, 0] != 0:
+            s0 -= 1
+        runs.append((i, s0, sf))
+    first = {i: s0 for i, s0, _ in runs}
+    pending = []
+    for a, nslab, members in retrace_launches(runs, max_ps):
+        sel = torch.tensor(members, dtype=I32, device=dev)
+        idx = sel.long()
+        snap = snaps[a].index_select(1, idx).contiguous()
+        fl, spj = spliced_slab_retrace(bp, prm, a, nslab, snap, sel)
+        metrics.bump("udh_retrace_cells", len(members) * nslab * L * W)
+        starts, keys = [], []
+        for j, i in enumerate(members):
             bm, bn = int(se[i, 1]), int(se[i, 2])
             sf = (bm - 1) // L
-            if s > sf:
-                continue
-            if s == sf:
-                want.append((i, (bm, bn, 0, s * L)))
-                continue
-            # a path leaves slab s+1 upward by a vertical move, so the
-            # strip starts here in the crossing's state: 0 (H), 2 (F) or
-            # 4 (F2) (dp_spliced_scan.py:1240-1243)
-            col, st = int(cr[i, s + 1, 0]), int(cr[i, s + 1, 1])
-            if col == 0:
-                strips[i][s] = []
-                continue
-            want.append((i, ((s + 1) * L, col, st, s * L)))
-        for c0 in range(0, len(want), mb):
-            part = want[c0:c0 + mb]
-            sel = torch.tensor([i for i, _ in part], dtype=I32, device=dev)
-            idx = sel.long()
-            snap = snaps[s].index_select(1, idx).contiguous()
-            fl, spj = spliced_slab_retrace(bp, prm, s, 1, snap, sel)
-            metrics.bump("udh_retrace_cells", len(part) * L * W)
-            starts = torch.tensor([st for _, st in part], dtype=I32,
-                                  device=dev)
-            recs = spliced_tb_strip(fl, spj, starts,
-                                    bp.lws_t.index_select(0, idx), s, IT)
-            del fl, spj
-            # walks are short next to the bound: copy back their steps
-            n_steps = int((recs[:, :, 1] != 0).sum(0).max())
-            host = recs[:n_steps].cpu().numpy()
-            for (i, _), ops in zip(part, ops_from_records(host, len(part))):
+            for s in range(max(a, first[i]), min(a + nslab, sf + 1)):
+                # a path leaves slab s+1 upward by a vertical move, so the
+                # strip starts here in the crossing's state: 0 (H), 2 (F)
+                # or 4 (F2) (dp_spliced_scan.py:1240-1243)
+                starts.append((bm, bn, 0, s * L, j) if s == sf else
+                              ((s + 1) * L, int(cr[i, s + 1, 0]),
+                               int(cr[i, s + 1, 1]), s * L, j))
+                keys.append((i, s))
+        recs = spliced_tb_strips(fl, spj, torch.tensor(starts, dtype=I32,
+                                                       device=dev),
+                                 bp.lws_t.index_select(0, idx), a, IT)
+        del fl, spj
+        pending.append((recs, (recs[:, :, 1] != 0).sum(0).max(), keys))
+    strips: list[dict[int, list]] = [dict() for _ in range(B)]
+    if pending:
+        # walks are short next to the bound: copy back their steps only
+        n_steps = torch.stack([n for _, n, _ in pending]).tolist()
+        host = torch.cat([r[:n].reshape(-1) for (r, _, _), n in
+                          zip(pending, n_steps)]).cpu().numpy()
+        at = 0
+        for (recs, _, keys), n in zip(pending, n_steps):
+            size = n * len(keys) * 4
+            part = host[at:at + size].reshape(n, len(keys), 4)
+            at += size
+            for (i, s), ops in zip(keys, ops_from_records(part, len(keys))):
                 strips[i][s] = ops
     out = []
     for i in range(B):

@@ -1,11 +1,13 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, at test sizes (L = 16 and 32 lanes, one to five slabs, and 19
 slabs of problems of different lengths, so that the slab kernel's
-rounds of k slabs in flight wrap twice and end part-full): exact
-equality of every output, single and double affine and score-only, and
-run_bucket, the UDH path and the protein search on the card equal to
-the CPU run.  Needs an NVIDIA GPU; skipped without one.  The machine with the
-card has no JAX, so run these without the repo's conftest:
+rounds of k slabs in flight wrap twice and end part-full; and L = 1000
+and 1024, two lanes a thread): exact equality of every output, single
+and double affine and score-only, and run_bucket, the UDH path (its
+retrace at several plane budgets), `map --lanes 1024` and the protein
+search on the card equal to the CPU run.  Needs an NVIDIA GPU; skipped
+without one.  The machine with the card has no JAX, so run these
+without the repo's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -116,9 +118,10 @@ def test_wrapper_checks_raise(cuda, setup):
 @pytest.mark.parametrize("B,M,ilen,L,lws", GEOMS)
 def test_links_retrace_strip_equal_plain_on_card(cuda, setup, B, M, ilen,
                                                  L, lws):
-    """K4 against its plain version; K1's retrace of every slab from
-    K4's snapshot against the full K1 planes of that slab, byte for
-    byte; K3's strip mode against its plain version."""
+    """K4 against its plain version; K1's retrace of every slab, and of
+    every run s0..S-1 in one launch, from K4's snapshot against the full
+    K1 planes, byte for byte; K3's strip mode over every strip of a
+    launch against its plain version."""
     cfg, prm, tables = setup
     qs, gs, ss = _problems(cfg, tables, B, M, ilen, seed=B + L)
     band = dict(lws=lws, W=256) if lws else {}
@@ -137,31 +140,62 @@ def test_links_retrace_strip_equal_plain_on_card(cuda, setup, B, M, ilen,
         assert torch.equal(sp[0], spj[s][:, :, sel.long()])
         pl = K.slab_retrace_plain(bp, prm, s, 1, snap, sel)
         assert torch.equal(fl, pl[0]) and torch.equal(sp, pl[1])
-        top = min((s + 1) * L, max(bp.Ms))
-        starts = torch.tensor([[top, top + bp.lws[b] + bp.W // 2, 0, s * L]
-                               for b in sel.tolist()], dtype=torch.int32,
-                              device=cuda)
-        lws_sel = bp.lws_t.index_select(0, sel.long())
-        IT = dp.strip_walk_bound(L, bp.W)
-        r = K.spliced_tb_strip(fl, sp, starts, lws_sel, s, IT)
-        assert torch.equal(r, K.tb_strip_plain(fl, sp, starts, lws_sel, s,
-                                               IT))
+    _retrace_runs_and_strips(bp, prm, snaps, (flags, spj), sel, (0, 2))
     torch.cuda.synchronize()
 
 
-def test_udh_on_card_equals_cpu(cuda, setup):
+def _retrace_runs_and_strips(bp, prm, snaps, planes, sel, states):
+    """The retrace of slabs s0..S-1 in one launch from K4's snapshot of
+    s0, for every s0, equal to K1's planes; then K3's strip mode over
+    every (slab, problem) strip of the s0 = 0 launch, starting in the
+    given states by turns, equal to its plain version."""
+    idx = sel.long()
+    for s0 in range(bp.S):
+        fl, sp = K.spliced_slab_retrace(
+            bp, prm, s0, bp.S - s0, snaps[s0].index_select(1, idx)
+            .contiguous(), sel)
+        assert torch.equal(fl, planes[0][s0:][:, :, idx])
+        assert torch.equal(sp, planes[1][s0:][:, :, :, idx])
+    L = bp.L
+    starts = []
+    for j, b in enumerate(sel.tolist()):
+        for s in range(bp.S):
+            top = min((s + 1) * L, bp.Ms[b])
+            starts.append([top, top + bp.lws[b] + bp.W // 2,
+                           states[(j + s) % len(states)], s * L, j])
+    starts = torch.tensor(starts, dtype=torch.int32, device=bp.device)
+    lws_sel = bp.lws_t.index_select(0, idx)
+    IT = dp.strip_walk_bound(L, bp.W)
+    before = K.launches["spliced_tb_strips"]
+    r = K.spliced_tb_strips(fl, sp, starts, lws_sel, 0, IT)
+    assert K.launches["spliced_tb_strips"] == before + 1
+    assert torch.equal(r, K.tb_strips_plain(fl, sp, starts, lws_sel, 0, IT))
+    assert (r[:, :, 0] != 0).any()
+
+
+@pytest.mark.parametrize("slabs", [None, 1, 2])
+def test_udh_on_card_equals_cpu(cuda, setup, slabs):
+    """The UDH path on the card and on the CPU; the retrace at the default
+    plane budget (every run in one launch: one retrace and one strip
+    launch) and at budgets of one and two problem-slabs a launch."""
     from spaln_tpu_torch.ops.dp_spliced_udh import run_spliced_batch_udh
     cfg, prm, tables = setup
     qs, gs, ss = _problems(cfg, tables, 5, 150, 200, seed=9)
-    before = dict(K.launches)
-    on_card = run_spliced_batch_udh(dp.prepare_spliced_batch(
-        qs, gs, prm, sigs=ss, L=32, device=cuda), prm)
-    on_cpu = run_spliced_batch_udh(dp.prepare_spliced_batch(
-        qs, gs, prm, sigs=ss, L=32, device="cpu"), prm)
-    np.testing.assert_array_equal(on_card[0], on_cpu[0])
-    np.testing.assert_array_equal(on_card[1], on_cpu[1])
-    assert on_card[2] == on_cpu[2]
-    assert all(K.launches[k] > before[k] for k in K.UDH_PATH)
+    res, n = {}, {}
+    for dev in (cuda, "cpu"):
+        bp = dp.prepare_spliced_batch(qs, gs, prm, sigs=ss, L=32, device=dev)
+        budget = (dp.PLANE_BYTES_BUDGET if slabs is None else
+                  slabs * bp.T * bp.L * dp.plane_bytes_per_cell(prm))
+        before = dict(K.launches)
+        res[dev] = run_spliced_batch_udh(bp, prm, budget)
+        n = n or {k: K.launches[k] - before[k] for k in K.UDH_PATH}
+    np.testing.assert_array_equal(res[cuda][0], res["cpu"][0])
+    np.testing.assert_array_equal(res[cuda][1], res["cpu"][1])
+    assert res[cuda][2] == res["cpu"][2]
+    assert n["spliced_slab_links"] == 1
+    assert n["spliced_slab_retrace"] == n["spliced_tb_strips"] >= 1
+    if slabs is None:
+        assert n["spliced_slab_retrace"] == 1
 
 
 def _dagp(prm):
@@ -199,15 +233,7 @@ def test_dagp_and_score_kernels_equal_plain_on_card(cuda, setup, B, M,
         fl, sp = K.spliced_slab_retrace(bp, prm3, s, 1, snap, sel)
         assert torch.equal(fl[0], k1[0][s][:, sel.long()])
         assert torch.equal(sp[0], k1[1][s][:, :, sel.long()])
-        top = min((s + 1) * L, max(bp.Ms))
-        starts = torch.tensor([[top, top + bp.lws[b] + bp.W // 2, 4, s * L]
-                               for b in sel.tolist()], dtype=torch.int32,
-                              device=cuda)
-        lws_sel = bp.lws_t.index_select(0, sel.long())
-        IT = dp.strip_walk_bound(L, bp.W)
-        r = K.spliced_tb_strip(fl, sp, starts, lws_sel, s, IT)
-        assert torch.equal(r, K.tb_strip_plain(fl, sp, starts, lws_sel, s,
-                                               IT))
+    _retrace_runs_and_strips(bp, prm3, snaps, k1[:2], sel, (4, 0, 2))
     for p in (prm, prm3):
         row, rc = K.spliced_slab_score(bp, p)
         pr, pc = K.slab_score_plain(bp, p)
@@ -278,7 +304,10 @@ def test_tall_slab_rounds_equal_plain_on_card(cuda, setup, dagp, B):
     CTA per round, or with B = 45 problems on fewer CTAs than rounds.
     Every slab entry equals its plain version, K4's links and snapshots
     at every position; the retrace of slabs 1..18 (more than k) from
-    K4's snapshot equals K1's planes and its plain version."""
+    K4's snapshot equals K1's planes and its plain version, and so does
+    the retrace of every run s0..18 (with B = 45, the retrace's rounds
+    outnumber the CTAs a problem may take); K3's strip mode over every
+    strip equals its plain version."""
     cfg, prm, tables = setup
     p = _dagp(prm) if dagp else prm
     qs, gs, ss = _problems(cfg, tables, B, [300, 170, 260], 70, seed=11)
@@ -307,6 +336,8 @@ def test_tall_slab_rounds_equal_plain_on_card(cuda, setup, dagp, B):
     assert torch.equal(sp, k1[1][1:][:, :, :, idx])
     pl = K.slab_retrace_plain(bp, p, 1, 18, snap, sel)
     assert torch.equal(fl, pl[0]) and torch.equal(sp, pl[1])
+    _retrace_runs_and_strips(bp, p, k4[1], k1[:2], sel,
+                             (0, 2, 4) if dagp else (0, 2))
     torch.cuda.synchronize()
 
 
@@ -317,10 +348,10 @@ def test_refused_slab_launch_raises_on_card(cuda, setup):
     back to fewer slabs in flight or to the plain version."""
     cfg, prm, tables = setup
     qs, gs, ss = _problems(cfg, tables, 2, 40, 60, seed=1)
-    wide = dp.prepare_spliced_batch(qs, gs, _dagp(prm), sigs=ss, L=700,
+    wide = dp.prepare_spliced_batch(qs, gs, _dagp(prm), sigs=ss, L=1400,
                                     device=cuda)
     before = dict(K.plain_calls)
-    with pytest.raises(ValueError, match="lanes L=700"):
+    with pytest.raises(ValueError, match="lanes L=1400"):
         K.spliced_slab_trace(wide, _dagp(prm))
     bp = dp.prepare_spliced_batch(qs, gs, prm, sigs=ss, L=16, device=cuda)
     A = bp.qprof.shape[2]
@@ -333,3 +364,76 @@ def test_refused_slab_launch_raises_on_card(cuda, setup):
                   16, A, bp.S, 128, smem, 1, K._ptr(prog),
                   *K._dp_ints(bp, prm), K._ptr(bnd), *map(K._ptr, out))
     assert K.plain_calls == before
+
+
+@pytest.mark.parametrize("dagp,L", [(False, 1000), (True, 1000),
+                                    (False, 1024), (True, 1024)])
+def test_wide_lanes_equal_plain_on_card(cuda, setup, dagp, L):
+    """L = 1000 and 1024, past every instance's thread budget (two lanes
+    a thread in K4 and the dagp modes, one slab per CTA): K1, K4 and the
+    score entry against their plain versions, two slabs; the retrace of
+    slab 1 and of the run 0..1 from K4's snapshots against K1's planes
+    and its plain version; K3's strip mode over both slabs' strips
+    against its plain version."""
+    cfg, prm, tables = setup
+    p = _dagp(prm) if dagp else prm
+    qs, gs, ss = _problems(cfg, tables, 2, [L + 120, L + 60], 70, seed=L)
+    bp = dp.prepare_spliced_batch(qs, gs, p, sigs=ss, L=L, device=cuda,
+                                  lws=[-20, -24], W=48)
+    assert bp.S == 2
+    A = bp.qprof.shape[2]
+    for mode in ("trace", "links", "score"):
+        k, threads, _ = K.slab_geometry(mode, dagp, L, A, bp.S)
+        assert k * L > threads or L <= K.SLAB_MAX_THREADS[mode, dagp]
+    k1 = K.spliced_slab_trace(bp, p)
+    for a, b in zip(k1, K.slab_trace_plain(bp, p)):
+        assert torch.equal(a, b)
+    k4 = K.spliced_slab_links(bp, p)
+    for a, b in zip(k4, K.slab_links_plain(bp, p)):
+        assert torch.equal(a, b)
+    row, rc = K.spliced_slab_score(bp, p)
+    assert torch.equal(row, k1[2]) and torch.equal(rc, k1[3])
+    sel = torch.tensor([1, 0], dtype=torch.int32, device=cuda)
+    snap = k4[1][1].index_select(1, sel.long()).contiguous()
+    fl, sp = K.spliced_slab_retrace(bp, p, 1, 1, snap, sel)
+    pl = K.slab_retrace_plain(bp, p, 1, 1, snap, sel)
+    assert torch.equal(fl, pl[0]) and torch.equal(sp, pl[1])
+    _retrace_runs_and_strips(bp, p, k4[1], k1[:2], sel,
+                             (0, 2, 4) if dagp else (0, 2))
+    torch.cuda.synchronize()
+
+
+def test_map_wide_lanes_on_card_equals_cpu(cuda, tmp_path):
+    """`map --lanes 1024` on the card (two lanes a thread), on planes and
+    with every multi-slab bucket on UDH (-A 3), gives the -O0,4 text of
+    --device cpu (the plain versions)."""
+    from spaln_tpu_torch import cli
+    rng = np.random.default_rng(17)
+    bases = np.array(list("ACGT"))
+
+    def mk(n):
+        return "".join(rng.choice(bases, n))
+
+    contig, queries, pos = mk(30000), [], 2000
+    for n_ex in (2, 3, 6):
+        ex = [mk(int(rng.integers(150, 260))) for _ in range(n_ex)]
+        g = ex[0] + "".join("GTAAGT" + mk(int(rng.integers(120, 400)))
+                            + "TTTCTAG" + e for e in ex[1:])
+        contig = contig[:pos] + g + contig[pos + len(g):]
+        queries.append("".join(ex))
+        pos += len(g) + 3000
+    (tmp_path / "g.fa").write_text(">c1\n" + contig + "\n")
+    (tmp_path / "q.fa").write_text("".join(f">q{i}\n{q}\n"
+                                           for i, q in enumerate(queries)))
+    assert cli.main(["index", str(tmp_path / "g.fa"), "-p",
+                     str(tmp_path / "g")]) == 0
+    texts = {}
+    for dev, extra in (("cuda", []), ("cuda", ["-A", "3"]), ("cpu", [])):
+        out = tmp_path / f"{dev}{len(extra)}.txt"
+        assert cli.main(["map", str(tmp_path / "q.fa"), "-d",
+                         str(tmp_path / "g"), "-O", "0,4", "--lanes",
+                         "1024", "-o", str(out), "--device", dev,
+                         *extra]) == 0
+        texts[dev, len(extra)] = out.read_bytes()
+    assert texts["cuda", 0] == texts["cpu", 0] == texts["cuda", 2]
+    assert texts["cuda", 0].count(b"\tgene\t") == 3

@@ -35,6 +35,7 @@ from spaln_tpu_torch.ops import dp_spliced_cuda as K
 from spaln_tpu_torch.ops import dp_spliced_udh as port_udh
 from spaln_tpu_torch.ops.convert import (batch_from_reference,
                                          params_from_reference)
+from test_torch_udh import BUDGETS, retrace_at_budget
 
 BASES = np.array(list("ACGT"))
 
@@ -325,15 +326,23 @@ def udh_runs(ctx):
     return out
 
 
-@pytest.mark.parametrize("name", ["test_udh", "batch"])
-def test_udh_dagp_equals_reference(udh_runs, name):
+@pytest.mark.parametrize("name,budget", [
+    *(pytest.param(n, None, id=n) for n in ("test_udh", "batch")),
+    *(pytest.param(n, b, id=f"{n}-{b}") for n in ("test_udh", "batch")
+      for b in BUDGETS)])
+def test_udh_dagp_equals_reference(udh_runs, monkeypatch, name, budget):
     """The port's UDH path with double-affine gaps (K4-dagp with its F2
     link stream, the backwalk, K1-dagp retrace, 5-state strips) against
     spaln_tpu's UDH on its scan engine: scores, ends, op streams and the
-    backwalk's crossings; and against the port's plane path."""
+    backwalk's crossings; and against the port's plane path.  The
+    retrace also at plane budgets of one slab, two slabs and one run a
+    launch."""
     r = udh_runs[name]
     s_ref, e_ref, ops_ref = r["ref"]
     s, e, ops = r["port"]
+    if budget is not None:
+        ops = retrace_at_budget(monkeypatch, r, r["pprm"],
+                                BUDGETS[budget])[0]
     np.testing.assert_array_equal(s, np.asarray(s_ref))
     assert [tuple(x) for x in e] == [tuple(int(v) for v in x)
                                      for x in e_ref]
@@ -355,38 +364,44 @@ def test_udh_dagp_equals_reference(udh_runs, name):
 
 def test_dagp_retrace_from_snapshot_equals_full_planes(udh_runs):
     """K1-dagp's retrace of every slab, from K4-dagp's three-row
-    snapshot, gives exactly the full K1-dagp run's planes of that slab;
-    the 5-state strip walks from each crossing (states 0, 2 and 4)
-    stitch to the full walk's op streams."""
+    snapshot, and of the whole run from slab 0 in one launch, gives
+    exactly the full K1-dagp run's planes; the 5-state strip walks from
+    each crossing (states 0, 2 and 4), all in one launch, stitch to the
+    full walk's op streams."""
     r = udh_runs["batch"]
     pbp, pprm, snaps, cr, se = (r["pbp"], r["pprm"], r["snaps"], r["cr"],
                                 r["se"])
     L = pbp.L
     flags, spj, _, _ = K.spliced_slab_trace(pbp, pprm)
     sel = torch.tensor([2, 0, 1], dtype=torch.int32)
-    strips = {b: [] for b in range(pbp.B)}
+    idx = sel.long()
     for s in range(pbp.S):
-        snap = snaps[s].index_select(1, sel.long()).contiguous()
+        snap = snaps[s].index_select(1, idx).contiguous()
         fl, sp = K.spliced_slab_retrace(pbp, pprm, s, 1, snap, sel)
         np.testing.assert_array_equal(fl[0].numpy(),
-                                      flags[s][:, sel.long()].numpy())
+                                      flags[s][:, idx].numpy())
         np.testing.assert_array_equal(sp[0].numpy(),
-                                      spj[s][:, :, sel.long()].numpy())
-        starts = []
-        for b in sel.tolist():
-            sf = (int(se[b, 1]) - 1) // L
-            if s > sf:
-                starts.append([0, 0, 0, s * L])
-            elif s == sf:
-                starts.append([int(se[b, 1]), int(se[b, 2]), 0, s * L])
-            else:
-                starts.append([(s + 1) * L, int(cr[b, s + 1, 0]),
-                               int(cr[b, s + 1, 1]), s * L])
-        recs = K.spliced_tb_strip(
-            fl, sp, torch.tensor(starts, dtype=torch.int32),
-            pbp.lws_t.index_select(0, sel.long()), s,
-            port_dp.strip_walk_bound(L, pbp.W))
-        for b, ops in zip(sel.tolist(),
-                          port_dp.ops_from_records(recs.numpy(), 3)):
-            strips[b] += ops
-    assert [strips[b] for b in range(pbp.B)] == r["port"][2]
+                                      spj[s][:, :, idx].numpy())
+    fl, sp = K.spliced_slab_retrace(pbp, pprm, 0, pbp.S,
+                                    snaps[0].index_select(1, idx)
+                                    .contiguous(), sel)
+    np.testing.assert_array_equal(fl.numpy(), flags[:, :, idx].numpy())
+    np.testing.assert_array_equal(sp.numpy(), spj[:, :, :, idx].numpy())
+    starts, keys = [], []
+    for j, b in enumerate(sel.tolist()):
+        sf = (int(se[b, 1]) - 1) // L
+        for s in range(sf + 1):
+            starts.append([int(se[b, 1]), int(se[b, 2]), 0, s * L, j]
+                          if s == sf else
+                          [(s + 1) * L, int(cr[b, s + 1, 0]),
+                           int(cr[b, s + 1, 1]), s * L, j])
+            keys.append((b, s))
+    recs = K.spliced_tb_strips(fl, sp, torch.tensor(starts, dtype=torch.int32),
+                               pbp.lws_t.index_select(0, idx), 0,
+                               port_dp.strip_walk_bound(L, pbp.W))
+    strips = {b: {} for b in range(pbp.B)}
+    for (b, s), ops in zip(keys, port_dp.ops_from_records(recs.numpy(),
+                                                          len(keys))):
+        strips[b][s] = ops
+    assert [[o for s in sorted(strips[b]) for o in strips[b][s]]
+            for b in range(pbp.B)] == r["port"][2]

@@ -107,3 +107,20 @@ def test_unported_paths_name_their_roadmap_item(planted, argv, item):
     argv = [a.format(d=planted) for a in argv]
     with pytest.raises(NotImplementedError, match=item):
         port_cli.main(argv)
+
+
+def test_map_wide_lanes_text_identical(planted, monkeypatch):
+    """--lanes 1024, past every slab-kernel instance's thread budget (the
+    card runs two lanes a thread there): the port's text equals
+    spaln_tpu's, which takes any lane count."""
+    monkeypatch.setenv("SPALN_UDH", "0")          # reference plane path
+    d = planted
+    for main, db in ((ref_cli.main, "ref"), (port_cli.main, "port")):
+        if not (d / f"{db}.bkn.npz").exists():
+            _index(main, d, db)
+    wide = ("--lanes", "1024")
+    ref = _map(ref_cli.main, d, "ref", "0,4", "ref_wide.O04", wide)
+    port = _map(port_cli.main, d, "port", "0,4", "port_wide.O04",
+                ("--device", "cpu", *wide))
+    assert port == ref
+    assert ref.count(b"\tgene\t") == 4

@@ -12,12 +12,15 @@ values lane 0 reads (and one column copied at the round's start).  A
 problem's rounds may run on a cluster of CTAs, each round at most as far
 as the previous round's published progress allows.  A model of the
 orders, in global steps, checks that for random geometries, together
-with slab_geometry's and slab_ctas' limits.
+with slab_geometry's and slab_ctas' limits, the retrace's own choice of
+k and CTAs (retrace_geometry) and the UDH retrace's launches of whole
+slab runs within the plane budget (retrace_launches).
 """
 import numpy as np
 import pytest
 
 from spaln_tpu_torch.ops import dp_spliced_cuda as K
+from spaln_tpu_torch.ops.dp_spliced_udh import retrace_launches
 
 MODES = ("trace", "links", "score")
 
@@ -31,7 +34,7 @@ def test_geometry_within_card_limits(mode, dagp, L, A):
     for S in range(1, 41):
         k, threads, smem = K.slab_geometry(mode, dagp, L, A, S)
         assert 1 <= k <= S
-        assert threads == k * L <= min(maxt, 1024)
+        assert threads == k * L <= min(maxt, 1024)   # one lane a thread
         assert k * max(L, K.K_LANES) <= maxt or k == 1
         assert smem == K.slab_smem(mode, dagp, threads, A) <= K.SMEM_MAX
         if k < min(maxt // max(L, K.K_LANES), S):       # cut by memory
@@ -49,8 +52,26 @@ def test_main_path_runs_k_slabs_in_flight(mode, dagp, k):
         assert K.slab_geometry(mode, dagp, 128, A, 40)[0] == k
 
 
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dagp", [False, True])
+@pytest.mark.parametrize("L", [600, 897, 1000, 1023, 1024])
+def test_geometry_takes_wide_slabs(mode, dagp, L):
+    """Slabs of more lanes than an instance's thread budget run one slab
+    per CTA, each thread carrying P = ceil(L / budget) <= 2 lanes (v =
+    thread + p * threads), so every mode takes L up to 1024 at the cDNA
+    alphabet (17), with threads within its __launch_bounds__."""
+    maxt = K.SLAB_MAX_THREADS[mode, dagp]
+    for S in (1, 2, 9):
+        k, threads, smem = K.slab_geometry(mode, dagp, L, 17, S)
+        P = -(-k * L // threads)
+        assert threads <= maxt and P <= K.LANES_PER_THREAD
+        assert threads == -(-k * L // P) and (P - 1) * threads < k * L
+        assert (k, P) == ((1, 2) if L > maxt else (k, 1))
+        assert smem == K.slab_smem(mode, dagp, k * L, 17) <= K.SMEM_MAX
+
+
 @pytest.mark.parametrize("mode,L,A,match", [("trace", 2, 17, "lanes"),
-                                            ("links", 600, 17, "lanes"),
+                                            ("links", 1025, 17, "lanes"),
                                             ("score", 128, 300, "alphabet"),
                                             ("score", 1024, 200,
                                              "shared memory")])
@@ -199,6 +220,81 @@ def test_tall_schedule_wraps_rounds(ncta):
                        Np=144, ncta=ncta)
     np.testing.assert_array_equal(tall, seq)
     assert K.slab_serial_steps(9 + 6, 4, 3, 7) == 2 * (15 + 16) + 15
+
+
+@pytest.mark.parametrize("dagp,nslab,nb,k,ncta", [
+    (False, 12, 32, 3, 4),      # a map bucket at tetrapod width
+    (True, 12, 32, 3, 4),
+    (False, 11, 32, 3, 4),
+    (False, 5, 1, 1, 5),        # align's one-problem windows
+    (False, 12, 1, 2, 6),
+    (True, 40, 1, 5, 8),        # longer runs than the CTAs hold: k grows
+    (False, 40, 2, 5, 8),
+    (False, 12, 64, 6, 2),
+    (False, 60, 2, 7, 8),       # at most the thread budget's k
+    (False, 9, 200, 7, 1),      # more problems than SMs: K1's k
+    (True, 9, 200, 5, 1),
+    (False, 1, 8, 1, 1)])
+def test_retrace_geometry(dagp, nslab, nb, k, ncta):
+    """The retrace takes the smallest k whose rounds fit the CTAs a
+    problem may have (min(8, 132 // nb)), else K1's largest k; its CTAs
+    per problem are slab_ctas' for that k."""
+    kk, threads, smem = K.retrace_geometry(dagp, 128, 17, nslab, nb, 132)
+    assert (kk, K.slab_ctas(kk, nslab, nb, 132)) == (k, ncta)
+    assert (threads, smem) == K.slab_geometry("trace", dagp, 128, 17, kk)[1:]
+
+
+def test_retrace_geometry_leaves_the_other_modes_alone():
+    """K1, K4 and K5 keep their own geometry: the largest k the thread
+    budget holds (PR 5's schedule)."""
+    assert [K.slab_geometry(m, d, 128, 17, 12)[0] for m, d in
+            [("trace", False), ("trace", True), ("links", False),
+             ("links", True), ("score", False), ("score", True)]] == \
+        [7, 5, 4, 4, 8, 4]
+
+
+def _launch_check(runs, max_ps):
+    launches = retrace_launches(runs, max_ps)
+    covered = {}
+    for a, nslab, members in launches:
+        assert nslab >= 1 and members and len(set(members)) == len(members)
+        assert len(members) * nslab <= max_ps or (len(members), nslab) == \
+            (1, 1)
+        for i in members:
+            covered.setdefault(i, []).append((a, a + nslab))
+    for i, s0, sf in runs:             # every slab of every run, once
+        slabs = sorted(s for a, b in covered[i] for s in range(a, b)
+                       if s0 <= s <= sf)
+        assert slabs == list(range(s0, sf + 1))
+    return launches
+
+
+@pytest.mark.parametrize("seed", range(30))
+def test_retrace_launches_within_the_budget(seed):
+    """Random runs (problem, first slab, end slab) and budgets in
+    problem-slabs: every launch's planes (problems x slabs) fit the
+    budget, and every slab of every run is retraced in exactly one
+    launch."""
+    rng = np.random.default_rng(seed)
+    runs = []
+    for i in range(int(rng.integers(1, 40))):
+        sf = int(rng.integers(0, 20))
+        runs.append((i, int(rng.integers(0, sf + 1)) if seed % 3 else 0, sf))
+    _launch_check(runs, int(rng.integers(1, 500)))
+
+
+@pytest.mark.parametrize("max_ps,want", [
+    (620, [(0, 12, 32)]),                 # a tetrapod-width bucket, 13 B
+    (384, [(0, 12, 32)]),                 # ... and 21 B a cell (-yl3)
+    (383, [(0, 12, 31), (0, 12, 1)]),
+    (12, [(0, 12, 1)] * 32),              # one whole run a launch
+    (5, [(0, 5, 1), (5, 5, 1), (10, 2, 1)] * 32),   # runs split mid-way
+    (1, [(s, 1, 1) for s in range(12)] * 32)])
+def test_retrace_launches_of_a_bucket(max_ps, want):
+    """32 problems of 12 slabs each: one launch while 32 x 12 problem-
+    slabs fit, then fewer problems a launch, then pieces of runs."""
+    launches = _launch_check([(i, 0, 11) for i in range(32)], max_ps)
+    assert [(a, n, len(m)) for a, n, m in launches] == want
 
 
 @pytest.mark.parametrize("k,nslab,nb,n_sm,ncta", [(7, 12, 32, 132, 2),

@@ -5,7 +5,10 @@ the tolerance is 0: scores, ends, op streams and the backwalk's
 crossings are equal.
 
 Problems are those of tests/test_udh.py: CASES (multi-slab at L = 32),
-the mixed-geometry batch and the right-column end.
+the mixed-geometry batch and the right-column end.  The retrace runs at
+the default plane budget (every path's slab run in one launch) and at
+budgets of one slab, two slabs (runs split mid-way) and one whole run a
+launch.
 """
 import numpy as np
 import pytest
@@ -168,11 +171,50 @@ def runs(ctx):
     return out
 
 
-@pytest.mark.parametrize("name", FIXTURES)
-def test_udh_equals_reference(runs, name):
+# plane budgets of the retrace, in problem-slabs a launch (None: the
+# longest run's slabs)
+BUDGETS = {"one_slab": 1, "two_slabs": 2, "run": None}
+
+
+def retrace_at_budget(monkeypatch, r, pprm, budget):
+    """_retrace over a fixture's links pass at ``budget`` (BUDGETS), the
+    retrace launches recorded: [(s0, nslab, problems)]; each launch's
+    planes must fit the budget."""
+    pbp, cr, se = r["pbp"], r["cr"], r["se"]
+    per = pbp.T * pbp.L * port_dp.plane_bytes_per_cell(pprm)
+    if budget is None:
+        budget = max((int(se[i, 1]) - 1) // pbp.L + 1 for i in range(pbp.B))
+    calls = []
+    retrace = port_udh.spliced_slab_retrace
+
+    def recorded(bp, prm, s0, nslab, snap, sel):
+        calls.append((s0, nslab, sel.tolist()))
+        assert len(calls[-1][2]) * nslab * per <= budget * per
+        return retrace(bp, prm, s0, nslab, snap, sel)
+
+    monkeypatch.setattr(port_udh, "spliced_slab_retrace", recorded)
+    before = K.plain_calls["spliced_tb_strips"]
+    ops = port_udh._retrace(pbp, pprm, r["snaps"], cr, se, budget * per)
+    assert K.plain_calls["spliced_tb_strips"] - before == len(calls)
+    return ops, calls
+
+
+@pytest.mark.parametrize("name,budget", [
+    *(pytest.param(n, None, id=n) for n in FIXTURES),
+    *(pytest.param(n, b, id=f"{n}-{b}") for n in FIXTURES
+      for b in BUDGETS)])
+def test_udh_equals_reference(ctx, runs, monkeypatch, name, budget):
     r = runs[name]
     s_ref, e_ref, ops_ref = r["ref"]
     s, e, ops = r["port"]
+    if budget is not None:
+        ops, calls = retrace_at_budget(monkeypatch, r, ctx[2],
+                                       BUDGETS[budget])
+        if budget == "one_slab":
+            assert all(n == 1 and len(m) == 1 for _, n, m in calls)
+        elif budget == "two_slabs":      # a run split mid-way
+            assert any(n == 2 for _, n, _ in calls)
+            assert any(s0 > 0 for s0, _, _ in calls)
     np.testing.assert_array_equal(s, np.asarray(s_ref))
     assert [tuple(x) for x in e] == [tuple(int(v) for v in x)
                                      for x in e_ref]
@@ -200,48 +242,52 @@ def test_udh_equals_plane_path(ctx, runs, name):
 def test_retrace_from_snapshot_equals_full_planes(ctx, runs):
     """K1's retrace of every slab, from K4's snapshot, gives exactly the
     full K1 run's planes of that slab (the stale band-edge columns of
-    the entry boundary included); K3's strip mode over a retraced slab
-    walks as spaln_tpu's traceback_spliced_strip over the full planes."""
+    the entry boundary included), and so does the retrace of the whole
+    run from slab 0 in one launch; K3's strip mode walks every strip of
+    that launch in one launch, strip for strip as spaln_tpu's
+    traceback_spliced_strip over the full planes."""
     cfg, prm, pprm, tables = ctx
     r = runs["mixed"]
     pbp, snaps = r["pbp"], r["snaps"]
     flags, spj, _, _ = K.spliced_slab_trace(pbp, pprm)
     sel = torch.tensor([2, 0, 1], dtype=torch.int32)
+    idx = sel.long()
     traces = [SliceTrace(flags=[f for f in flags[:, :, b].numpy()],
                          spj=[np.moveaxis(x, 0, -1)
                               for x in spj[:, :, :, b].numpy()],
                          L=L, lw=pbp.lws[b], W=pbp.W)
               for b in range(pbp.B)]
-    walked = 0
     for s in range(pbp.S):
-        snap = snaps[s].index_select(1, sel.long()).contiguous()
+        snap = snaps[s].index_select(1, idx).contiguous()
         fl, sp = K.spliced_slab_retrace(pbp, pprm, s, 1, snap, sel)
         np.testing.assert_array_equal(fl[0].numpy(),
-                                      flags[s][:, sel.long()].numpy())
+                                      flags[s][:, idx].numpy())
         np.testing.assert_array_equal(sp[0].numpy(),
-                                      spj[s][:, :, sel.long()].numpy())
-        # strips from each problem's crossing above this slab
-        starts, expect = [], []
-        for j, b in enumerate(sel.tolist()):
-            sf = (int(r["se"][b, 1]) - 1) // L
-            if s > sf:
-                starts.append([0, 0, 0, s * L])       # no walk
-                expect.append([])
-                continue
+                                      spj[s][:, :, idx].numpy())
+    fl, sp = K.spliced_slab_retrace(pbp, pprm, 0, pbp.S,
+                                    snaps[0].index_select(1, idx)
+                                    .contiguous(), sel)
+    np.testing.assert_array_equal(fl.numpy(), flags[:, :, idx].numpy())
+    np.testing.assert_array_equal(sp.numpy(), spj[:, :, :, idx].numpy())
+    # every strip of every problem, from its crossing above
+    starts, expect = [], []
+    for j, b in enumerate(sel.tolist()):
+        sf = (int(r["se"][b, 1]) - 1) // L
+        for s in range(sf + 1):
             if s == sf:
                 m, n, st = int(r["se"][b, 1]), int(r["se"][b, 2]), 0
             else:
                 m, (n, st) = (s + 1) * L, r["cr"][b, s + 1]
-            starts.append([m, int(n), int(st), s * L])
+            starts.append([m, int(n), int(st), s * L, j])
             expect.append(traceback_spliced_strip(
                 traces[b], m, int(n), int(st), m_stop=s * L)[0])
-            walked += 1
-        recs = K.spliced_tb_strip(
-            fl, sp, torch.tensor(starts, dtype=torch.int32),
-            pbp.lws_t.index_select(0, sel.long()), s,
-            port_dp.strip_walk_bound(L, pbp.W))
-        assert port_dp.ops_from_records(recs.numpy(), len(sel)) == expect
-    assert walked >= pbp.S
+    before = K.plain_calls["spliced_tb_strips"]
+    recs = K.spliced_tb_strips(fl, sp, torch.tensor(starts, dtype=torch.int32),
+                               pbp.lws_t.index_select(0, idx), 0,
+                               port_dp.strip_walk_bound(L, pbp.W))
+    assert K.plain_calls["spliced_tb_strips"] == before + 1
+    assert port_dp.ops_from_records(recs.numpy(), len(starts)) == expect
+    assert len(starts) >= pbp.S and sum(map(len, expect)) > 0
 
 
 def test_links_pass_holds_no_planes(ctx, runs):
