@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of the map, align, search and pair paths from
-spaln_tpu_torch/csrc/spliced_dp.cu (ten C entries), then:
+spaln_tpu_torch/csrc/spliced_dp.cu (ten C entries) and of the protein
+path from spaln_tpu_torch/csrc/tron_dp.cu (three), one nvcc per source,
+started together, then:
 
 1. kernels: one bucket at main-path shapes (B=8, L=128, W=1152, 2 slabs,
    planted introns) through each kernel and its plain PyTorch version on
@@ -29,7 +31,14 @@ spaln_tpu_torch/csrc/spliced_dp.cu (ten C entries), then:
    K1, K4 and the retrace (one slab; slabs 1..11; all 12 slabs of every
    problem, as the UDH path launches them, at its own k and at k = 1, 2,
    3, 4, 7), each retrace's planes equal to K1's; ms per launch, k, CTAs
-   per problem, serial steps per launch and us per global step;
+   per problem, serial steps per launch and us per global step.  Last
+   the tron batch at phase 8's shapes (B=4 planted protein genes of
+   330-384 aa with 2-6 kb introns, the map's 128 lanes: 3 slabs, the
+   bands prepare_tron_job gives them: W = 15,744): K7 with 3 and 5
+   states, Smith-Waterman local on and off, exactly equal to its plain
+   version (run on CPU copies in 4 processes while phases 2-8 run,
+   compared at the end), and K8 on each to its plain version on the
+   card;
 2. map, small: `index` + `map -O0` and `-O4` of 4 planted genes through
    the CLI, once on the kernels and once with the DP forced through the
    plain versions on the card; the text must be byte-identical;
@@ -61,9 +70,18 @@ spaln_tpu_torch/csrc/spliced_dp.cu (ten C entries), then:
    substitutions and 0-2 indels, `search -a db.fa --max-hits 10
    --align-top 1 -O0,1`: >= 95% of queries with their source as the top
    hit, every score pass on the score-only entry and every traced hit on
-   K1, K2e and K3; then `pair` on the 200 (query, source) pairs.
+   K1, K2e and K3; then `pair` on the 200 (query, source) pairs;
+8. protein map: a synthetic 32 Mb genome (4 chromosomes, GC ~41%) with
+   100 planted protein-coding genes (proteins of median 375 aa, 3-10
+   exons, introns log-uniform over 0.1-10 kb at all three codon phases,
+   both strands), queries at 0-20% substitutions and 0-2 short indels:
+   `index -K P`, then `map -T Tetrapod -O0,4` (Smith-Waterman local,
+   3 states) and `map -y l3` (5 states); every batch on K7 and K8 with no
+   plain call, >= 90% of queries at their planted locus and strand; each
+   launch of K7 and K8 timed on the map's run beside the bound of its
+   batch, and the sums over the launches.
 
-Phases 3-7 also fail if per-query isolation skipped a query or a text's
+Phases 3-8 also fail if per-query isolation skipped a query or a text's
 md5 differs from the one the phase has given since it was added.  Prints
 the card, per-kernel times, map throughput and stage seconds, a
 {"kernels": [...]} line, and last {"ok": true, "device": {...}}.  Exits
@@ -108,6 +126,9 @@ REPLACES = {
     "spliced_last_ends": "spaln_tpu/ops/dp_spliced_pallas.py:1122",
     "spliced_tb_walk": "spaln_tpu/ops/dp_spliced_scan.py:1127",
     "spliced_tb_strips": "spaln_tpu/ops/dp_spliced_scan.py:1235",
+    "tron_forward": "spaln_tpu/ops/dp_tron_scan.py:116",
+    "tron_forward_dagp": "spaln_tpu/ops/dp_tron_scan.py:116",
+    "tron_walk": "spaln_tpu/ops/dp_tron_scan.py:1113",
 }
 
 # Least time the card could take: H100 SXM HBM3 at 3.35 TB/s; int32 at
@@ -160,7 +181,8 @@ def _md5(path: Path) -> str:
 # phase was added; the dictdisc map's equals spaln_tpu's CPU run
 TEXT_MD5 = {"dictdisc map": "0ea2caf5ae1dcc3a7ddbe77efb9bf55c",
             "tetrapod map": "2ff07584", "map -yl3": "d1d7735f",
-            "search": "efc6189b", "pair": "5c28654d"}
+            "search": "efc6189b", "pair": "5c28654d",
+            "protein map": "7e5cc997", "protein map -yl3": "80341a27"}
 
 
 def _check_md5(label: str, path: Path) -> str:
@@ -236,11 +258,11 @@ def _operand_bytes(bp) -> int:
 
 
 @contextlib.contextmanager
-def kernel_clock(K, retraces: list | None = None):
+def kernel_clock(K, retraces: list | None = None, each: dict | None = None):
     """Time every C entry's launches with CUDA events while the block
     runs; yields a dict name -> device ms, filled on exit.  Appends each
     retrace launch's (problems, slabs, k, CTAs per problem) to
-    ``retraces``."""
+    ``retraces``, and fills ``each`` with name -> each launch's ms."""
     events = {k: [] for k in K.KERNELS}
     orig = K._launch
 
@@ -263,6 +285,8 @@ def kernel_clock(K, retraces: list | None = None):
         torch.cuda.synchronize()
         for k, ev in events.items():
             out[k] = sum(a.elapsed_time(b) for a, b in ev)
+            if each is not None:
+                each[k] = [a.elapsed_time(b) for a, b in ev]
 
 
 def _retrace_shapes(retraces: list) -> str:
@@ -1014,6 +1038,230 @@ def _with_k(K, k, fn):
         return fn()
 
 
+# ---------------------------------------------------- phase 1, tron path
+# int32 operations of K7 per band cell (the recurrence with its neighbour
+# reads, E and F, the commit, the ring and plane writes; double-affine
+# gaps add E2 and F2), per acceptor phase at a cell (4 candidates: the
+# penalty, joint and junction-codon terms, the strict-max chain into 3
+# or 5 states) and per donor phase (the eligibility rules and a sorted
+# insertion per state), counted from csrc/tron_dp.cu
+OPS_TRON_CELL, OPS_TRON_CELL_DAGP = 70, 95
+OPS_TRON_ACC, OPS_TRON_ACC_DAGP = 90, 120
+OPS_TRON_DON, OPS_TRON_DON_DAGP = 75, 125
+
+
+def _tron_cells(TD, bp):
+    """(band cells, acceptor phase-cells, donor phase-cells) of a tron
+    batch, from this run's operands: the cells inside the band and the
+    matrix (K7's ``active``), and the splice phases that run their
+    branches there (a phase of 2 counts twice).  Lane i of slab s
+    (m = sL + 1 + i) is active at the band's W steps t = 6i..6i+W-1,
+    where n = c0 + t - 3i runs over one interval: prefix sums of the
+    phase weights count its sites."""
+    meta = bp.meta.cpu().numpy().astype(np.int64)
+    code = bp.gen[:, TD.G_CODE].cpu().numpy().astype(np.int64)
+    L, W = bp.L, bp.W
+    i = np.arange(L)
+    cells = acc = don = 0
+    for b in range(bp.B):
+        M, N, lw = meta[b, :3]
+        pre = []
+        for shift in (TD.P3_SHIFT, TD.P5_SHIFT):
+            k = ((code[b, :N] >> shift) & 7) - 2
+            w = np.where(k == 2, 2, (k >= -1) & (k <= 1))
+            pre.append(np.concatenate([[0], np.cumsum(w)]))
+        for s in range(bp.S):
+            m0 = s * L + 1
+            lo = 3 * m0 + lw - 1 + 3 * i
+            n_lo = np.maximum(lo, 0)
+            n_hi = np.minimum(lo + W - 1, N)
+            live = (m0 + i <= M) & (n_hi >= n_lo)
+            cells += int(np.where(live, n_hi - n_lo + 1, 0).sum())
+            s_hi = np.minimum(n_hi, N - 1)
+            site = live & (m0 + i < M) & (s_hi >= n_lo)
+            a = np.clip(n_lo, 0, N)
+            z = np.clip(s_hi + 1, 0, N)
+            acc += int(np.where(site, pre[0][z] - pre[0][a], 0).sum())
+            don += int(np.where(site, pre[1][z] - pre[1][a], 0).sum())
+    return cells, acc, don
+
+
+def _tron_work(TD, bp, dagp: bool) -> tuple[int, int]:
+    """(bytes, int32 operations) K7 needs on a batch: its operands read
+    once, the planes of the band cells and the row, column and local
+    end written once; the operations per band cell and splice
+    phase-cell."""
+    cells, acc, don = _tron_cells(TD, bp)
+    nn = 5 if dagp else 3
+    nbytes = (4 * (bp.gen.numel() + bp.aa.numel() + bp.tabs.numel()
+                   + 2 * bp.bnd0.numel() + bp.meta.numel())
+              + 6 * nn * cells + 4 * bp.B * (bp.Nmax + bp.Mpad + 7))
+    nops = (cells * (OPS_TRON_CELL_DAGP if dagp else OPS_TRON_CELL)
+            + acc * (OPS_TRON_ACC_DAGP if dagp else OPS_TRON_ACC)
+            + don * (OPS_TRON_DON_DAGP if dagp else OPS_TRON_DON))
+    return nbytes, nops
+
+
+TRON_REC = 5                     # ints of a K8 record (kind, m, n, a1, a2)
+
+
+def _walk_work(steps: int, B: int) -> tuple[int, int]:
+    """(bytes, int32 operations) of K8's walks of ``steps`` records: a
+    flag and a junction word read and a record written per step."""
+    return 6 * steps + 4 * TRON_REC * steps + 4 * B * 4, OPS_WALK * steps
+
+
+def _tron_bucket(TD, pctx, local: bool):
+    """Phase 1's tron batch at phase 8's shapes: B=4 planted protein
+    genes of 330-384 aa (3 slabs of the map's 128 lanes), 4-5 exons cut
+    at random codon phases, GT..AG introns log-uniform over 2-6 kb,
+    10% substitutions in the queries, with the bands prepare_tron_job
+    gives them (the W ladder, Local bounds at the chain's anchors), at
+    the widest band of the four: W = 15,744, as one of phase 8's
+    batches (the others 23,808-43,995)."""
+    from spaln_tpu_torch.align.protein_driver import (prepare_tron_job,
+                                                      wilip_protein)
+    from spaln_tpu_torch.ops.params import DpFlags
+    from spaln_tpu_torch.seq.codec import encode_dna, encode_protein
+    rng = np.random.default_rng(SEED + 11)
+    codons = _codons()
+    jobs = []
+    lo, hi = np.log(2000), np.log(6000)
+    while len(jobs) < 4:
+        prot = "M" + _protein(rng, int(rng.integers(330, 385)) - 1)
+        cds = "".join(codons[a][int(rng.integers(len(codons[a])))]
+                      for a in prot)
+        cuts = np.sort(rng.choice(np.arange(45, len(cds) - 45),
+                                  3 + len(jobs) % 2, replace=False))
+        if np.any(np.diff(np.concatenate([[0], cuts, [len(cds)]])) < 45):
+            continue
+        g, prev = _seq(rng, 300, 0.4), 0
+        for c in list(cuts) + [len(cds)]:
+            g += cds[prev:c]
+            if c != len(cds):
+                n = int(np.exp(rng.uniform(lo, hi)))
+                g += "GTAAGT" + _seq(rng, n - 12, 0.38) + "TTTCAG"
+            prev = c
+        g += _seq(rng, 300, 0.4)
+        q = encode_protein(_mutate_protein(rng, prot, 0.1))
+        gc = encode_dna(g)
+        chain = wilip_protein(q, gc, pctx.pmtx, ipen=pctx.ipen)[0]
+        jobs.append(prepare_tron_job(q, gc, pctx, chain))
+    W = max(j.up - j.lw + 2 for j in jobs)
+    bp = TD.prepare_tron_batch(
+        [j.q for j in jobs], [j.gw for j in jobs], [j.sig for j in jobs],
+        pctx.prm, pctx.ipen_tab, lws=[j.lw for j in jobs], W=W, L=128,
+        flags=DpFlags(local=local),
+        loc_bounds=[j.loc_bounds for j in jobs], device="cuda")
+    if (bp.B, bp.S) != (4, 3) or bp.W < 15_000:
+        raise AssertionError(f"tron bucket geometry {bp.B, bp.S, bp.W}")
+    return bp
+
+
+def _tron_plain_job(job):
+    """K7's plain version on CPU copies; a worker of check_tron_kernels.
+    Returns (outputs, ms)."""
+    from spaln_tpu_torch.ops import dp_tron_cuda as TK
+    torch.set_num_threads(1)
+    bp, prm = job
+    t0 = time.perf_counter()
+    planes, row, rc, loc = TK.tron_forward_plain(bp, prm)
+    return (list(planes) + [row, rc, loc]), (time.perf_counter() - t0) * 1e3
+
+
+def check_tron_kernels(TK, TD, pool):
+    """K7 (3 and 5 states, Local on and off) and K8 against their plain
+    versions on phase 1's tron batch (B=4, L=128, 3 slabs, W = 15,744):
+    every output exact.  K7's plain versions run on CPU copies in
+    ``pool``'s processes while the later phases run; K8's on the card,
+    here.  The Local variants are the map's (Smith-Waterman local by
+    default): their times and bounds go into the kernel line.  Returns
+    a function that waits for the plain versions, compares and returns
+    the kernel rows."""
+    from spaln_tpu_torch.align.protein_driver import ProteinAlignerContext
+    from spaln_tpu_torch.score.tables import TableDir, find_table_dir
+    tables = TableDir(find_table_dir(), species="Tetrapod")
+    pctx = {dagp: ProteinAlignerContext.create(
+        tables, "cuda", y_args=["-yl3"] if dagp else None)
+        for dagp in (False, True)}
+    variants = [(dagp, local) for dagp in (False, True)
+                for local in (True, False)]
+    bps = {local: _tron_bucket(TD, pctx[False], local)
+           for local in (True, False)}
+    t_submit = time.perf_counter()
+    pending, got = {}, {}
+    for dagp, local in variants:
+        pending[dagp, local] = pool.apply_async(
+            _tron_plain_job, ((_cpu_bucket(bps[local]), pctx[dagp].prm),))
+    out = {}
+    for dagp, local in variants:
+        name = "tron_forward_dagp" if dagp else "tron_forward"
+        prm = pctx[dagp].prm
+        bp = bps[local]
+        planes, row, rc, loc = TK.tron_forward(bp, prm)
+        got[dagp, local] = [x.cpu() for x in list(planes) + [row, rc, loc]]
+        ends = TD.collect_tron_ends(bp, row.cpu().numpy(), rc.cpu().numpy(),
+                                    loc.cpu().numpy())
+        et = torch.tensor([[e[1], e[2]] for e in ends], dtype=torch.int32,
+                          device="cuda")
+        recs, counts = TK.tron_walk(bp, planes, et)
+        (precs, pcounts, pdone), wplain = _plain_ms(
+            lambda: TK.tron_walk_plain(bp, planes, et))
+        if not (torch.equal(counts, pcounts) and bool(pdone.all())):
+            raise AssertionError(f"tron_walk counts differ ({name}, local "
+                                 f"{local})")
+        for b in range(bp.B):
+            n = int(counts[b])
+            _equal(f"tron_walk ({name}, local {local})",
+                   [recs[b, :n]], [precs[b, :n]])
+        introns = sum(int(((recs[b, :int(counts[b]), 0] >= 4)).sum())
+                      for b in range(bp.B))
+        log(f"kernel tron_walk on {name} (local {local}): exact, "
+            f"{int(counts.sum())} records, {introns} introns on the paths")
+        if not introns:
+            raise AssertionError("no intron on the tron paths")
+        if not local:
+            continue
+        nbytes, nops = _tron_work(TD, bp, dagp)
+        bound, by = _bound(nbytes, nops)
+        ms = _timed(lambda: TK.tron_forward(bp, prm), 3)
+        out[name] = dict(ms=ms, bound_ms=bound, bound_by=by,
+                         work=(nbytes, nops))
+        cells, acc, don = _tron_cells(TD, bp)
+        log(f"kernel {name}: {ms:.3f} ms = "
+            f"{1e3 * ms / (bp.S * bp.T):.3f} us a step, bound "
+            f"{bound:.7f} ms by {by} ({nbytes} bytes, {nops} int32 ops) "
+            f"(B={bp.B} L={bp.L} W={bp.W} S={bp.S} T={bp.T}: {cells} "
+            f"band cells of {bp.S * bp.T * bp.B * bp.L} lane-steps, {acc} "
+            f"acceptor and {don} donor phase-cells)")
+        if not dagp:
+            steps = int(counts.sum())
+            wb, wo = _walk_work(steps, bp.B)
+            wbound, wby = _bound(wb, wo)
+            out["tron_walk"] = dict(max_abs_err=0, ms=_timed(
+                lambda: TK.tron_walk(bp, planes, et), 5), plain_ms=wplain,
+                bound_ms=wbound, bound_by=wby, work=(wb, wo))
+            log(f"kernel tron_walk: {out['tron_walk']['ms']:.3f} ms vs "
+                f"plain {wplain:.1f} ms (on the card), bound {wbound:.7f} "
+                f"ms by {wby} ({steps} records)")
+
+    def finish():
+        t0 = time.perf_counter()
+        for (dagp, local), job in pending.items():
+            want, ms = job.get()
+            name = "tron_forward_dagp" if dagp else "tron_forward"
+            err = _equal(f"{name} (local {local})", got[dagp, local], want)
+            log(f"kernel {name} (local {local}): exact; plain {ms:.1f} ms "
+                f"(on a CPU copy)")
+            if local:
+                out[name].update(max_abs_err=err, plain_ms=ms)
+        log(f"tron batch: K7 plain versions on the CPU in {len(pending)} "
+            f"processes, {time.perf_counter() - t_submit:.1f} s after "
+            f"submission ({time.perf_counter() - t0:.1f} s of waiting)")
+        return out
+    return finish
+
+
 # --------------------------------------------------------------- phase 2
 def small_map(K, cli):
     """4 planted genes: kernels vs plain versions, byte for byte."""
@@ -1669,6 +1917,199 @@ def protein_search(K, cli, metrics):
     return runs
 
 
+# --------------------------------------------------------------- phase 8
+PROT_CHROMS = (9.5e6, 8.5e6, 7.5e6, 6.5e6)
+N_PROT_GENES = 100
+
+
+def _codons() -> dict:
+    """aa letter -> its sense codons (the standard code)."""
+    from spaln_tpu_torch import constants as C
+    from spaln_tpu_torch.seq.codec import decode_protein
+    out: dict = {}
+    for c in range(64):
+        aa = decode_protein(np.asarray([C.GENCODE[c]], np.int8))
+        if aa in AMINO:
+            out.setdefault(aa, []).append("ACGT"[(c >> 4) & 3]
+                                          + "ACGT"[(c >> 2) & 3]
+                                          + "ACGT"[c & 3])
+    return out
+
+
+def make_protein_gene_corpus(d: Path) -> list:
+    """Synthetic protein-to-genome deployment: 4 chromosomes (~32 Mb, GC
+    ~41%) with N_PROT_GENES protein-coding genes planted on both strands
+    (proteins of phase 7's log-normal lengths, median 375 aa, clipped to
+    80-1,500; back-translated with random synonymous codons and a stop;
+    3-10 exons cut at random codon phases; GT..AG introns log-uniform
+    over 0.1-10 kb), and queries: each source protein with 0-20%
+    substitutions and 0-2 indels of 1-10 aa.  Writes genome.fa and
+    prot.fa; returns the planted truth per query (coding exons without
+    the stop codon)."""
+    rng = np.random.default_rng(SEED + 9)
+    codons = _codons()
+    lens = [int(x) for x in PROT_CHROMS]
+    chroms = [np.array(list("ACGT"), dtype="S1")[
+        rng.choice(4, n, p=[0.295, 0.205, 0.205, 0.295])] for n in lens]
+    truth, queries, taken = [], [], [[] for _ in lens]
+    p_chrom = np.asarray(lens, float) / sum(lens)
+    lo, hi = np.log(100), np.log(10_000)
+    while len(truth) < N_PROT_GENES:
+        n_aa = int(np.clip(np.round(np.exp(rng.normal(np.log(375), 0.5))),
+                           80, 1500))
+        prot = "M" + _protein(rng, n_aa - 1)
+        cds = "".join(codons[a][int(rng.integers(len(codons[a])))]
+                      for a in prot) + "TAA"
+        n_ex = int(rng.integers(3, 11))
+        cuts = np.sort(rng.choice(np.arange(30, len(cds) - 33),
+                                  n_ex - 1, replace=False))
+        if np.any(np.diff(np.concatenate([[0], cuts, [len(cds)]])) < 12):
+            continue
+        parts, spans, at, prev = [], [], 0, 0
+        for c in list(cuts) + [len(cds)]:
+            e = cds[prev:c]
+            spans.append((at, at + len(e) - (3 if c == len(cds) else 0)))
+            parts.append(e)
+            at += len(e)
+            prev = c
+            if c != len(cds):
+                n = int(np.exp(rng.uniform(lo, hi)))
+                intr = "GTAAGT" + _seq(rng, n - 12, 0.38) + "TTTCAG"
+                parts.append(intr)
+                at += len(intr)
+        g = "".join(parts)
+        c = int(rng.choice(len(lens), p=p_chrom))
+        pos = int(rng.integers(20_000, lens[c] - len(g) - 20_000))
+        if any(pos < b + 20_000 and a < pos + len(g) + 20_000
+               for a, b in taken[c]):
+            continue
+        taken[c].append((pos, pos + len(g)))
+        strand = "+" if len(truth) % 2 == 0 else "-"
+        exons = _plant(rng, chroms[c], pos, g, spans, strand)
+        qn = f"pg{len(truth):03d}"
+        truth.append(dict(q=qn, chrom=f"chr{c + 1}", strand=strand,
+                          span=(pos, pos + len(g)), exons=exons))
+        queries.append(f">{qn}\n" + _mutate_protein(
+            rng, prot, float(rng.uniform(0.0, 0.2)),
+            int(rng.integers(0, 3))) + "\n")
+    _write_fasta(d / "genome.fa", [f"chr{c + 1}" for c in range(len(lens))],
+                 chroms)
+    (d / "prot.fa").write_text("".join(queries))
+    return truth
+
+
+@contextlib.contextmanager
+def _keep_tron_batches(TK):
+    """Keep every batch K7 is called on (its operands stay on the card)
+    and the records each K8 walk wrote, in launch order."""
+    kept = {"forward": [], "walk": []}
+    fwd, walk = TK.tron_forward, TK.tron_walk
+
+    def forward(bp, prm):
+        kept["forward"].append((bp, prm.dagp))
+        return fwd(bp, prm)
+
+    def walk_(bp, planes, ends):
+        recs, counts = walk(bp, planes, ends)
+        kept["walk"].append((bp.B, int(counts.sum())))
+        return recs, counts
+    TK.tron_forward, TK.tron_walk = forward, walk_
+    try:
+        yield kept
+    finally:
+        TK.tron_forward, TK.tron_walk = fwd, walk
+
+
+def _tron_launches(TD, kept: dict, each: dict, fwd: str) -> dict:
+    """K7 and K8 on phase 8's own batches: each launch's time (CUDA
+    events on the map's run) beside the bound of its work; the sums of
+    ms, bound and ms - bound over the launches."""
+    rows = {fwd: [], "tron_walk": []}
+    for (bp, dagp), ms in zip(kept["forward"], each[fwd]):
+        bound, by = _bound(*_tron_work(TD, bp, dagp))
+        rows[fwd].append(ms - bound)
+        log(f"  {fwd}: B={bp.B} S={bp.S} W={bp.W} T={bp.T}: {ms:.3f} ms "
+            f"= {1e3 * ms / (bp.S * bp.T):.3f} us a step, bound "
+            f"{bound:.5f} ms by {by}")
+    for (B, steps), ms in zip(kept["walk"], each["tron_walk"]):
+        bound, by = _bound(*_walk_work(steps, B))
+        rows["tron_walk"].append(ms - bound)
+        log(f"  tron_walk: B={B}, {steps} records: {ms:.3f} ms, bound "
+            f"{bound:.7f} ms by {by}")
+    out = {}
+    for k, ex in rows.items():
+        out[k] = dict(launches=len(ex), ms=sum(each[k]),
+                      ms_minus_bound=sum(ex))
+    return out
+
+
+def protein_map(TK, TD, cli, metrics):
+    """index -K P, then map of the protein queries: the default (SW
+    local, 3 states) and -y l3 (5 states) on K7 and K8; each launch of
+    K7 and K8 timed beside its bound."""
+    d = WORK / "protmap"
+    d.mkdir(parents=True)
+    t0 = time.perf_counter()
+    truth = make_protein_gene_corpus(d)
+    log(f"protein map: corpus built in {time.perf_counter() - t0:.1f} s "
+        f"({sum(PROT_CHROMS) / 1e6:.1f} Mb, {len(truth)} planted genes)")
+    t0 = time.perf_counter()
+    cli.main(["index", str(d / "genome.fa"), "-p", str(d / "genome"),
+              "-K", "P"])
+    log(f"protein map: index -K P built in {time.perf_counter() - t0:.1f} "
+        f"s")
+    runs = {}
+    for mode, extra in (("default", []), ("yl3", ["-y", "l3"])):
+        metrics.reset()
+        _reset_counts(TK)
+        out = OUT / f"protmap.{mode}.O0_4"
+        each = {}
+        with kernel_clock(TK, each=each) as kms, \
+                _keep_tron_batches(TK) as kept:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cli.main(["map", str(d / "prot.fa"), "-d", str(d / "genome"),
+                      "-T", "Tetrapod", "-O", "0,4", "-o", str(out),
+                      "--device", "cuda", *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        _check_no_skips(metrics, f"protein map ({mode})")
+        if any(TK.plain_calls.values()):
+            raise AssertionError(f"protein map ({mode}): plain versions "
+                                 f"ran: {TK.plain_calls}")
+        c, n = dict(metrics.counters), dict(TK.launches)
+        fwd = "tron_forward_dagp" if mode == "yl3" else "tron_forward"
+        label = "protein map -yl3" if mode == "yl3" else "protein map"
+        nb = c.get("tron_buckets", 0)
+        if not nb or n[fwd] != nb or n["tron_walk"] != nb:
+            raise AssertionError(f"protein map ({mode}): {nb} batches, "
+                                 f"launches {n}")
+        hit, rec, prec, missed = _score_text(out.read_text(), truth)
+        secs = {k: round(v, 3) for k, v in metrics.timings.items()}
+        busy = sum(kms.values()) / 1e3
+        log(f"protein map ({mode}): {len(truth)} queries in {wall:.2f} s = "
+            f"{len(truth) / wall:.3f} queries/s; {nb} tron batches, "
+            f"{c.get('tron_jobs', 0)} jobs, tron_dp_cells "
+            f"{c.get('tron_dp_cells', 0)}; stage seconds "
+            f"{json.dumps(secs, sort_keys=True)}")
+        log(f"protein map ({mode}): kernel ms, launches "
+            f"{_ms_launches(TK, kms)}; kernels busy {busy:.3f} s = "
+            f"{100 * busy / wall:.2f}% of the wall")
+        log(f"protein map ({mode}): {hit}/{len(truth)} = "
+            f"{100 * hit / len(truth):.1f}% at the planted locus and "
+            f"strand; exon recall {rec:.4f}, precision {prec:.4f}; missed "
+            f"{missed}; text md5 {_check_md5(label, out)}")
+        if hit < 0.9 * len(truth):
+            raise AssertionError(f"protein map ({mode}): only {hit} of "
+                                 f"{len(truth)} at their planted locus")
+        log(f"protein map ({mode}): each launch of K7 and K8")
+        per = _tron_launches(TD, kept, each, fwd)
+        log(f"protein map ({mode}): over the launches "
+            f"{json.dumps(per, sort_keys=True)}")
+        runs[mode] = dict(launches=n, ms=kms, wall=wall, per_launch=per)
+    return runs
+
+
 def _card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1706,8 +2147,12 @@ def main() -> int:
     from spaln_tpu_torch.align.driver import AlignerContext
     from spaln_tpu_torch.ops import dp_spliced as dp
     from spaln_tpu_torch.ops import dp_spliced_cuda as K
+    from spaln_tpu_torch.ops import dp_tron as TD
+    from spaln_tpu_torch.ops import dp_tron_cuda as TK
     from spaln_tpu_torch.score.tables import TableDir, find_table_dir
     from spaln_tpu_torch.utils.metrics import metrics
+    from concurrent.futures import ThreadPoolExecutor
+    import multiprocessing
 
     log(_card())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1715,12 +2160,18 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     WORK.mkdir(parents=True)
     OUT.mkdir(parents=True, exist_ok=True)
+    stack = contextlib.ExitStack()
     try:
-        so, secs, ptxas = K.build_library()
-        log(f"kernels built in {secs:.1f} s -> {so.relative_to(ROOT)}")
-        for line in ptxas.splitlines():
-            if "registers" in line or "spill" in line:
-                log("  ptxas: " + line.strip())
+        # one nvcc per source, started together
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(2) as pool:
+            builds = list(pool.map(K.build_library, (K.SOURCE, TK.SOURCE)))
+        log(f"kernels built in {time.perf_counter() - t0:.1f} s")
+        for so, secs, ptxas in builds:
+            log(f"  {so.relative_to(ROOT)}: nvcc {secs:.1f} s")
+            for line in ptxas.splitlines():
+                if "registers" in line or "spill" in line:
+                    log("  ptxas: " + line.strip())
         ctx = AlignerContext.create(
             TableDir(find_table_dir(), species="Dictyost"), "cuda")
         results = check_kernels(K, dp, ctx)
@@ -1729,6 +2180,11 @@ def main() -> int:
             y_args=["-yl3"])
         results.update(check_k5_kernels(K, dp, ctx3))
         check_tall_kernels(K, dp, ctx, ctx3)
+        # K7's plain versions step on CPU copies in 4 processes while
+        # phases 2-8 run (the pool's workers end with the block)
+        tron_pool = stack.enter_context(
+            multiprocessing.get_context("spawn").Pool(4))
+        tron_finish = check_tron_kernels(TK, TD, tron_pool)
         slab_timing(K, dp, AlignerContext.create(
             TableDir(find_table_dir(), species="Tetrapod"), "cuda"))
         small_map(K, cli)
@@ -1737,7 +2193,10 @@ def main() -> int:
         segment_align(K, cli, metrics)
         yl3 = tetrapod_yl3_map(K, cli, metrics, truth)
         prot = protein_search(K, cli, metrics)
+        pmap = protein_map(TK, TD, cli, metrics)
+        tron = tron_finish()
     finally:
+        stack.close()
         shutil.rmtree(WORK, ignore_errors=True)
     src = str((ROOT / "spaln_tpu_torch/csrc/spliced_dp.cu")
               .relative_to(ROOT))
@@ -1755,15 +2214,25 @@ def main() -> int:
         launches[k] = yl3["udh"]["launches"][k]
     launches["spliced_slab_score"] = \
         prot["search"]["launches"]["spliced_slab_score"]
-    if not all(launches[k] > 0 for k in K.KERNELS):
+    # the tron entries from phase 8's maps: K7 and K8 from the default
+    # run, K7's double-affine mode from -y l3's
+    launches["tron_forward"] = pmap["default"]["launches"]["tron_forward"]
+    launches["tron_walk"] = pmap["default"]["launches"]["tron_walk"]
+    launches["tron_forward_dagp"] = \
+        pmap["yl3"]["launches"]["tron_forward_dagp"]
+    results.update(tron)
+    sources = {k: src for k in K.KERNELS}
+    sources.update({k: str(TK.SOURCE.relative_to(ROOT)) for k in TK.KERNELS})
+    names = K.KERNELS + TK.KERNELS
+    if not all(launches[k] > 0 for k in names):
         raise AssertionError(f"a kernel of the path never ran: {launches}")
     print(json.dumps({"kernels": [
-        dict(name=k, route="cuda", source=src, replaces=REPLACES[k],
+        dict(name=k, route="cuda", source=sources[k], replaces=REPLACES[k],
              launches=launches[k], max_abs_err=results[k]["max_abs_err"],
              ms=results[k]["ms"], plain_ms=results[k]["plain_ms"],
              bound_ms=results[k]["bound_ms"],
              bound_by=results[k]["bound_by"], library_ms=None)
-        for k in K.KERNELS]}))
+        for k in names]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

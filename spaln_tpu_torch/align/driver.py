@@ -196,14 +196,16 @@ def _finish_job(job: AlignJob, score: int, ops: list,
     return gs
 
 
-def coalesce_buckets(buckets: dict, jobs: list, max_batch: int) -> dict:
+def coalesce_buckets(buckets: dict, jobs: list, max_batch: int,
+                     band_extra: int = 1) -> dict:
     """Bucket coalescing: within each Mpad, promote the under-filled
     width classes (fewer than ``max_batch`` jobs) into the widest W of
     the group, widening each promoted job's band (``up``) to it.  The
     band is a search-space restriction, so widening only adds freedom,
     but it can change a result: the reference does it on every backend,
     and so does the port.  ``buckets`` maps (W, Mpad) to indices into
-    ``jobs``; returns the merged map."""
+    ``jobs``, W = up - lw + ``band_extra`` (1 for cDNA jobs, 2 for
+    protein ones); returns the merged map."""
     by_m: dict[int, list[tuple]] = {}
     for (W, Mpad), idxs in buckets.items():
         by_m.setdefault(Mpad, []).append((W, idxs))
@@ -223,7 +225,7 @@ def coalesce_buckets(buckets: dict, jobs: list, max_batch: int) -> dict:
             else:
                 kept.append((Wmax, small))
             for i in small:
-                jobs[i].up = jobs[i].lw + Wmax - 1
+                jobs[i].up = jobs[i].lw + Wmax - band_extra
         for W, idxs in kept:
             merged[(W, Mpad)] = idxs
     return merged

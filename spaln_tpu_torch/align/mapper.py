@@ -1,12 +1,13 @@
 """Genome mapper: block-index candidate location + seeded alignment of
-cDNA queries.
+cDNA and protein queries.
 
 The role of the spaln -Q7 pipeline (spaln_job -> quick4 -> blkaln,
 spaln.cc:846-1154): locate candidate gene ranges with the block index,
 align the query to each with the batched driver on the context's
-device, keep the best loci.  The counterpart of the cDNA half of
-spaln_tpu/align/mapper.py; protein queries are not ported yet
-(ROADMAP.md Queue 1, item 8).
+device, keep the best loci.  The counterpart of
+spaln_tpu/align/mapper.py: GenomeMapper for cDNA queries over the .bkn
+index, ProteinGenomeMapper for protein queries over the 6-frame .bkp
+index (the tron DP).
 """
 from __future__ import annotations
 
@@ -14,13 +15,14 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..seed.blockindex import BlockIndex
+from ..seed.blockindex import BlockIndex, ProteinBlockIndex
 from ..seed.wilip import wilip
 from ..seq.codec import comrev
 from ..seq.utilseq import rm_polya
 from ..seq.genome import GenomeStore
 from .driver import AlignerContext, execute_jobs, prepare_job
 from .gene import GeneStructure
+from .protein_driver import ProteinAlignerContext
 
 
 @dataclass
@@ -340,3 +342,239 @@ def _map_queries_batched(self, queries: list, q_names: list | None = None,
 
 
 GenomeMapper.map_queries = _map_queries_batched
+
+
+@dataclass
+class ProteinGenomeMapper:
+    """Protein-query whole-genome mapper (-KP path: spaln_job with an aa
+    query over the .bkp index, spaln.cc:846-1154).  The 6-frame index is
+    strand-agnostic, so one vote covers both orientations; strand choice
+    happens in the seeded tron driver."""
+    store: GenomeStore
+    index: ProteinBlockIndex
+    ctx: ProteinAlignerContext
+
+    def map_query(self, query: np.ndarray, q_name: str = "",
+                  ncand: int = 10, max_out: int = 1,
+                  min_coverage: float = 0.3,
+                  lanes: int = 64) -> list[GeneStructure]:
+        """Thin wrapper over the batched pipeline (map_queries)."""
+        return self.map_queries([query], q_names=[q_name], ncand=ncand,
+                                max_out=max_out,
+                                min_coverage=min_coverage,
+                                lanes=lanes)[0]
+
+
+def _map_protein_queries(self, queries: list, q_names: list | None = None,
+                         ncand: int = 10, max_out: int = 1,
+                         min_coverage: float = 0.3, lanes: int = 64,
+                         max_batch: int = 32,
+                         triage: dict | None = None
+                         ) -> list[list[GeneStructure]]:
+    """Map many protein queries in bucketed device batches — the same
+    data-parallel treatment as the cDNA path (the reference's
+    MasterWorker handles aa queries identically, spaln.cc:1220-1468)."""
+    from ..utils.metrics import metrics, stage
+    from ..utils.errors import report_skip
+    from ..seq.codec import comrev
+    from .protein_driver import (execute_tron_jobs, prepare_tron_job,
+                                 wilip_protein, _flip_coords)
+    q_names = q_names or [""] * len(queries)
+    maxgene = self.index.maxgene
+    total = self.store.total_len
+    metrics.bump("aa_queries", len(queries))
+
+    def _mark(qi, stage_name, detail=""):
+        if triage is not None:
+            triage.setdefault(qi, []).append((stage_name, detail))
+
+    def _verify_candidate(qi, g0, g1):
+        """FindHsp-equivalent verification for an aa query: chain both
+        genome orientations inside the vote window (the 6-frame index is
+        strand-agnostic), widen while the best chain leaves a query end
+        uncovered at a window edge (ExtBlock, blksrc.cc:2409-2461)."""
+        q = queries[qi]
+        for _widen in range(3):
+            window = self.store.window(g0, g1)
+            wlen = len(window)
+            cands = []
+            with stage("seed"):
+                ch = wilip_protein(q, window, self.ctx.pmtx,
+                                   ipen=self.ctx.ipen)
+                if ch:
+                    cands.append((ch[0].score, "+", ch[0]))
+                ch = wilip_protein(q, comrev(window), self.ctx.pmtx,
+                                   ipen=self.ctx.ipen)
+                if ch:
+                    cands.append((ch[0].score, "-", ch[0]))
+            if not cands:
+                return None
+            cands.sort(key=lambda c: -c[0])
+            score, st, chain = cands[0]
+            # close-call orientation: DP both (see the cDNA twin)
+            alt = None
+            if len(cands) > 1 and cands[1][0] * 10 >= 9 * score:
+                alt = (cands[1][1], cands[1][0], cands[1][2])
+            q0, q1 = chain.q_span          # nt-equivalent coords
+            c0, c1 = chain.g_span
+            if st == "-":
+                c0, c1 = wlen - c1, wlen - c0
+                q0, q1 = 3 * len(q) - q1, 3 * len(q) - q0
+            edge = max(3 * len(q), 64)
+            grow_l = (maxgene // 2
+                      if (q0 > 45 and c0 < edge and g0 > 0) else 0)
+            grow_r = (maxgene // 2
+                      if (3 * len(q) - q1 > 45 and wlen - c1 < edge
+                          and g1 < total) else 0)
+            if not (grow_l or grow_r):
+                return g0, g1, st, score, chain, alt
+            g0 = max(g0 - grow_l, 0)
+            g1 = min(g1 + grow_r, total)
+        return g0, g1, st, score, chain, alt
+
+    # phase A: block voting
+    raw: list[list[tuple[int, int]]] = [[] for _ in queries]
+    for qi, q in enumerate(queries):
+        try:
+            with stage("vote"):
+                cands = list(self.index.candidate_ranges(q, ncand))
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except BaseException as exc:
+            report_skip(q_names[qi], exc, "vote")
+            _mark(qi, "vote-error", repr(exc))
+            continue
+        if not cands:
+            _mark(qi, "no-candidate")
+            continue
+        cands.sort(key=lambda c: -c[2])
+        picked = []
+        for g0, g1, score in cands:
+            if any(not (g1 <= p0 or g0 >= p1) for p0, p1 in picked):
+                continue
+            picked.append((g0, g1))
+            if len(picked) >= max_out * 3:
+                break
+        raw[qi] = picked
+
+    # phase B: FindHsp verification + locus dedup by chain score
+    work = []
+    for qi, picked in enumerate(raw):
+        verified = []
+        for g0, g1 in picked:
+            try:
+                v = _verify_candidate(qi, g0, g1)
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except BaseException as exc:
+                report_skip(q_names[qi], exc, "seed")
+                _mark(qi, "seed-error", repr(exc))
+                continue
+            if v is None:
+                _mark(qi, "no-chain", f"({g0},{g1})")
+                continue
+            verified.append(v)
+        if not verified:
+            continue
+        verified.sort(key=lambda v: -v[3])
+        best = verified[0][3]
+        kept: list = []
+        for g0, g1, st, score, chain, alt in verified:
+            if any(not (g1 <= k0 or g0 >= k1) for k0, k1, *_ in kept):
+                continue
+            if kept and score * 2 < best:
+                _mark(qi, "chain-floor", f"{score}<{best}/2")
+                continue
+            kept.append((g0, g1, st, score, chain, alt))
+            if len(kept) >= max_out * 2:
+                break
+        for g0, g1, st, score, chain, alt in kept:
+            work.append([qi, g0, g1, 0, st, chain])
+            if alt is not None:
+                work.append([qi, g0, g1, 0, alt[0], alt[2]])
+
+    results: list[list[GeneStructure]] = [[] for _ in queries]
+    for _round in range(3):
+        if not work:
+            break
+        jobs, meta = [], []
+        for qi, g0, g1, retry, st, chain in work:
+            try:
+                q = queries[qi]
+                window = self.store.window(g0, g1)
+                ci, _ = self.store.locate(g0)
+                g_use = comrev(window) if st == "-" else window
+                job = prepare_tron_job(q, g_use, self.ctx, chain,
+                                       q_name=q_names[qi],
+                                       g_name=self.store.names[ci],
+                                       strand=st)
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except BaseException as exc:
+                report_skip(q_names[qi], exc, "seed")
+                _mark(qi, "seed-error", repr(exc))
+                continue
+            if job is None:
+                _mark(qi, "no-job", f"({g0},{g1})")
+                continue
+            jobs.append(job)
+            meta.append((qi, g0, g1, retry, ci, len(window)))
+        if not jobs:
+            break
+        out = execute_tron_jobs(jobs, self.ctx, lanes=lanes,
+                                max_batch=max_batch)
+        work = []
+        for gs, (qi, g0, g1, retry, ci, wlen) in zip(out, meta):
+            if isinstance(gs, BaseException):
+                report_skip(q_names[qi], gs, "align")
+                _mark(qi, "align-error", repr(gs))
+                continue
+            if gs is None:
+                _mark(qi, "align-none", f"({g0},{g1})")
+                continue
+            q = queries[qi]
+            if gs.strand == "-":
+                _flip_coords(gs, wlen)
+            qlo = min(e.q_start for e in gs.exons)
+            qhi = max(e.q_end for e in gs.exons)
+            glo = min(e.g_start for e in gs.exons)
+            ghi = max(e.g_end for e in gs.exons)
+            edge = max(3 * len(q), 64)
+            grow_l = (maxgene // 2
+                      if (qlo > 3 and glo < edge and g0 > 0) else 0)
+            grow_r = (maxgene // 2
+                      if (len(q) - qhi > 3 and wlen - ghi < edge
+                          and g1 < total) else 0)
+            if (grow_l or grow_r) and retry < 2:
+                try:
+                    v = _verify_candidate(qi, max(g0 - grow_l, 0),
+                                          min(g1 + grow_r, total))
+                except (KeyboardInterrupt, SystemExit):
+                    raise
+                except BaseException as exc:
+                    report_skip(q_names[qi], exc, "seed")
+                    v = None
+                if v is not None:
+                    n0, n1, st2, _, ch2, _alt2 = v
+                    work.append([qi, n0, n1, retry + 1, st2, ch2])
+                    continue
+            if gs.coverage(len(q)) < min_coverage:
+                _mark(qi, "coverage-filtered",
+                      f"{gs.coverage(len(q)):.2f}")
+                continue
+            off = g0 - int(self.store.offsets[ci])
+            for e in gs.exons:
+                e.g_start += off
+                e.g_end += off
+            for i in gs.introns:
+                i.g_start += off
+                i.g_end += off
+            results[qi].append(gs)
+    for qi in range(len(queries)):
+        results[qi].sort(key=lambda g: (-g.score, g.g_name,
+                                        g.exons[0].g_start))
+        results[qi] = results[qi][:max_out]
+    return results
+
+
+ProteinGenomeMapper.map_queries = _map_protein_queries

@@ -1,5 +1,5 @@
 """Long genomic-segment annotation: chunking + seam stitching, cDNA
-queries.
+and protein queries.
 
 The counterpart of spaln_tpu/align/segment.py (the reference's
 g_segment chunks with HalfGene seam handling, ThQueue::putqueue
@@ -8,7 +8,8 @@ max(chunk / 10, 64 kb); every query is aligned against every chunk with
 align_cdna, copies clipped at an interior seam are dropped (the
 neighbouring chunk holds the whole gene thanks to the overlap), and
 duplicates from overlapping chunks dedup to the best-scoring copy.
-Protein queries are not ported yet (ROADMAP.md Queue 1, item 8).
+Protein queries go through align_protein at half the lanes (at least
+32), as in the reference.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import numpy as np
 from ..utils.errors import guard_query
 from ..utils.metrics import metrics
 from .driver import AlignerContext, align_cdna
+from .protein_driver import ProteinAlignerContext, align_protein
 from .gene import GeneStructure
 
 G_SEGMENT = 2_000_000
@@ -36,6 +38,7 @@ def _chunks(n: int, size: int, overlap: int):
 
 def annotate_segment(genome: np.ndarray, queries: list,
                      ctx: AlignerContext | None = None,
+                     pctx: ProteinAlignerContext | None = None,
                      q_names: list | None = None,
                      molc_is_aa: list | None = None,
                      g_name: str = "", lanes: int = 128,
@@ -48,10 +51,6 @@ def annotate_segment(genome: np.ndarray, queries: list,
     n = len(genome)
     q_names = q_names or [""] * len(queries)
     molc_is_aa = molc_is_aa or [False] * len(queries)
-    if any(molc_is_aa):
-        raise NotImplementedError(
-            "protein queries against a genomic segment are not ported "
-            "yet: ROADMAP.md Queue 1, item 8 (protein path)")
     if overlap is None:
         overlap = max(chunk // 10, 65536) if n > chunk else 0
     if n > chunk and overlap >= chunk:
@@ -65,12 +64,22 @@ def annotate_segment(genome: np.ndarray, queries: list,
         edge_l = lo > 0
         edge_r = hi < n
         for qi, q in enumerate(queries):
-            if ctx is None:
-                continue
-            gss = guard_query(align_cdna, q, win, ctx, strand=strand,
-                              q_name=q_names[qi], g_name=g_name,
-                              lanes=lanes, name=q_names[qi],
-                              stage="segment", fallback=[])
+            if molc_is_aa[qi]:
+                if pctx is None:
+                    continue
+                gss = guard_query(align_protein, q, win, pctx,
+                                  strand=strand, q_name=q_names[qi],
+                                  g_name=g_name,
+                                  lanes=max(lanes // 2, 32),
+                                  name=q_names[qi], stage="segment",
+                                  fallback=[])
+            else:
+                if ctx is None:
+                    continue
+                gss = guard_query(align_cdna, q, win, ctx, strand=strand,
+                                  q_name=q_names[qi], g_name=g_name,
+                                  lanes=lanes, name=q_names[qi],
+                                  stage="segment", fallback=[])
             for gs in gss:
                 if gs.coverage(len(q)) < min_coverage:
                     continue
@@ -78,7 +87,7 @@ def annotate_segment(genome: np.ndarray, queries: list,
                 # seam check (HalfGene role): a gene clipped at an
                 # interior chunk edge is re-found in the neighboring
                 # chunk thanks to the overlap; drop the clipped copy
-                near = max(len(q), 64)
+                near = max(len(q) * (3 if molc_is_aa[qi] else 1), 64)
                 if ((edge_l and g0 < near
                      and gs.coverage(len(q)) < 0.999)
                         or (edge_r and len(win) - g1 < near

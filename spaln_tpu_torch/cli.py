@@ -1,11 +1,14 @@
 """Command-line interface of the port.
 
   python -m spaln_tpu_torch.cli index <genome.fa>            build the
-        genome store + block index for nucleotide queries (-K D)
-  python -m spaln_tpu_torch.cli map <cdna.fa> -d <genome>    map cDNA
-        queries onto the indexed genome (spaln -Q7), the DP on --device
-  python -m spaln_tpu_torch.cli align <genomic.fa> <cdna.fa> align cDNA
-        queries onto given genomic segments (no index), the DP on --device
+        genome store + block index for nucleotide queries (-K D), the
+        6-frame protein index (-K P) or both (-K DP)
+  python -m spaln_tpu_torch.cli map <queries.fa> -d <genome>  map cDNA
+        and protein queries onto the indexed genome (spaln -Q7), the DP
+        on --device
+  python -m spaln_tpu_torch.cli align <genomic.fa> <queries.fa>  align
+        cDNA and protein queries onto given genomic segments (no index),
+        the DP on --device
   python -m spaln_tpu_torch.cli search <prot.fa> -a <db.fa>  protein
         queries against a protein DB (spaln -a), the DP on --device
   python -m spaln_tpu_torch.cli pair <a.fa> [<b.fa>]          pairwise
@@ -13,10 +16,12 @@
 
 Same options and output as spaln_tpu.cli for these paths, plus --device
 {cuda,cpu} (default cuda; asking for cuda without a GPU is an error).
--A 3 sends every multi-slab DP through the linear-space UDH path (1 and
-2 name the reference's two plane-path engines, one engine here: the
-size rule stays), -V sets the plane budget, -G the segment length of
-align; -y l3 selects double-affine gaps (the K5 modes of the kernels).
+-A 3 sends every multi-slab cDNA DP through the linear-space UDH path
+(1 and 2 name the reference's two plane-path engines, one engine here:
+the size rule stays), -V sets the plane budget, -G the segment length of
+align; -y l3 selects double-affine gaps (the K5 modes of the kernels,
+K7's for protein queries).  Protein queries run Smith-Waterman local by
+default (-L S), as in the reference.
 Output formats -O#[,#2,..]: 0 GFF3 gene, 1 alignment text, 2 GFF3
 match, 3 BED12, 4 exon table, 5 intron table, 6 recovered cDNA,
 7 translated protein, 10 SAM, 12 binary shard (.grd.npz), 15 unique
@@ -142,47 +147,74 @@ def _device(name: str) -> torch.device:
     return torch.device(name)
 
 
-def _dna_options(args) -> dict:
-    """Options map and align share: the unported modes raise, -u/-v/-w
-    join the -y letters, and -A/-V become the context's engine
-    overrides.  Returns AlignerContext.create's keyword arguments."""
-    if _lcl_local(args):
-        raise NotImplementedError(
-            "local alignment (-L S) is not ported yet: ROADMAP.md Queue 1, "
-            "item 9 (local mode, K6)")
+def _join_gap_flags(args) -> None:
+    """-u/-v/-w are readalprm letters spelled as their own flags: join
+    them to the -y letters (once per run)."""
     for flag, letter in (("u_pen", "u"), ("v_pen", "v"), ("w_band", "w")):
         v = getattr(args, flag, None)
         if v is not None:
             args.y_args.append(f"{letter}{v}")
+
+
+def _plane_budget(args) -> int:
+    return _ktoi(args.vmf_budget) if args.vmf_budget else PLANE_BYTES_BUDGET
+
+
+def _dna_options(args) -> dict:
+    """The cDNA queries' options: the unported modes raise, -A/-V become
+    the context's engine overrides.  Returns AlignerContext.create's
+    keyword arguments."""
+    if _lcl_local(args):
+        raise NotImplementedError(
+            "local alignment (-L S) is not ported yet: ROADMAP.md Queue 1, "
+            "item 9 (local mode, K6)")
     if any(a.startswith("J") for a in args.y_args):
         raise NotImplementedError(
             "the -yJ conserved intron-position bonus is not ported yet: "
             "ROADMAP.md Queue 1, item 9 (cip mode, K6)")
     return dict(y_args=["-y" + a for a in args.y_args],
-                force_udh=args.engine == 3,
-                plane_budget=(_ktoi(args.vmf_budget) if args.vmf_budget
-                              else PLANE_BYTES_BUDGET))
+                force_udh=args.engine == 3, plane_budget=_plane_budget(args))
+
+
+def _protein_options(args) -> dict:
+    """The protein queries' options: Smith-Waterman local unless -L says
+    otherwise.  Returns ProteinAlignerContext.create's keyword
+    arguments."""
+    return dict(y_args=["-y" + a for a in args.y_args],
+                local=_lcl_local(args) if args.lcl is not None else True,
+                plane_budget=_plane_budget(args))
 
 
 def cmd_index(args) -> int:
-    from .seed.blockindex import BlockIndex
-    if set(args.kind.upper()) - {"D"}:
-        raise NotImplementedError(
-            "the protein index (-K P) is not ported yet: ROADMAP.md "
-            "Queue 1, item 8 (protein path)")
+    from .seed.blockindex import BlockIndex, ProteinBlockIndex
     store = GenomeStore.from_fasta(args.genome, molc=DNA)
     prefix = args.prefix or args.genome.rsplit(".", 1)[0]
     store.save(prefix)
-    BlockIndex.build(store).save(prefix)
-    print(f"indexed {store.n_contigs} contigs, {store.total_len} "
-          f"bases -> {prefix}.bkn.npz", file=sys.stderr)
+    kinds = args.kind.upper()
+    if "D" in kinds:
+        BlockIndex.build(store).save(prefix)
+        print(f"indexed {store.n_contigs} contigs, {store.total_len} "
+              f"bases -> {prefix}.bkn.npz", file=sys.stderr)
+    if "P" in kinds:
+        ProteinBlockIndex.build(store, nalpha=args.nalpha,
+                                min_orf=args.min_orf).save(prefix)
+        print(f"6-frame protein index -> {prefix}.bkp.npz",
+              file=sys.stderr)
     return 0
 
 
 def cmd_map(args) -> int:
-    from .seed.blockindex import BlockIndex
-    from .align.mapper import GenomeMapper
-    opts = _dna_options(args)
+    """cDNA and protein queries over the genome's indexes (cmd_map,
+    spaln_tpu/cli.py:234-300): consecutive queries of one kind are mapped
+    together, the cDNA ones over the .bkn index, the protein ones over
+    the .bkp index."""
+    from .seed.blockindex import BlockIndex, ProteinBlockIndex
+    from .align.mapper import GenomeMapper, ProteinGenomeMapper
+    from .align.protein_driver import ProteinAlignerContext
+    _join_gap_flags(args)
+    # the cDNA queries' options are checked before anything runs
+    opts = (_dna_options(args) if any(r.molc != PROTEIN for r in
+                                      iter_seqfile(args.queries)) else None)
     device = _device(args.device)
     store = GenomeStore.load(args.genome_db)
     tables = TableDir(find_table_dir(args.table_dir), species=args.species)
@@ -194,13 +226,31 @@ def cmd_map(args) -> int:
             out.write(f"@SQ\tSN:{name}\tLN:{int(ln)}\n")
     sink = OutputSink(fmts, out,
                       grd_path=(args.output or "run").rsplit(".", 1)[0])
-    mapper = None
-    batch: list = []
+    mapper = pmapper = None
+    nt_batch: list = []            # pending cDNA queries
+    aa_batch: list = []            # pending protein queries
     bs = max(args.batch, 1)
 
-    def flush():
+    def flush_aa():
+        nonlocal pmapper
+        if not aa_batch:
+            return
+        if pmapper is None:
+            pmapper = ProteinGenomeMapper(
+                store, ProteinBlockIndex.load(args.genome_db),
+                ProteinAlignerContext.create(tables, device,
+                                             **_protein_options(args)))
+        res = pmapper.map_queries([r.codes for r in aa_batch],
+                                  q_names=[r.name for r in aa_batch],
+                                  lanes=args.lanes, max_out=args.max_out,
+                                  max_batch=bs)
+        for rec, gs_list in zip(aa_batch, res):
+            sink.emit(gs_list, len(rec.codes))
+        aa_batch.clear()
+
+    def flush_nt():
         nonlocal mapper
-        if not batch:
+        if not nt_batch:
             return
         if mapper is None:
             mapper = GenomeMapper(
@@ -209,28 +259,32 @@ def cmd_map(args) -> int:
         # queries carrying SigII junction records (;B/;b) would get the
         # conserved-intron-position bonus SpbFact*num at those rows
         if mapper.ctx.cfg.aln2.spb > 0 and any("sig_pos" in r.meta
-                                                for r in batch):
+                                                for r in nt_batch):
             raise NotImplementedError(
                 "queries with junction records (the -yJ conserved intron-"
                 "position bonus) are not ported yet: ROADMAP.md Queue 1, "
                 "item 9 (cip mode, K6)")
-        res = mapper.map_queries([r.codes for r in batch],
-                                 q_names=[r.name for r in batch],
+        res = mapper.map_queries([r.codes for r in nt_batch],
+                                 q_names=[r.name for r in nt_batch],
                                  strand=args.strand, lanes=args.lanes,
                                  max_out=args.max_out, max_batch=bs)
-        for rec, gs_list in zip(batch, res):
+        for rec, gs_list in zip(nt_batch, res):
             sink.emit(gs_list, len(rec.codes))
-        batch.clear()
+        nt_batch.clear()
 
     for rec in iter_seqfile(args.queries):
         if rec.molc == PROTEIN:
-            raise NotImplementedError(
-                f"protein query {rec.name!r}: protein mapping is not "
-                f"ported yet: ROADMAP.md Queue 1, item 8 (protein path)")
-        batch.append(rec)
-        if len(batch) >= 4 * bs:
-            flush()
-    flush()
+            flush_nt()
+            aa_batch.append(rec)
+            if len(aa_batch) >= 4 * bs:
+                flush_aa()
+        else:
+            flush_aa()
+            nt_batch.append(rec)
+            if len(nt_batch) >= 4 * bs:
+                flush_nt()
+    flush_nt()
+    flush_aa()
     sink.close()
     if args.output:
         out.close()
@@ -238,17 +292,16 @@ def cmd_map(args) -> int:
 
 
 def cmd_align(args) -> int:
-    """cDNA queries x genomic segments (cmd_align, spaln_tpu/cli.py:
-    154-211): align_cdna per query, segments longer than -G (default
-    2 Mb) chunked by annotate_segment."""
+    """cDNA and protein queries x genomic segments (cmd_align,
+    spaln_tpu/cli.py:154-211): align_cdna or align_protein per query,
+    segments longer than -G (default 2 Mb) chunked by annotate_segment."""
+    from .align.protein_driver import ProteinAlignerContext, align_protein
     from .utils.errors import guard_query
-    opts = _dna_options(args)
+    _join_gap_flags(args)
     recs = list(iter_seqfile(args.queries))
-    for rec in recs:
-        if rec.molc == PROTEIN:
-            raise NotImplementedError(
-                f"protein query {rec.name!r}: protein alignment is not "
-                f"ported yet: ROADMAP.md Queue 1, item 8 (protein path)")
+    need_p = any(r.molc == PROTEIN for r in recs)
+    need_n = any(r.molc != PROTEIN for r in recs)
+    opts = _dna_options(args) if need_n else None
     device = _device(args.device)
     tables = TableDir(find_table_dir(args.table_dir), species=args.species)
     gpath, g_from, g_to = parse_seq_arg(args.genomic)
@@ -260,23 +313,36 @@ def cmd_align(args) -> int:
     out = open(args.output, "w") if args.output else sys.stdout
     sink = OutputSink(_parse_fmts(args.fmt), out,
                       grd_path=(args.output or "run").rsplit(".", 1)[0])
-    ctx = AlignerContext.create(tables, device, **opts) if recs else None
+    ctx = AlignerContext.create(tables, device, **opts) if need_n else None
+    pctx = (ProteinAlignerContext.create(tables, device,
+                                         **_protein_options(args))
+            if need_p else None)
     for grec in genome_recs:
         if len(grec.codes) > segment:
             # long genomic query: chunked annotation with seam stitching
             gss = annotate_segment(
-                grec.codes, [r.codes for r in recs], ctx=ctx,
-                q_names=[r.name for r in recs], g_name=grec.name,
-                lanes=args.lanes, chunk=segment, strand=args.strand)
+                grec.codes, [r.codes for r in recs], ctx=ctx, pctx=pctx,
+                q_names=[r.name for r in recs],
+                molc_is_aa=[r.molc == PROTEIN for r in recs],
+                g_name=grec.name, lanes=args.lanes, chunk=segment,
+                strand=args.strand)
             qlen = {r.name: len(r.codes) for r in recs}
             for gs in gss:
                 sink.emit([gs], qlen.get(gs.q_name, 0))
             continue
         for rec in recs:
-            gs_list = guard_query(
-                align_cdna, rec.codes, grec.codes, ctx,
-                strand=args.strand, q_name=rec.name, g_name=grec.name,
-                lanes=args.lanes, name=rec.name, stage="align", fallback=[])
+            if rec.molc == PROTEIN:
+                gs_list = guard_query(
+                    align_protein, rec.codes, grec.codes, pctx,
+                    strand=args.strand, q_name=rec.name, g_name=grec.name,
+                    lanes=args.lanes, name=rec.name, stage="align",
+                    fallback=[])
+            else:
+                gs_list = guard_query(
+                    align_cdna, rec.codes, grec.codes, ctx,
+                    strand=args.strand, q_name=rec.name, g_name=grec.name,
+                    lanes=args.lanes, name=rec.name, stage="align",
+                    fallback=[])
             sink.emit(gs_list, len(rec.codes))
     sink.close()
     if args.output:
@@ -485,8 +551,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="output subflags; q (quiet) accepted for "
                              "reference command-line compatibility")
 
-    sp = sub.add_parser("align", help="align cDNA queries to genomic "
-                                      "segments")
+    sp = sub.add_parser("align", help="align cDNA and protein queries to "
+                                      "genomic segments")
     sp.add_argument("genomic")
     sp.add_argument("queries")
     common(sp)
@@ -496,11 +562,16 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("genome")
     sp.add_argument("-p", dest="prefix", default=None)
     sp.add_argument("-K", dest="kind", default="D",
-                    help="index kind: D = nt queries (.bkn)")
+                    help="index kind(s): D = nt queries (.bkn), "
+                         "P = protein queries (.bkp); e.g. -K DP")
+    sp.add_argument("--nalpha", type=int, default=20,
+                    help="protein reduced alphabet size (6..20, SEB6..)")
+    sp.add_argument("--min-orf", type=int, default=30,
+                    help="-KP ORF filter in nt (0 disables)")
     sp.set_defaults(func=cmd_index)
 
-    sp = sub.add_parser("map", help="map cDNA queries onto an indexed "
-                                    "genome")
+    sp = sub.add_parser("map", help="map cDNA and protein queries onto an "
+                                    "indexed genome")
     sp.add_argument("queries")
     sp.add_argument("-d", dest="genome_db", required=True)
     sp.add_argument("-M", dest="max_out", type=int, default=1,

@@ -1,5 +1,6 @@
-"""Carry state across from spaln_tpu: its DpParams and BatchProblem become
-the port's, so a test can drive both packages from one problem.
+"""Carry state across from spaln_tpu: its DpParams and BatchProblem, and
+its TronDpParams and TronBatchProblem, become the port's, so a test can
+drive both packages from one problem.
 
 The objects are taken duck-typed; nothing here imports spaln_tpu.  Only
 tests call this module.
@@ -11,6 +12,8 @@ import torch
 
 from .dp_spliced import (BatchProblem, N_GOPS, G_RES, G_ISDON, G_ISACC,
                          G_SIG5, G_ACCB, G_DINC5, walk_bound)
+from .dp_tron import TronBatchProblem, prepare_tron_batch
+from .tron_params import TronDpParams
 from .params import DpFlags, DpParams
 from ..score.intron import IntronPenalty
 
@@ -81,3 +84,42 @@ def batch_from_reference(bp, device: torch.device | str = "cpu"
         Ms=list(bp.Ms), Ns=list(bp.Ns), lws=list(bp.lws), B=B, L=L, W=W,
         T=bp.T, S=S, Mpad=bp.Mpad, Nmax=Nmax, IT=walk_bound(S, L, W),
         flags=DpFlags(**vars(bp.flags)))
+
+
+def tron_params_from_reference(prm) -> TronDpParams:
+    """A spaln_tpu TronDpParams as the port's (the same fields)."""
+    return TronDpParams(qprof_mtx=np.array(prm.qprof_mtx), gop=prm.gop,
+                        gep=prm.gep, extra_gop=prm.extra_gop,
+                        intron_minl=prm.intron_minl, scale=prm.scale,
+                        dagp=prm.dagp, lgop=prm.lgop, lgep=prm.lgep,
+                        codonk1=prm.codonk1, vthr=prm.vthr)
+
+
+def tron_batch_from_reference(bp, prm, device: torch.device | str = "cpu"
+                              ) -> TronBatchProblem:
+    """A spaln_tpu TronBatchProblem as the port's, on ``device``, at the
+    port's geometry (ceil(max M / L) slabs, no padded M or N: the
+    reference's padding changes no output).
+
+    The queries are read back from the reference's query profiles (the
+    first tron-matrix row equal to each profile row: rows that are equal
+    score alike), the genome operands and the init row come from its
+    host signals (sigs), the penalty table from its intron-penalty
+    operand and the Local bounds from loc_lo_j/loc_hi_j."""
+    mtx = np.asarray(prm.qprof_mtx, np.int32)
+    qprof = np.asarray(bp.qprof_all, np.int32)
+    queries = []
+    for b, M in enumerate(bp.Ms):
+        hit = (qprof[b, :M, None, :] == mtx[None]).all(-1)    # (M, A)
+        if not hit.any(-1).all():
+            raise ValueError("a query profile row is no tron-matrix row")
+        queries.append(hit.argmax(-1).astype(np.int8))
+    lo = np.asarray(bp.loc_lo_j).tolist()
+    hi = np.asarray(bp.loc_hi_j).tolist()
+    # prepare_tron_batch reads only the lengths of the genome windows:
+    # the operands come from the signals
+    return prepare_tron_batch(
+        queries, [np.empty(N, np.int8) for N in bp.Ns], list(bp.sigs),
+        tron_params_from_reference(prm), np.asarray(bp.ops["ipen"]),
+        lws=list(bp.lws), W=bp.W, flags=DpFlags(**vars(bp.flags)),
+        L=bp.L, loc_bounds=list(zip(lo, hi)), device=device)

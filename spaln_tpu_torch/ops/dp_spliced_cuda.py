@@ -107,11 +107,12 @@ def entry(name: str, prm: DpParams) -> str:
 
 
 # ------------------------------------------------------------------ build
-def build_library() -> tuple[Path, float, str]:
-    """Compile csrc/spliced_dp.cu (once per source content) and return
-    (library path, seconds spent compiling, nvcc's -Xptxas -v log)."""
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    so = BUILD_DIR / f"libspliced_dp_{tag}.so"
+def build_library(source: Path = SOURCE) -> tuple[Path, float, str]:
+    """Compile a CUDA source of csrc/ (spliced_dp.cu unless named; once
+    per source content) and return (library path, seconds spent
+    compiling, nvcc's -Xptxas -v log)."""
+    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    so = BUILD_DIR / f"lib{source.stem}_{tag}.so"
     log_path = so.with_suffix(".log")
     if so.exists():
         log = log_path.read_text() if log_path.exists() else ""
@@ -123,7 +124,7 @@ def build_library() -> tuple[Path, float, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    r = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+    r = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
                        capture_output=True, text=True)
     dt = time.perf_counter() - t0
     if r.returncode != 0:

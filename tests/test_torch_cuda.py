@@ -437,3 +437,142 @@ def test_map_wide_lanes_on_card_equals_cpu(cuda, tmp_path):
         texts[dev, len(extra)] = out.read_bytes()
     assert texts["cuda", 0] == texts["cpu", 0] == texts["cuda", 2]
     assert texts["cuda", 0].count(b"\tgene\t") == 3
+
+
+# ------------------------------------------------------------ tron path
+def _tron_setup(dagp):
+    from spaln_tpu_torch.config import PvsG
+    from spaln_tpu_torch.ops.tron_params import TronDpParams
+    cfg = resolve(Config(), PvsG)
+    prm = TronDpParams.build(
+        cfg, Simmtx.protein(find_table_dir(), slot=0).tron().mtx)
+    if dagp:
+        lgep = -int(0.6 * cfg.aln.scale)
+        prm = dataclasses.replace(prm, dagp=True, lgep=lgep,
+                                  lgop=prm.gop - (lgep - prm.gep) * 7)
+    ipen = IntronPenalty(cfg, PvsG).penalty(np.arange(20000))
+    return cfg, prm, ipen
+
+
+def _tron_problems(cfg, B, seed):
+    """B planted protein genes of two exons (introns at phases 0, 1, 2 in
+    turn, one with a 1-nt frameshift, one with a 45-nt insertion) with
+    different band placements and Local bounds."""
+    from spaln_tpu_torch import constants as C
+    from spaln_tpu_torch.score.codepot import build_tron_signals
+    codon = {}
+    for c in range(64):
+        codon.setdefault(int(C.GENCODE[c]), "ACGT"[(c >> 4) & 3]
+                         + "ACGT"[(c >> 2) & 3] + "ACGT"[c & 3])
+    rng = np.random.default_rng(seed)
+    tables = TableDir(find_table_dir())
+
+    def mk(n):
+        return "".join(rng.choice(list("ACGT"), n))
+
+    qs, gs, ss, lws, lbs = [], [], [], [], []
+    for b in range(B):
+        aa = rng.choice(range(3, 23), 70 + 9 * b).astype(np.int8)
+        nt = "".join(codon[int(x)] for x in aa)
+        cut = 90 + b % 3
+        g = (mk(25 + 4 * b) + nt[:cut] + "GTAAGT" + mk(140 + 20 * b)
+             + "TTTCTAG" + nt[cut:] + mk(30))
+        if b == 1:
+            g = g[:200] + g[201:]
+        if b == 2:
+            g = g[:90] + "".join(rng.choice(list("AC"), 45)) + g[90:]
+        gc = encode_dna(g)
+        qs.append(aa)
+        gs.append(gc)
+        ss.append(build_tron_signals(gc, cfg, tables))
+        lws.append(-3 * len(aa) + 25 * b)
+        lbs.append((60 + 10 * b, 200 + 5 * b) if b % 2 == 0
+                   else (1 << 30, -(1 << 30)))
+    W = max(len(g) - lw for g, lw in zip(gs, lws)) + 2
+    return qs, gs, ss, lws, W, lbs
+
+
+@pytest.mark.parametrize("dagp,local,L", [(False, False, 64),
+                                          (False, True, 64),
+                                          (True, False, 32),
+                                          (True, True, 64)])
+def test_tron_kernels_equal_plain_on_card(cuda, dagp, local, L):
+    """K7 (3 and 5 states, Local on and off) and K8 on 4 problems of
+    2-3 slabs, exactly equal to their plain versions; the walks end."""
+    from spaln_tpu_torch.ops import dp_tron as TD
+    from spaln_tpu_torch.ops import dp_tron_cuda as TK
+    from spaln_tpu_torch.ops.params import DpFlags
+    cfg, prm, ipen = _tron_setup(dagp)
+    qs, gs, ss, lws, W, lbs = _tron_problems(cfg, 4, seed=5 + L)
+    bp = TD.prepare_tron_batch(qs, gs, ss, prm, ipen, lws=lws, W=W, L=L,
+                               flags=DpFlags(local=local), loc_bounds=lbs,
+                               device=cuda)
+    assert bp.S >= 2
+    before = dict(TK.launches)
+    got = TK.tron_forward(bp, prm)
+    want = TK.tron_forward_plain(bp, prm)
+    for a, b in zip(list(got[0]) + list(got[1:]),
+                    list(want[0]) + list(want[1:])):
+        assert torch.equal(a, b)
+    ends = TD.collect_tron_ends(bp, got[1].cpu().numpy(),
+                                got[2].cpu().numpy(), got[3].cpu().numpy())
+    et = torch.tensor([[e[1], e[2]] for e in ends], dtype=torch.int32,
+                      device=cuda)
+    recs, counts = TK.tron_walk(bp, got[0], et)
+    precs, pcounts, pdone = TK.tron_walk_plain(bp, got[0], et)
+    assert torch.equal(counts, pcounts) and bool(pdone.all())
+    for b in range(bp.B):
+        n = int(counts[b])
+        assert n > 0 and torch.equal(recs[b, :n], precs[b, :n])
+    assert TK.launches[TK.forward_entry(prm)] == \
+        before[TK.forward_entry(prm)] + 1
+    assert TK.launches["tron_walk"] == before["tron_walk"] + 1
+    torch.cuda.synchronize()
+
+
+def test_protein_map_on_card_equals_cpu(cuda, tmp_path):
+    """`index -K P` + `map` of 3 planted protein genes (one on the minus
+    strand) on the card, default and -y l3, gives the -O0,4 text of
+    --device cpu (the plain versions)."""
+    from spaln_tpu_torch import cli
+    from spaln_tpu_torch import constants as C
+    from spaln_tpu_torch.ops import dp_tron_cuda as TK
+    codon = {}
+    for c in range(64):
+        codon.setdefault(int(C.GENCODE[c]), "ACGT"[(c >> 4) & 3]
+                         + "ACGT"[(c >> 2) & 3] + "ACGT"[c & 3])
+    rng = np.random.default_rng(23)
+    amino = "ARNDCQEGHILKMFPSTWYV"
+    from spaln_tpu_torch.seq.codec import encode_protein
+
+    def mk(n):
+        return "".join(rng.choice(list("ACGT"), n))
+
+    contig, prots = mk(2000), []
+    for k, n_aa in enumerate((80, 110, 95)):
+        p = "M" + "".join(rng.choice(list(amino), n_aa - 1))
+        nt = "".join(codon[int(x)] for x in encode_protein(p)) + "TAA"
+        c1, c2 = 70 + k, 160 + 2 * k
+        g = (nt[:c1] + "GTAAGT" + mk(300) + "TTTCAG" + nt[c1:c2]
+             + "GTAAGT" + mk(200 + 50 * k) + "TTTCAG" + nt[c2:])
+        if k == 1:
+            g = g[::-1].translate(str.maketrans("ACGT", "TGCA"))
+        contig += g + mk(3000)
+        prots.append(p)
+    (tmp_path / "g.fa").write_text(">c1\n" + contig + "\n")
+    (tmp_path / "p.fa").write_text("".join(f">p{i}\n{p}\n"
+                                           for i, p in enumerate(prots)))
+    assert cli.main(["index", str(tmp_path / "g.fa"), "-p",
+                     str(tmp_path / "g"), "-K", "P"]) == 0
+    for extra in ([], ["-y", "l3"]):
+        texts = {}
+        before = dict(TK.launches)
+        for dev in ("cuda", "cpu"):
+            out = tmp_path / f"{dev}{len(extra)}.txt"
+            assert cli.main(["map", str(tmp_path / "p.fa"), "-d",
+                             str(tmp_path / "g"), "-O", "0,4", "-o",
+                             str(out), "--device", dev, *extra]) == 0
+            texts[dev] = out.read_bytes()
+        assert texts["cuda"] == texts["cpu"]
+        assert texts["cuda"].count(b"\tgene\t") == 3
+        assert TK.launches["tron_walk"] > before["tron_walk"]

@@ -1,6 +1,6 @@
 """The port imports neither jax nor spaln_tpu: checked in a fresh
 interpreter, after importing the package, its CLI and every module of
-the map, align and search paths."""
+the map (cDNA and protein), align and search paths."""
 import json
 import os
 import subprocess
@@ -17,6 +17,9 @@ MODULES = ["spaln_tpu_torch", "spaln_tpu_torch.cli",
            "spaln_tpu_torch.align.segment",
            "spaln_tpu_torch.align.protein_search",
            "spaln_tpu_torch.seed.dbindex",
+           "spaln_tpu_torch.ops.dp_tron", "spaln_tpu_torch.ops.dp_tron_cuda",
+           "spaln_tpu_torch.ops.tron_params",
+           "spaln_tpu_torch.align.protein_driver",
            "spaln_tpu_torch.ops.convert", "spaln_tpu_torch.utils.metrics",
            "spaln_tpu_torch.utils.errors", "spaln_tpu_torch.native"]
 
