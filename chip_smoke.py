@@ -36,9 +36,13 @@ started together, then:
    330-384 aa with 2-6 kb introns, the map's 128 lanes: 3 slabs, the
    bands prepare_tron_job gives them: W = 15,744): K7 with 3 and 5
    states, Smith-Waterman local on and off, exactly equal to its plain
-   version (run on CPU copies in 4 processes while phases 2-8 run,
-   compared at the end), and K8 on each to its plain version on the
-   card;
+   version (run on CPU copies in 6 processes while phases 2-8 run,
+   compared at the end) at the rule's geometry, and at the forced sweep
+   of k = 1, 2, 3 (1, 2 double affine) slabs a CTA x 1, 2, 3 CTAs per
+   problem equal to the rule's outputs; K8 on each to its plain version
+   on the card; then K7 on one problem of 11 slabs and on two of one
+   1,024-lane slab (three pieces), each at its rule's geometry and
+   forced ones, against its plain version;
 2. map, small: `index` + `map -O0` and `-O4` of 4 planted genes through
    the CLI, once on the kernels and once with the DP forced through the
    plain versions on the card; the text must be byte-identical;
@@ -77,9 +81,11 @@ started together, then:
    both strands), queries at 0-20% substitutions and 0-2 short indels:
    `index -K P`, then `map -T Tetrapod -O0,4` (Smith-Waterman local,
    3 states) and `map -y l3` (5 states); every batch on K7 and K8 with no
-   plain call, >= 90% of queries at their planted locus and strand; each
-   launch of K7 and K8 timed on the map's run beside the bound of its
-   batch, and the sums over the launches.
+   plain call, >= 90% of queries at their planted locus and strand, some
+   K7 launch with a problem on more than one CTA; each launch of K7
+   (with its k, CTAs per problem and serial steps) and K8 timed on the
+   map's run beside the bound of its batch, and the sums over the
+   launches.
 
 Phases 3-8 also fail if per-query isolation skipped a query or a text's
 md5 differs from the one the phase has given since it was added.  Prints
@@ -90,10 +96,15 @@ Everything is made from fixed numpy seeds; scratch files go to
 smoke_work/ (removed at the end), map text to smoke_out/.
 
     python3 chip_smoke.py --slab-timing [--package-root DIR]
+    python3 chip_smoke.py --tron-timing [--package-root DIR]
 
-runs phase 1's timing buckets alone, of the package under DIR (an
-unpacked checkout of another commit; its tables from $ALN_TAB), and
-prints one JSON line: two commits timed in turns on one card.
+run phase 1's timing buckets alone, or K7 on phase 1's tron batch and
+on one problem of 11 slabs at W = 23,808 (the rule's geometry and, where
+the package takes a forced one, the sweep of k and CTAs per problem) and
+on each batch of phase 8's map and -y l3 map (summed), of
+the package under DIR (an unpacked checkout of another commit; its
+tables from $ALN_TAB), and print one JSON line: two commits timed in
+turns on one card.
 """
 from __future__ import annotations
 
@@ -101,6 +112,7 @@ import contextlib
 import dataclasses
 import hashlib
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -1111,51 +1123,110 @@ def _walk_work(steps: int, B: int) -> tuple[int, int]:
     return 6 * steps + 4 * TRON_REC * steps + 4 * B * 4, OPS_WALK * steps
 
 
-def _tron_bucket(TD, pctx, local: bool):
-    """Phase 1's tron batch at phase 8's shapes: B=4 planted protein
-    genes of 330-384 aa (3 slabs of the map's 128 lanes), 4-5 exons cut
-    at random codon phases, GT..AG introns log-uniform over 2-6 kb,
-    10% substitutions in the queries, with the bands prepare_tron_job
-    gives them (the W ladder, Local bounds at the chain's anchors), at
-    the widest band of the four: W = 15,744, as one of phase 8's
-    batches (the others 23,808-43,995)."""
+def _tron_jobs(pctx, seed: int, n: int, aa_len: tuple, intron_len: tuple,
+               cuts: int) -> list:
+    """n planted protein genes (proteins of aa_len residues, cuts or
+    cuts + 1 introns, in turn, at random codon phases; GT..AG introns
+    log-uniform over intron_len; 10% substitutions in the queries) and
+    the jobs prepare_tron_job makes of them (the W ladder, Local bounds
+    at the chain's anchors)."""
     from spaln_tpu_torch.align.protein_driver import (prepare_tron_job,
                                                       wilip_protein)
-    from spaln_tpu_torch.ops.params import DpFlags
     from spaln_tpu_torch.seq.codec import encode_dna, encode_protein
-    rng = np.random.default_rng(SEED + 11)
+    rng = np.random.default_rng(seed)
     codons = _codons()
     jobs = []
-    lo, hi = np.log(2000), np.log(6000)
-    while len(jobs) < 4:
-        prot = "M" + _protein(rng, int(rng.integers(330, 385)) - 1)
+    lo, hi = np.log(intron_len[0]), np.log(intron_len[1])
+    while len(jobs) < n:
+        prot = "M" + _protein(rng, int(rng.integers(*aa_len)) - 1)
         cds = "".join(codons[a][int(rng.integers(len(codons[a])))]
                       for a in prot)
-        cuts = np.sort(rng.choice(np.arange(45, len(cds) - 45),
-                                  3 + len(jobs) % 2, replace=False))
-        if np.any(np.diff(np.concatenate([[0], cuts, [len(cds)]])) < 45):
+        cut = np.sort(rng.choice(np.arange(45, len(cds) - 45),
+                                 cuts + len(jobs) % 2, replace=False))
+        if np.any(np.diff(np.concatenate([[0], cut, [len(cds)]])) < 45):
             continue
         g, prev = _seq(rng, 300, 0.4), 0
-        for c in list(cuts) + [len(cds)]:
+        for c in list(cut) + [len(cds)]:
             g += cds[prev:c]
             if c != len(cds):
-                n = int(np.exp(rng.uniform(lo, hi)))
-                g += "GTAAGT" + _seq(rng, n - 12, 0.38) + "TTTCAG"
+                x = int(np.exp(rng.uniform(lo, hi)))
+                g += "GTAAGT" + _seq(rng, x - 12, 0.38) + "TTTCAG"
             prev = c
         g += _seq(rng, 300, 0.4)
         q = encode_protein(_mutate_protein(rng, prot, 0.1))
         gc = encode_dna(g)
         chain = wilip_protein(q, gc, pctx.pmtx, ipen=pctx.ipen)[0]
         jobs.append(prepare_tron_job(q, gc, pctx, chain))
-    W = max(j.up - j.lw + 2 for j in jobs)
-    bp = TD.prepare_tron_batch(
+    return jobs
+
+
+def _tron_batch(TD, pctx, jobs: list, L: int, local: bool, W: int = 0):
+    """The jobs as one batch of L lanes at the widest of their bands, or
+    at W where that is wider (as coalesce_buckets widens a bucket)."""
+    from spaln_tpu_torch.ops.params import DpFlags
+    W = max(W, max(j.up - j.lw + 2 for j in jobs))
+    return TD.prepare_tron_batch(
         [j.q for j in jobs], [j.gw for j in jobs], [j.sig for j in jobs],
-        pctx.prm, pctx.ipen_tab, lws=[j.lw for j in jobs], W=W, L=128,
+        pctx.prm, pctx.ipen_tab, lws=[j.lw for j in jobs], W=W, L=L,
         flags=DpFlags(local=local),
         loc_bounds=[j.loc_bounds for j in jobs], device="cuda")
+
+
+def _tron_bucket(TD, pctx, local: bool):
+    """Phase 1's tron batch at phase 8's shapes: B=4 planted protein
+    genes of 330-384 aa (3 slabs of the map's 128 lanes), 4-5 exons,
+    introns of 2-6 kb, at the widest band of the four: W = 15,744, as
+    one of phase 8's batches (the others 23,808-43,995)."""
+    jobs = _tron_jobs(pctx, SEED + 11, 4, (330, 385), (2000, 6000), 3)
+    bp = _tron_batch(TD, pctx, jobs, 128, local)
     if (bp.B, bp.S) != (4, 3) or bp.W < 15_000:
         raise AssertionError(f"tron bucket geometry {bp.B, bp.S, bp.W}")
     return bp
+
+
+def _tron_long_jobs(pctx):
+    """One planted gene of a 1,290-1,400 aa protein (11 slabs of 128
+    lanes), 4-5 exons, introns of 100-400 nt."""
+    return _tron_jobs(pctx, SEED + 12, 1, (1290, 1400), (100, 400), 3)
+
+
+def _tron_wide_jobs(pctx):
+    """Two planted genes of 500-700 aa proteins for one slab of 1,024
+    lanes (three pieces of 342 lanes), introns of 100-400 nt."""
+    return _tron_jobs(pctx, SEED + 13, 2, (500, 700), (100, 400), 2)
+
+
+# the forced geometries (k slabs a CTA, CTAs a problem) of phase 1 and
+# --tron-timing: k up to what the thread budget holds at L = 128
+TRON_SWEEP = {dagp: [(k, c) for k in (1, 2, 3)[:2 if dagp else 3]
+                     for c in (1, 2, 3)] for dagp in (False, True)}
+
+
+def _tron_geom(TK, bp, prm, geom=None) -> dict:
+    """K7's launch plan over bp at the rule's geometry or the forced
+    one."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return TK.tron_launch_plan(bp, prm, n_sm, geom)
+
+
+def _tron_sweep(TK, bp, prm, want, label: str, geoms) -> list:
+    """K7 on bp at each forced geometry, held byte for byte against
+    ``want``, the outputs at the rule's geometry (themselves held
+    against the plain version's).  Returns the (k, CTAs) run."""
+    rule = _tron_geom(TK, bp, prm)
+    done = []
+    for geom in geoms:
+        if geom == (rule["k"], rule["ncta"]):
+            continue
+        planes, row, rc, loc = TK.tron_forward(bp, prm, geometry=geom)
+        got = list(planes) + [row, rc, loc]
+        _equal(f"{label} at k, CTAs = {geom}", got, want)
+        del planes, got
+        done.append(geom)
+    log(f"{label}: the rule's k={rule['k']} on {rule['ncta']} CTA(s) "
+        f"({rule['steps']} serial steps) and forced (k, CTAs) {done}: "
+        f"byte-equal")
+    return done
 
 
 def _tron_plain_job(job):
@@ -1172,12 +1243,17 @@ def _tron_plain_job(job):
 def check_tron_kernels(TK, TD, pool):
     """K7 (3 and 5 states, Local on and off) and K8 against their plain
     versions on phase 1's tron batch (B=4, L=128, 3 slabs, W = 15,744):
-    every output exact.  K7's plain versions run on CPU copies in
-    ``pool``'s processes while the later phases run; K8's on the card,
-    here.  The Local variants are the map's (Smith-Waterman local by
-    default): their times and bounds go into the kernel line.  Returns
-    a function that waits for the plain versions, compares and returns
-    the kernel rows."""
+    every output exact, K7 at the rule's geometry and at the forced
+    sweep of (k, CTAs per problem) (each held against the rule's
+    outputs on the card, which are held against the plain version's);
+    then K7 on one problem of 11 slabs and on a slab of 1,024 lanes (as
+    pieces), Smith-Waterman local, each at its rule's geometry and
+    forced ones.  K7's plain versions run on CPU copies in ``pool``'s
+    processes while the later phases run; K8's on the card, here.  The
+    Local variants of phase 1's batch are the map's (Smith-Waterman
+    local by default): their times and bounds go into the kernel line.
+    Returns a function that waits for the plain versions, compares and
+    returns the kernel rows."""
     from spaln_tpu_torch.align.protein_driver import ProteinAlignerContext
     from spaln_tpu_torch.score.tables import TableDir, find_table_dir
     tables = TableDir(find_table_dir(), species="Tetrapod")
@@ -1188,8 +1264,18 @@ def check_tron_kernels(TK, TD, pool):
                 for local in (True, False)]
     bps = {local: _tron_bucket(TD, pctx[False], local)
            for local in (True, False)}
+    extra = {"long": _tron_batch(TD, pctx[False], _tron_long_jobs(
+                 pctx[False]), 128, True),
+             "wide": _tron_batch(TD, pctx[False], _tron_wide_jobs(
+                 pctx[False]), 1024, True)}
+    if extra["long"].S != 11 or extra["wide"].S != 1:
+        raise AssertionError("tron long/wide batches: "
+                             f"{extra['long'].S}, {extra['wide'].S} slabs")
     t_submit = time.perf_counter()
     pending, got = {}, {}
+    for key, bp in extra.items():
+        pending[key] = pool.apply_async(
+            _tron_plain_job, ((_cpu_bucket(bp), pctx[False].prm),))
     for dagp, local in variants:
         pending[dagp, local] = pool.apply_async(
             _tron_plain_job, ((_cpu_bucket(bps[local]), pctx[dagp].prm),))
@@ -1199,7 +1285,11 @@ def check_tron_kernels(TK, TD, pool):
         prm = pctx[dagp].prm
         bp = bps[local]
         planes, row, rc, loc = TK.tron_forward(bp, prm)
-        got[dagp, local] = [x.cpu() for x in list(planes) + [row, rc, loc]]
+        mine = list(planes) + [row, rc, loc]
+        _tron_sweep(TK, bp, prm, mine, f"{name} (local {local})",
+                    TRON_SWEEP[dagp])
+        got[dagp, local] = [x.cpu() for x in mine]
+        del mine
         ends = TD.collect_tron_ends(bp, row.cpu().numpy(), rc.cpu().numpy(),
                                     loc.cpu().numpy())
         et = torch.tensor([[e[1], e[2]] for e in ends], dtype=torch.int32,
@@ -1225,15 +1315,17 @@ def check_tron_kernels(TK, TD, pool):
         nbytes, nops = _tron_work(TD, bp, dagp)
         bound, by = _bound(nbytes, nops)
         ms = _timed(lambda: TK.tron_forward(bp, prm), 3)
+        plan = _tron_geom(TK, bp, prm)
         out[name] = dict(ms=ms, bound_ms=bound, bound_by=by,
-                         work=(nbytes, nops))
+                         work=(nbytes, nops), plan=plan)
         cells, acc, don = _tron_cells(TD, bp)
         log(f"kernel {name}: {ms:.3f} ms = "
-            f"{1e3 * ms / (bp.S * bp.T):.3f} us a step, bound "
-            f"{bound:.7f} ms by {by} ({nbytes} bytes, {nops} int32 ops) "
-            f"(B={bp.B} L={bp.L} W={bp.W} S={bp.S} T={bp.T}: {cells} "
-            f"band cells of {bp.S * bp.T * bp.B * bp.L} lane-steps, {acc} "
-            f"acceptor and {don} donor phase-cells)")
+            f"{1e3 * ms / plan['steps']:.3f} us a step (k={plan['k']} on "
+            f"{plan['ncta']} CTA(s) per problem, {plan['steps']} serial "
+            f"steps), bound {bound:.7f} ms by {by} ({nbytes} bytes, {nops} "
+            f"int32 ops) (B={bp.B} L={bp.L} W={bp.W} S={bp.S} T={bp.T}: "
+            f"{cells} band cells of {bp.S * bp.T * bp.B * bp.L} "
+            f"lane-steps, {acc} acceptor and {don} donor phase-cells)")
         if not dagp:
             steps = int(counts.sum())
             wb, wo = _walk_work(steps, bp.B)
@@ -1244,22 +1336,141 @@ def check_tron_kernels(TK, TD, pool):
             log(f"kernel tron_walk: {out['tron_walk']['ms']:.3f} ms vs "
                 f"plain {wplain:.1f} ms (on the card), bound {wbound:.7f} "
                 f"ms by {wby} ({steps} records)")
+        del planes
+    prm = pctx[False].prm
+    for key, bp in extra.items():
+        planes, row, rc, loc = TK.tron_forward(bp, prm)
+        mine = list(planes) + [row, rc, loc]
+        forced = [(1, 1), (1, 8), (3, 4)] if key == "long" else [(1, 1),
+                                                                  (1, 2)]
+        _tron_sweep(TK, bp, prm, mine, f"tron_forward ({key}: B={bp.B} "
+                    f"L={bp.L} S={bp.S} W={bp.W})", forced)
+        got[key] = [x.cpu() for x in mine]
+        del planes, mine
 
     def finish():
         t0 = time.perf_counter()
-        for (dagp, local), job in pending.items():
+        for key, job in pending.items():
             want, ms = job.get()
+            if key in extra:
+                _equal(f"tron_forward ({key})", got[key], want)
+                log(f"kernel tron_forward ({key}): exact; plain {ms:.1f} "
+                    f"ms (on a CPU copy)")
+                continue
+            dagp, local = key
             name = "tron_forward_dagp" if dagp else "tron_forward"
             err = _equal(f"{name} (local {local})", got[dagp, local], want)
             log(f"kernel {name} (local {local}): exact; plain {ms:.1f} ms "
                 f"(on a CPU copy)")
             if local:
                 out[name].update(max_abs_err=err, plain_ms=ms)
-        log(f"tron batch: K7 plain versions on the CPU in {len(pending)} "
+        log(f"tron batches: K7 plain versions on the CPU in {len(pending)} "
             f"processes, {time.perf_counter() - t_submit:.1f} s after "
             f"submission ({time.perf_counter() - t0:.1f} s of waiting)")
         return out
     return finish
+
+
+def _phase8_batches(TK, cli) -> dict:
+    """The batches K7 runs on in phase 8's protein map, default and -y
+    l3: mode -> [(batch, parameters)], from one map run each (the index
+    built once under smoke_work/tron_timing/ and kept there, so that the
+    packages timed in one call share it)."""
+    d = WORK / "tron_timing"
+    if not (d / "index.done").exists():
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        make_protein_gene_corpus(d)
+        cli.main(["index", str(d / "genome.fa"), "-p", str(d / "genome"),
+                  "-K", "P"])
+        (d / "index.done").write_text("")
+    out = {}
+    for mode, extra in (("default", []), ("yl3", ["-y", "l3"])):
+        with _keep_tron_batches(TK) as kept:
+            cli.main(["map", str(d / "prot.fa"), "-d", str(d / "genome"),
+                      "-T", "Tetrapod", "-O", "0,4", "-o",
+                      str(d / f"out.{mode}"), "--device", "cuda", *extra])
+        out[mode] = kept["forward"]
+    return out
+
+
+def tron_timing(TK, TD) -> dict:
+    """K7 (3 and 5 states, Smith-Waterman local) on phase 1's tron batch
+    and on one problem of 11 slabs widened to W = 23,808 (as phase 8's
+    one-problem batches), at the checkout's own geometry and, where the
+    checkout takes a forced one, at the sweep (each held against the
+    rule's outputs on the card); then on each of phase 8's batches, at
+    the checkout's own geometry.  Returns name -> ms per launch, k, CTAs
+    per problem, serial steps and us per serial step, and phase 8's
+    summed ms per mode."""
+    from spaln_tpu_torch.align.protein_driver import ProteinAlignerContext
+    from spaln_tpu_torch.score.tables import TableDir, find_table_dir
+    tables = TableDir(find_table_dir(), species="Tetrapod")
+    pctx = {dagp: ProteinAlignerContext.create(
+        tables, "cuda", y_args=["-yl3"] if dagp else None)
+        for dagp in (False, True)}
+    sweep = hasattr(TK, "tron_launch_plan")
+    out = {}
+    for tag, make in (("phase 1", lambda: _tron_bucket(TD, pctx[False],
+                                                       True)),
+                      ("one problem", lambda: _tron_batch(
+                          TD, pctx[False], _tron_long_jobs(pctx[False]),
+                          128, True, W=23_808))):
+        bp = make()
+        for dagp in (False, True):
+            prm = pctx[dagp].prm
+            name = "tron_forward_dagp" if dagp else "tron_forward"
+            want, want_key = None, None
+            for geom in [None] + (TRON_SWEEP[dagp] if sweep else []):
+                if sweep:
+                    try:
+                        plan = _tron_geom(TK, bp, prm, geom)
+                    except ValueError as e:       # not in this checkout
+                        log(f"tron timing: {name} ({tag}) at {geom}: {e}")
+                        continue
+                    key = (plan["k"], plan["ncta"])
+                    if geom is not None and key == want_key:
+                        continue
+                    fn = (lambda g=geom: TK.tron_forward(bp, prm,
+                                                         geometry=g))
+                else:
+                    plan = dict(k=1, ncta=1, steps=bp.S * bp.T)
+                    fn = (lambda: TK.tron_forward(bp, prm))
+                res = fn()
+                res = list(res[0]) + list(res[1:])
+                if want is None:
+                    want, want_key = res, (plan["k"], plan["ncta"])
+                else:
+                    _equal(f"{name} ({tag}) at {geom}", res, want)
+                del res
+                ms = _timed(fn, 3)
+                label = (f"{name} {tag}"
+                         + ("" if geom is None else f" k={geom[0]} "
+                            f"ctas={geom[1]}"))
+                out[label] = dict(ms=ms, k=plan["k"], ncta=plan["ncta"],
+                                  steps=plan["steps"],
+                                  us_per_step=ms * 1e3 / plan["steps"])
+                log(f"tron timing (B={bp.B} L={bp.L} W={bp.W} S={bp.S} "
+                    f"T={bp.T}): {label}: {ms:.3f} ms per launch, "
+                    f"k={plan['k']} on {plan['ncta']} CTA(s) per problem, "
+                    f"{plan['steps']} serial steps, "
+                    f"{ms * 1e3 / plan['steps']:.4f} us per step")
+            del want
+        del bp
+        torch.cuda.empty_cache()
+    from spaln_tpu_torch import cli
+    for mode, kept in _phase8_batches(TK, cli).items():
+        each = [_timed(lambda bp=bp, prm=prm: TK.tron_forward(bp, prm), 2)
+                for bp, prm in kept]
+        name = "tron_forward_dagp" if mode == "yl3" else "tron_forward"
+        out[f"{name} phase 8"] = dict(ms=sum(each), launches=len(each),
+                                      each=each)
+        log(f"tron timing: {name} on phase 8's {len(each)} batches: "
+            f"{sum(each):.3f} ms in all "
+            f"({', '.join(f'{x:.2f}' for x in each)})")
+        del kept
+        torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------- phase 2
@@ -2006,7 +2217,7 @@ def _keep_tron_batches(TK):
     fwd, walk = TK.tron_forward, TK.tron_walk
 
     def forward(bp, prm):
-        kept["forward"].append((bp, prm.dagp))
+        kept["forward"].append((bp, prm))
         return fwd(bp, prm)
 
     def walk_(bp, planes, ends):
@@ -2020,16 +2231,22 @@ def _keep_tron_batches(TK):
         TK.tron_forward, TK.tron_walk = fwd, walk
 
 
-def _tron_launches(TD, kept: dict, each: dict, fwd: str) -> dict:
-    """K7 and K8 on phase 8's own batches: each launch's time (CUDA
-    events on the map's run) beside the bound of its work; the sums of
-    ms, bound and ms - bound over the launches."""
+def _tron_launches(TK, TD, kept: dict, each: dict, fwd: str) -> dict:
+    """K7 and K8 on phase 8's own batches: each launch's geometry (k
+    slabs a CTA, CTAs per problem, serial steps) and time (CUDA events
+    on the map's run) beside the bound of its work; the sums of ms,
+    bound and ms - bound over the launches, and the most CTAs a problem
+    had."""
     rows = {fwd: [], "tron_walk": []}
-    for (bp, dagp), ms in zip(kept["forward"], each[fwd]):
-        bound, by = _bound(*_tron_work(TD, bp, dagp))
+    ctas = 0
+    for (bp, prm), ms in zip(kept["forward"], each[fwd]):
+        bound, by = _bound(*_tron_work(TD, bp, prm.dagp))
+        plan = _tron_geom(TK, bp, prm)
+        ctas = max(ctas, plan["ncta"])
         rows[fwd].append(ms - bound)
-        log(f"  {fwd}: B={bp.B} S={bp.S} W={bp.W} T={bp.T}: {ms:.3f} ms "
-            f"= {1e3 * ms / (bp.S * bp.T):.3f} us a step, bound "
+        log(f"  {fwd}: B={bp.B} S={bp.S} W={bp.W} T={bp.T} k={plan['k']} "
+            f"CTAs={plan['ncta']} steps={plan['steps']}: {ms:.3f} ms = "
+            f"{1e3 * ms / plan['steps']:.3f} us a step, bound "
             f"{bound:.5f} ms by {by}")
     for (B, steps), ms in zip(kept["walk"], each["tron_walk"]):
         bound, by = _bound(*_walk_work(steps, B))
@@ -2040,6 +2257,7 @@ def _tron_launches(TD, kept: dict, each: dict, fwd: str) -> dict:
     for k, ex in rows.items():
         out[k] = dict(launches=len(ex), ms=sum(each[k]),
                       ms_minus_bound=sum(ex))
+    out[fwd]["max_ctas"] = ctas
     return out
 
 
@@ -2103,11 +2321,36 @@ def protein_map(TK, TD, cli, metrics):
             raise AssertionError(f"protein map ({mode}): only {hit} of "
                                  f"{len(truth)} at their planted locus")
         log(f"protein map ({mode}): each launch of K7 and K8")
-        per = _tron_launches(TD, kept, each, fwd)
+        per = _tron_launches(TK, TD, kept, each, fwd)
+        geoms = {k: v for k, v in c.items() if k.startswith("tron_k7")}
         log(f"protein map ({mode}): over the launches "
-            f"{json.dumps(per, sort_keys=True)}")
+            f"{json.dumps(per, sort_keys=True)}; K7 launches by geometry "
+            f"(metrics) {json.dumps(geoms, sort_keys=True)}")
+        if per[fwd]["max_ctas"] < 2:
+            raise AssertionError(f"protein map ({mode}): no K7 launch ran "
+                                 f"a problem on more than one CTA")
         runs[mode] = dict(launches=n, ms=kms, wall=wall, per_launch=per)
     return runs
+
+
+def _ptxas_report(text: str) -> list:
+    """nvcc -Xptxas -v's lines for each kernel instance: its name with
+    the template arguments (kernel<1,0>), its spills and its registers
+    and barriers."""
+    out = []
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w*?_kernel)"
+                      r"((?:I(?:L\w+?-?\d+E)+E)?)", line)
+        if m:
+            # the mangled name ends in <length><name>
+            pre = m.group(1)
+            name = next(pre[-k:] for k in range(len(pre), 0, -1)
+                        if pre[:-k].endswith(str(k)))
+            args = re.findall(r"L[a-z]+(-?\d+)E", m.group(2))
+            out.append(f"{name}<{','.join(args)}>" if args else name)
+        elif "registers" in line or "spill" in line:
+            out.append("  " + line.replace("ptxas info    :", "").strip())
+    return out
 
 
 def _card() -> str:
@@ -2117,17 +2360,26 @@ def _card() -> str:
         check=True).stdout.strip()
 
 
-def timing_main(argv: list) -> int:
-    """--slab-timing [--package-root DIR]: phase 1's tetrapod-width
-    timing alone, of the package under DIR (default: this checkout), so
-    that two commits are timed on one card; prints one JSON line."""
+def timing_main(what: str, argv: list) -> int:
+    """--slab-timing or --tron-timing [--package-root DIR]: phase 1's
+    tetrapod-width timing (slab_timing) or the tron timing (tron_timing)
+    alone, of the package under DIR (default: this checkout), so that
+    two commits are timed on one card; prints one JSON line."""
     if argv[:1] == ["--package-root"]:
         sys.path.insert(0, str(Path(argv[1]).resolve()))
+    log(_card())
+    if what == "--tron-timing":
+        from spaln_tpu_torch.ops import dp_tron as TD
+        from spaln_tpu_torch.ops import dp_tron_cuda as TK
+        so, secs, _ = TK.build_library(TK.SOURCE)
+        log(f"kernels of {TK.__file__} built in {secs:.1f} s")
+        print(json.dumps({"tron_timing": tron_timing(TK, TD),
+                          "package": TK.__file__}))
+        return 0
     from spaln_tpu_torch.align.driver import AlignerContext
     from spaln_tpu_torch.ops import dp_spliced as dp
     from spaln_tpu_torch.ops import dp_spliced_cuda as K
     from spaln_tpu_torch.score.tables import TableDir, find_table_dir
-    log(_card())
     so, secs, _ = K.build_library()
     log(f"kernels of {K.__file__} built in {secs:.1f} s")
     ctx = AlignerContext.create(
@@ -2141,8 +2393,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if sys.argv[1:2] == ["--slab-timing"]:
-        return timing_main(sys.argv[2:])
+    if sys.argv[1:2] in (["--slab-timing"], ["--tron-timing"]):
+        return timing_main(sys.argv[1], sys.argv[2:])
     from spaln_tpu_torch import cli
     from spaln_tpu_torch.align.driver import AlignerContext
     from spaln_tpu_torch.ops import dp_spliced as dp
@@ -2169,9 +2421,8 @@ def main() -> int:
         log(f"kernels built in {time.perf_counter() - t0:.1f} s")
         for so, secs, ptxas in builds:
             log(f"  {so.relative_to(ROOT)}: nvcc {secs:.1f} s")
-            for line in ptxas.splitlines():
-                if "registers" in line or "spill" in line:
-                    log("  ptxas: " + line.strip())
+            for line in _ptxas_report(ptxas):
+                log("  ptxas: " + line)
         ctx = AlignerContext.create(
             TableDir(find_table_dir(), species="Dictyost"), "cuda")
         results = check_kernels(K, dp, ctx)
@@ -2180,10 +2431,10 @@ def main() -> int:
             y_args=["-yl3"])
         results.update(check_k5_kernels(K, dp, ctx3))
         check_tall_kernels(K, dp, ctx, ctx3)
-        # K7's plain versions step on CPU copies in 4 processes while
+        # K7's plain versions step on CPU copies in 6 processes while
         # phases 2-8 run (the pool's workers end with the block)
         tron_pool = stack.enter_context(
-            multiprocessing.get_context("spawn").Pool(4))
+            multiprocessing.get_context("spawn").Pool(6))
         tron_finish = check_tron_kernels(TK, TD, tron_pool)
         slab_timing(K, dp, AlignerContext.create(
             TableDir(find_table_dir(), species="Tetrapod"), "cuda"))

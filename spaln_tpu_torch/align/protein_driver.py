@@ -366,6 +366,17 @@ def _finish_tron_job(job: TronJob, score: int, ops: list,
     return gs
 
 
+def tron_launch_key(bp, prm: TronDpParams) -> str:
+    """The metrics counter of a K7 launch on the card: its batch (B, S)
+    and geometry (k slabs a CTA, CTAs a problem, serial steps)."""
+    from ..ops.dp_tron_cuda import tron_launch_plan
+    n_sm = torch.cuda.get_device_properties(
+        bp.device).multi_processor_count
+    plan = tron_launch_plan(bp, prm, n_sm)
+    return (f"tron_k7 B={bp.B} S={bp.S} k={plan['k']} "
+            f"ctas={plan['ncta']} steps={plan['steps']}")
+
+
 def execute_tron_jobs(jobs: list, ctx: ProteinAlignerContext,
                       lanes: int = 64, max_batch: int = 32
                       ) -> list[GeneStructure | None | BaseException]:
@@ -376,7 +387,8 @@ def execute_tron_jobs(jobs: list, ctx: ProteinAlignerContext,
     band widths of an Mpad are promoted to its widest (coalesce_buckets:
     this widens their bands, as the reference does); a bucket runs as
     batches of up to ``max_batch`` problems whose planes fit
-    ``ctx.plane_budget``, each one run_tron_batch (K7, the ends, K8).  A
+    ``ctx.plane_budget``, each one run_tron_batch (K7, the ends, K8),
+    counted per K7 geometry under tron_launch_key's name.  A
     failure of the DP raises DeviceDPError; a gene-structure failure is
     that job's result."""
     results: list = [None] * len(jobs)
@@ -414,6 +426,8 @@ def execute_tron_jobs(jobs: list, ctx: ProteinAlignerContext,
                     f"{exc}") from exc
             metrics.bump("tron_buckets")
             metrics.bump("tron_dp_cells", bp.B * bp.Mpad * bp.W)
+            if bp.device.type == "cuda":    # K7's launch: its geometry
+                metrics.bump(tron_launch_key(bp, ctx.prm))
             with stage("traceback"):
                 for bi, ji in enumerate(part):
                     score, _, _, ops = res[bi]

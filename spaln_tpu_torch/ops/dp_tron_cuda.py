@@ -22,6 +22,11 @@ raises: nothing falls back.  ``launches`` counts kernel launches per C
 entry and ``plain_calls`` calls of the plain versions under the same
 names.  The kernels are built at first use with nvcc into csrc/build/
 (a shared library of their own, plain C interface, ctypes).
+
+K7 runs a problem's slabs at once: k slabs in lockstep in a CTA, a
+problem's rounds of k slabs on a cluster of CTAs, and a slab wider than
+the thread budget as pieces, one a round; tron_geometry picks k and the
+CTAs, tron_serial_steps gives the critical path of a launch.
 """
 from __future__ import annotations
 
@@ -31,7 +36,8 @@ import functools
 
 import torch
 
-from .dp_spliced_cuda import CSRC, _check, _ptr, build_library
+from .dp_spliced_cuda import (CSRC, CLUSTER_MAX, SMEM_MAX, _check, _n_sm,
+                              _ptr, build_library)
 from .dp_tron import (TronBatchProblem, NCAND, NEV, N_META, N_REC, N_GEN,
                       G_CODE, G_SIGE, G_SIG5, G_ACCB, BT_BITS, D5_SHIFT,
                       D3_SHIFT, P5_SHIFT, P3_SHIFT, CODE_FILL, B_H, B_HD,
@@ -46,7 +52,16 @@ launches = {k: 0 for k in KERNELS}
 plain_calls = {k: 0 for k in KERNELS}
 I32 = torch.int32
 U8 = torch.uint8
-MAX_LANES = 1024                  # one thread a lane, one CTA a problem
+MAX_LANES = 1024                  # lanes of a slab at most
+
+# K7's geometry, as csrc/tron_dp.cu has it (max_threads, STAGE,
+# tron_smem_ints): the most threads of an instance (its
+# __launch_bounds__, from its registers so that none spills), the steps
+# between two publications of a round's progress, and the ring's depth.
+TRON_MAX_THREADS = {False: 384, True: 256}
+TRON_REGISTERS = {False: 155, True: 205}   # a thread, -Xptxas -v
+TRON_STAGE = 64
+RING = 8
 
 
 def forward_entry(prm: TronDpParams) -> str:
@@ -59,7 +74,9 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     P, I = ctypes.c_void_p, ctypes.c_int
     for name in ("tron_forward", "tron_forward_dagp"):
-        getattr(lib, name).argtypes = [P] * 11 + [I] * 21 + [P]
+        # operands and outputs (11), shapes, modes and scores (21), the
+        # geometry (k, threads, ncta, smem), the scratch (prog, pb, lbest)
+        getattr(lib, name).argtypes = [P] * 11 + [I] * 25 + [P] * 3 + [P]
     lib.tron_walk.argtypes = [P] * 8 + [I] * 8 + [P]
     for name in KERNELS:
         getattr(lib, name).restype = I
@@ -113,9 +130,122 @@ def _gap_ints(prm: TronDpParams) -> tuple:
             prm.gap_w3l)
 
 
-def tron_forward(bp: TronBatchProblem, prm: TronDpParams):
+def tron_pieces(dagp: bool, L: int) -> tuple[int, int]:
+    """(pieces, lanes a piece) of a slab of L lanes: one piece up to the
+    instance's thread budget, else ceil(L / budget) pieces of
+    ceil(L / pieces) lanes (the last may have fewer)."""
+    pieces = -(-L // TRON_MAX_THREADS[dagp])
+    return pieces, -(-L // pieces)
+
+
+def tron_smem(dagp: bool, threads: int) -> int:
+    """Dynamic shared memory (bytes) of one K7 CTA: the tables up to the
+    intron penalty and the 8-step rings of H, its dir, F (and F2, its
+    dir) of every lane (csrc tron_smem_ints)."""
+    return 4 * (T_IPEN + (5 if dagp else 3) * RING * threads)
+
+
+def _k_max(dagp: bool, L: int) -> int:
+    """Slabs a CTA holds at most: as many as the thread budget takes,
+    one piece of a wider slab."""
+    return max(1, TRON_MAX_THREADS[dagp] // L)
+
+
+def tron_geometry(dagp: bool, L: int, S: int, B: int,
+                  n_sm: int) -> tuple[int, int, int, int]:
+    """(k, threads, CTAs per problem, smem bytes) of one K7 launch over B
+    problems of S slabs of L lanes: the smallest k whose rounds,
+    ceil(S pieces / k), fit the CTAs a problem may have (at most
+    CLUSTER_MAX, and B of them at once within the card's n_sm SMs),
+    else the largest k the thread budget holds (retrace_geometry's rule:
+    the rounds then run at once, so the critical path stays near T +
+    6 (S-1) L whatever k, and a smaller k makes each step cheaper).  A
+    slab wider than the budget runs as pieces, one a round (k = 1).
+    Raises ValueError for lanes the kernel does not take."""
+    if not 3 <= L <= MAX_LANES:
+        raise ValueError(f"tron slabs of {L} lanes: the kernel takes "
+                         f"3..{MAX_LANES}")
+    pieces, PL = tron_pieces(dagp, L)
+    units = S * pieces
+    kmax = min(_k_max(dagp, L), S) if pieces == 1 else 1
+    cap = max(1, min(CLUSTER_MAX, n_sm // max(B, 1)))
+    k = next((k for k in range(1, kmax) if -(-units // k) <= cap), kmax)
+    ncta = max(1, min(cap, -(-units // k)))
+    smem = tron_smem(dagp, k * PL)
+    if smem > SMEM_MAX:
+        raise ValueError(f"K7 needs {smem} B of shared memory (L={L})")
+    return k, k * PL, ncta, smem
+
+
+def tron_serial_steps(T: int, L: int, k: int, S: int, ncta: int = 1,
+                      pieces: int = 1) -> int:
+    """Global steps of K7's critical path over S slabs (of ``pieces``
+    pieces each), k units a round, the rounds on ncta CTAs: a round of
+    units from slab s to slab s' takes T + 6 (s' - s) L steps; on one
+    CTA the rounds run one after another; on more, round r runs on CTA
+    r % ncta after that CTA's previous round, and each TRON_STAGE steps
+    of it once round r-1 has published (every TRON_STAGE steps and at
+    its end) that it is 6 L (s - its first slab) + TRON_STAGE steps
+    ahead or done."""
+    C = TRON_STAGE
+    units = S * pieces
+    starts: list[list[int]] = []     # start of each chunk of each round
+    nsteps: list[int] = []
+    firsts: list[int] = []
+
+    def end(r):                      # the step after round r's last
+        return starts[r][-1] + nsteps[r] - (len(starts[r]) - 1) * C
+
+    for r in range(-(-units // k)):
+        u0 = r * k
+        sf = u0 // pieces
+        nstep = T + 6 * L * ((min(u0 + k, units) - 1) // pieces - sf)
+        t = end(r - ncta) if r >= ncta else 0
+        chunks = []
+        for q in range(-(-nstep // C)):
+            if r and ncta > 1:
+                need = min(q * C + 6 * L * (sf - firsts[r - 1]) + C,
+                           nsteps[r - 1])
+                pub = need if need == nsteps[r - 1] else -(-need // C) * C
+                t = max(t, starts[r - 1][(pub - 1) // C] + (pub - 1) % C + 1)
+            chunks.append(t)
+            t += C
+        starts.append(chunks)
+        nsteps.append(nstep)
+        firsts.append(sf)
+    return max(end(r) for r in range(len(starts)))
+
+
+def tron_launch_plan(bp: TronBatchProblem, prm: TronDpParams, n_sm: int,
+                     geometry: tuple | None = None) -> dict:
+    """K7's launch over ``bp`` on a card of n_sm SMs: k, threads, CTAs
+    per problem (ncta), smem, pieces a slab and serial steps, from
+    tron_geometry or, for the tests and chip_smoke.py, the forced
+    ``geometry`` = (k, ncta)."""
+    dagp = prm.dagp
+    pieces, PL = tron_pieces(dagp, bp.L)
+    if geometry is None:
+        k, threads, ncta, smem = tron_geometry(dagp, bp.L, bp.S, bp.B,
+                                               n_sm)
+    else:
+        k, ncta = geometry
+        kmax = _k_max(dagp, bp.L) if pieces == 1 else 1
+        if not (1 <= k <= kmax and 1 <= ncta <= CLUSTER_MAX):
+            raise ValueError(f"K7 geometry k={k}, ncta={ncta}: k takes "
+                             f"1..{kmax} at L={bp.L}, ncta 1.."
+                             f"{CLUSTER_MAX}")
+        threads, smem = k * PL, tron_smem(dagp, k * PL)
+    return dict(k=k, threads=threads, ncta=ncta, smem=smem, pieces=pieces,
+                rounds=-(-bp.S * pieces // k),
+                steps=tron_serial_steps(bp.T, bp.L, k, bp.S, ncta, pieces))
+
+
+def tron_forward(bp: TronBatchProblem, prm: TronDpParams,
+                 geometry: tuple | None = None):
     """K7 (its double-affine mode under prm.dagp): every slab of every
-    problem of the batch, one CTA a problem walking its slabs in order.
+    problem of the batch, k slabs at once in a CTA and a problem's rounds
+    on a cluster of CTAs (tron_launch_plan; ``geometry`` = (k, ncta)
+    forces them, for the tests and chip_smoke.py).
 
     Returns (planes, row, rc, loc): planes = (fl (B, S, T, NN, L) uint8,
     spj (B, S, T, NN, L) int32, php int8 of the same shape), NN =
@@ -128,14 +258,24 @@ def tron_forward(bp: TronBatchProblem, prm: TronDpParams):
     _forward_checks(bp, prm)
     if bp.device.type == "cpu":
         return tron_forward_plain(bp, prm)
+    plan = tron_launch_plan(bp, prm, _n_sm(bp.device), geometry)
+    dev, B = bp.device, bp.B
     fl, spj, php, row, rc, loc = _outputs(bp, prm)
     bnd = bp.bnd0.clone()
+    # scratch: each round's progress (zero), the piece rows, each CTA's
+    # best local end
+    prog = torch.zeros(B * plan["rounds"], dtype=I32, device=dev)
+    pb = torch.empty(max(B * bp.S * (plan["pieces"] - 1) * N_BND * bp.T, 1),
+                     dtype=I32, device=dev)
+    lbest = torch.empty(B * plan["ncta"] * 3, dtype=I32, device=dev)
     local_l, local_r = local_modes(bp.flags)
-    _launch(forward_entry(prm), bp.device, _ptr(bp.gen), _ptr(bp.aa),
+    _launch(forward_entry(prm), dev, _ptr(bp.gen), _ptr(bp.aa),
             _ptr(bp.meta), _ptr(bp.tabs), _ptr(bnd), _ptr(fl), _ptr(spj),
-            _ptr(php), _ptr(row), _ptr(rc), _ptr(loc), bp.B, bp.L, bp.S,
+            _ptr(php), _ptr(row), _ptr(rc), _ptr(loc), B, bp.L, bp.S,
             bp.T, bp.W, bp.Nmax, bp.Mpad, bp.n_ipen, int(local_l),
-            int(local_r), int(bp.flags.a_exgr), *_gap_ints(prm))
+            int(local_r), int(bp.flags.a_exgr), *_gap_ints(prm),
+            plan["k"], plan["threads"], plan["ncta"], plan["smem"],
+            _ptr(prog), _ptr(pb), _ptr(lbest))
     return (fl, spj, php), row, rc, loc
 
 

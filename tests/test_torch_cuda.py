@@ -5,7 +5,9 @@ rounds of k slabs in flight wrap twice and end part-full; and L = 1000
 and 1024, two lanes a thread): exact equality of every output, single
 and double affine and score-only, and run_bucket, the UDH path (its
 retrace at several plane budgets), `map --lanes 1024` and the protein
-search on the card equal to the CPU run.  Needs an NVIDIA GPU; skipped
+search on the card equal to the CPU run; the tron kernels K7 and K8 at
+the rule's geometry and forced ones (1-11 slabs, 9-1,024 lanes) and the
+protein map.  Needs an NVIDIA GPU; skipped
 without one.  The machine with the card has no JAX, so run these
 without the repo's conftest:
 
@@ -454,10 +456,11 @@ def _tron_setup(dagp):
     return cfg, prm, ipen
 
 
-def _tron_problems(cfg, B, seed):
+def _tron_problems(cfg, B, seed, extra=0):
     """B planted protein genes of two exons (introns at phases 0, 1, 2 in
     turn, one with a 1-nt frameshift, one with a 45-nt insertion) with
-    different band placements and Local bounds."""
+    different band placements and Local bounds; proteins of 70 + 9 b +
+    ``extra`` residues."""
     from spaln_tpu_torch import constants as C
     from spaln_tpu_torch.score.codepot import build_tron_signals
     codon = {}
@@ -472,7 +475,7 @@ def _tron_problems(cfg, B, seed):
 
     qs, gs, ss, lws, lbs = [], [], [], [], []
     for b in range(B):
-        aa = rng.choice(range(3, 23), 70 + 9 * b).astype(np.int8)
+        aa = rng.choice(range(3, 23), 70 + 9 * b + extra).astype(np.int8)
         nt = "".join(codon[int(x)] for x in aa)
         cut = 90 + b % 3
         g = (mk(25 + 4 * b) + nt[:cut] + "GTAAGT" + mk(140 + 20 * b)
@@ -492,28 +495,49 @@ def _tron_problems(cfg, B, seed):
     return qs, gs, ss, lws, W, lbs
 
 
-@pytest.mark.parametrize("dagp,local,L", [(False, False, 64),
-                                          (False, True, 64),
-                                          (True, False, 32),
-                                          (True, True, 64)])
-def test_tron_kernels_equal_plain_on_card(cuda, dagp, local, L):
-    """K7 (3 and 5 states, Local on and off) and K8 on 4 problems of
-    2-3 slabs, exactly equal to their plain versions; the walks end."""
+# (dagp, local, L, extra residues, forced (k, CTAs per problem)): the
+# rule's geometry (None) and forced ones, 1 to 11 slabs, pieces of a
+# 1,024-lane slab (3 of 342 lanes, 4 of 256 under dagp)
+TRON_CASES = [
+    (False, False, 64, 0, [(1, 1), (2, 2), (3, 1)]),
+    (False, True, 64, 0, [(1, 1), (1, 2)]),
+    (True, False, 32, 0, [(1, 1), (2, 2), (1, 4)]),
+    (True, True, 64, 0, [(1, 1), (2, 1)]),
+    (False, True, 9, 0, [(1, 1), (3, 4), (2, 8), (1, 3)]),
+    (True, True, 9, 0, [(1, 1), (2, 3), (1, 8)]),
+    (False, True, 128, 200, [(1, 1), (2, 2), (3, 3)]),
+    (True, False, 256, 200, [(1, 1), (1, 2)]),
+    (False, True, 1024, 0, [(1, 1), (1, 2)]),
+    (True, False, 1024, 0, [(1, 1), (1, 3)]),
+]
+
+
+@pytest.mark.parametrize("dagp,local,L,extra,forced", TRON_CASES)
+def test_tron_kernels_equal_plain_on_card(cuda, dagp, local, L, extra,
+                                          forced):
+    """K7 (3 and 5 states, Local on and off) at the rule's geometry and
+    at forced (k, CTAs per problem) pairs, and K8, on 4 problems of 1-11
+    slabs of 9-1,024 lanes: every output exactly equal to the plain
+    version; the walks end."""
     from spaln_tpu_torch.ops import dp_tron as TD
     from spaln_tpu_torch.ops import dp_tron_cuda as TK
     from spaln_tpu_torch.ops.params import DpFlags
     cfg, prm, ipen = _tron_setup(dagp)
-    qs, gs, ss, lws, W, lbs = _tron_problems(cfg, 4, seed=5 + L)
+    qs, gs, ss, lws, W, lbs = _tron_problems(cfg, 4, seed=5 + L,
+                                             extra=extra)
     bp = TD.prepare_tron_batch(qs, gs, ss, prm, ipen, lws=lws, W=W, L=L,
                                flags=DpFlags(local=local), loc_bounds=lbs,
                                device=cuda)
-    assert bp.S >= 2
+    assert bp.S >= (2 if L < 1024 else 1)
     before = dict(TK.launches)
-    got = TK.tron_forward(bp, prm)
     want = TK.tron_forward_plain(bp, prm)
-    for a, b in zip(list(got[0]) + list(got[1:]),
-                    list(want[0]) + list(want[1:])):
-        assert torch.equal(a, b)
+    want = list(want[0]) + list(want[1:])
+    got = None
+    for geom in [None] + forced:
+        out = TK.tron_forward(bp, prm, geometry=geom)
+        for a, b in zip(list(out[0]) + list(out[1:]), want):
+            assert torch.equal(a, b), geom
+        got = got or out
     ends = TD.collect_tron_ends(bp, got[1].cpu().numpy(),
                                 got[2].cpu().numpy(), got[3].cpu().numpy())
     et = torch.tensor([[e[1], e[2]] for e in ends], dtype=torch.int32,
@@ -525,9 +549,26 @@ def test_tron_kernels_equal_plain_on_card(cuda, dagp, local, L):
         n = int(counts[b])
         assert n > 0 and torch.equal(recs[b, :n], precs[b, :n])
     assert TK.launches[TK.forward_entry(prm)] == \
-        before[TK.forward_entry(prm)] + 1
+        before[TK.forward_entry(prm)] + 1 + len(forced)
     assert TK.launches["tron_walk"] == before["tron_walk"] + 1
     torch.cuda.synchronize()
+
+
+def test_refused_tron_geometry_raises(cuda):
+    """A forced geometry the kernel does not take raises before a
+    launch: more slabs a CTA than the thread budget holds, more CTAs
+    than a portable cluster, a piece of a wide slab with k > 1."""
+    from spaln_tpu_torch.ops import dp_tron as TD
+    from spaln_tpu_torch.ops import dp_tron_cuda as TK
+    cfg, prm, ipen = _tron_setup(False)
+    for L, geom in ((128, (4, 1)), (64, (1, 9)), (1024, (2, 1))):
+        qs, gs, ss, lws, W, lbs = _tron_problems(cfg, 2, seed=1)
+        bp = TD.prepare_tron_batch(qs, gs, ss, prm, ipen, lws=lws, W=W,
+                                   L=L, loc_bounds=lbs, device=cuda)
+        before = dict(TK.launches)
+        with pytest.raises(ValueError, match="geometry"):
+            TK.tron_forward(bp, prm, geometry=geom)
+        assert TK.launches == before
 
 
 def test_protein_map_on_card_equals_cpu(cuda, tmp_path):
