@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of the map, align, search and pair paths from
-spaln_tpu_torch/csrc/spliced_dp.cu (ten C entries) and of the protein
-path from spaln_tpu_torch/csrc/tron_dp.cu (three), one nvcc per source,
-started together, then:
+spaln_tpu_torch/csrc/spliced_dp.cu (ten C entries), of the protein
+path from spaln_tpu_torch/csrc/tron_dp.cu (three) and the step probes
+from spaln_tpu_torch/csrc/probes.cu (six), one nvcc per source, started
+together, then:
 
 1. kernels: one bucket at main-path shapes (B=8, L=128, W=1152, 2 slabs,
    planted introns) through each kernel and its plain PyTorch version on
@@ -85,7 +86,14 @@ started together, then:
    K7 launch with a problem on more than one CTA; each launch of K7
    (with its k, CTAs per problem and serial steps) and K8 timed on the
    map's run beside the bound of its batch, and the sums over the
-   launches.
+   launches;
+9. the step probes (spaln_tpu_torch.probes, the H100 counterparts of
+   the TPU micro-probes of scripts/): every body's kernel exactly equal
+   to its plain version on the card at 256 steps, at 128 and 1024
+   threads, then each probe's measure (what its main prints) at its
+   script's T and 2T at 128 and 1024 threads: ns a step by
+   T-differencing, and each body's bound (the integer operations its
+   result needs over the card's int32 rate).
 
 Phases 3-8 also fail if per-query isolation skipped a query or a text's
 md5 differs from the one the phase has given since it was added.  Prints
@@ -97,6 +105,7 @@ smoke_work/ (removed at the end), map text to smoke_out/.
 
     python3 chip_smoke.py --slab-timing [--package-root DIR]
     python3 chip_smoke.py --tron-timing [--package-root DIR]
+    python3 chip_smoke.py --probe-timing [--package-root DIR]
 
 run phase 1's timing buckets alone, or K7 on phase 1's tron batch and
 on one problem of 11 slabs at W = 23,808 (the rule's geometry and, where
@@ -104,7 +113,16 @@ the package takes a forced one, the sweep of k and CTAs per problem) and
 on each batch of phase 8's map and -y l3 map (summed), of
 the package under DIR (an unpacked checkout of another commit; its
 tables from $ALN_TAB), and print one JSON line: two commits timed in
-turns on one card.
+turns on one card.  --probe-timing builds the probes, the production
+slab library and its knock-out builds (-DSLAB_ABLATE, nvcc all at
+once), holds every probe body against its plain version at all four
+thread counts, runs the probes' sweep at 128, 256, 512 and 1024
+threads three times over, then spliced_slab_score in each knock-out
+build on the bench batch of scripts/ablate_pallas.py (the "none" build
+equal to the production kernel); it reports each probe instance's and
+each build's score-mode instances' SASS instructions (cuobjdump) and
+registers and spills (ptxas), writes the probes' SASS to smoke_out/,
+and prints one JSON line.
 """
 from __future__ import annotations
 
@@ -278,11 +296,11 @@ def kernel_clock(K, retraces: list | None = None, each: dict | None = None):
     events = {k: [] for k in K.KERNELS}
     orig = K._launch
 
-    def timed(name, device, *args):
+    def timed(name, device, *args, **kw):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        orig(name, device, *args)
+        orig(name, device, *args, **kw)
         e1.record()
         events[name].append((e0, e1))
         if retraces is not None and name.startswith("spliced_slab_retrace"):
@@ -1473,6 +1491,148 @@ def tron_timing(TK, TD) -> dict:
     return out
 
 
+# ----------------------------------------------------------- the probes
+PROBE_T_CHECK = 256           # steps of the kernel-vs-plain check
+
+
+def check_probes(PC, mods, threads, dev=torch.device("cuda")) -> dict:
+    """Every step probe's kernel (csrc/probes.cu) against its plain
+    version on the card, PROBE_T_CHECK steps on the script's inputs, at
+    each of ``threads``: exactly equal (integer carries).  Returns
+    "entry:body" -> max_abs_err, plain ms and the kernel's ms at 128
+    threads, at PROBE_T_CHECK steps; raises naming every body that
+    differs."""
+    out, bad = {}, []
+    t0 = time.perf_counter()
+    for m in mods:
+        for c in m.cases(dev):
+            got = []
+            plain_ms = PC.elapsed_ms(
+                lambda: got.append(c.plain(PROBE_T_CHECK)), dev)
+            err = max(_max_abs_err(c.run(PROBE_T_CHECK, th), got[0])
+                      for th in threads)
+            key = f"{c.entry}:{c.body}"
+            if err:
+                bad.append(f"{key} ({err})")
+            ms = PC.elapsed_ms(lambda: c.run(PROBE_T_CHECK, 128), dev)
+            out[key] = dict(max_abs_err=err, plain_ms=plain_ms, ms=ms)
+    if bad:
+        raise AssertionError(f"probe kernels differ from their plain "
+                             f"versions: {', '.join(bad)}")
+    log(f"probes: {len(out)} bodies equal to their plain versions at "
+        f"T={PROBE_T_CHECK}, threads {threads} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def probe_phase(PC, mods, checked: dict, threads, reps: int = 1,
+                dev=torch.device("cuda")) -> dict:
+    """The step probes' main path: each module's measure (what its main
+    prints) at its script's T and 2T at ``threads``, the launch counts
+    set to 0 just before and read just after; then each body's kernels
+    row (ms at the script's T at 128 threads, its bound there, the
+    plain version's ms at PROBE_T_CHECK steps) and the sweep."""
+    PC.reset_counts()
+    t0 = time.perf_counter()
+    sweeps = {m.ENTRY: m.measure(m.T_DEFAULT, dev, threads, reps)
+              for m in mods}
+    wall = time.perf_counter() - t0
+    counts = dict(PC.launches)
+    rows = {}
+    for m in mods:
+        for c in m.cases(dev):
+            key = f"{c.entry}:{c.body}"
+            T = m.T_DEFAULT if c.stepped else 1
+            bound, by = _bound(c.nbytes, c.ops * T)
+            ms = (sweeps[m.ENTRY][c.body][128][1] if c.stepped
+                  else checked[key]["ms"])
+            rows[key] = dict(checked[key], ms=ms, bound_ms=bound,
+                             bound_by=by, launches=counts.get(key, 0),
+                             steps=T, plain_steps=PROBE_T_CHECK
+                             if c.stepped else 1)
+            if c.stepped:
+                ns = "  ".join(f"{th // 32}w {v[0]:9.2f}" for th, v in
+                               sweeps[m.ENTRY][c.body].items())
+                log(f"probe {key}: T={T} ns a step: {ns}; t(T) at 4 "
+                    f"warps {ms:.3f} ms, bound {bound:.5f} ms ({by}), "
+                    f"launches {rows[key]['launches']}")
+    log(f"probes: the sweep took {wall:.1f} s")
+    return {"rows": rows, "sweeps": sweeps}
+
+
+def _ptxas_summary(text: str) -> str:
+    """Instances, the most registers a thread and any spill in nvcc's
+    -Xptxas -v log."""
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+    spills = [ln.strip() for ln in text.splitlines()
+              if "spill" in ln and not re.search(r"\b0 bytes spill stores, "
+                                                 r"0 bytes spill loads", ln)]
+    return (f"{len(regs)} instances, at most {max(regs, default=0)} "
+            f"registers, {len(spills)} spilling")
+
+
+def probe_timing() -> dict:
+    """--probe-timing: the probe library and the production slab library
+    and its knock-out builds, one nvcc each, all at once, with each probe
+    instance's and each build's score-mode instances' SASS instructions,
+    registers and spills; every probe body against its plain version at
+    all four thread counts; the full sweep (3 repetitions); the
+    knock-outs on the bench batch of scripts/ablate_pallas.py, the "none"
+    build held equal to the production kernel and the production one to
+    its plain version, and the batch's bound."""
+    from concurrent.futures import ThreadPoolExecutor
+    from spaln_tpu_torch import probes
+    from spaln_tpu_torch.probes import _cuda as PC, ablate_pallas as AB
+    from spaln_tpu_torch.ops.dp_spliced_cuda import build_library
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        fut = pool.submit(AB.build_all)
+        so, secs, ptxas = build_library(PC.SOURCE)
+        slabs = fut.result()
+    log(f"probes + slab knock-outs built in {time.perf_counter() - t0:.1f} "
+        f"s: {so.name} nvcc {secs:.1f} s ({_ptxas_summary(ptxas)}); "
+        + ", ".join(f"{n} {v[1]:.1f} s" for n, v in slabs.items()))
+    # what nvcc made of each probe instance and of each build's score
+    # mode (slab_kernel<2,...>)
+    counts, listing = _sass(so)
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "probes.sass").write_text(listing)
+    inst = _ptxas_instances(ptxas)
+    sass = {"probes": {k: dict(v, sass=counts.get(k))
+                       for k, v in inst.items()}}
+    for k, v in inst.items():
+        if v["spill"]:
+            log(f"probes: {k} spills {v['spill']} bytes ({v['regs']} "
+                f"registers)")
+    for n, (lib, _) in slabs.items():
+        c, _ = _sass(lib)
+        sass[n] = {k: v for k, v in c.items()
+                   if k.startswith("slab_kernel<2,")}
+        log(f"SASS of {n}'s score-mode instances: {sass[n]}")
+    mods = probes.modules()
+    checked = check_probes(PC, mods, PC.THREADS)
+    res = probe_phase(PC, mods, checked, PC.THREADS, reps=3)
+    bp, prm = AB.bench_batch(device="cuda")
+    ab = AB.ablate(bp, prm, reps=3)
+    AB.report(ab, bp)
+    # the production step's plain version on the bench batch, and the
+    # bound of the batch's score-only forward
+    from spaln_tpu_torch.ops import dp_spliced_cuda as K
+    want, ab["plain_ms"] = _plain_ms(lambda: K.slab_score_plain(bp, prm))
+    ab["max_abs_err"] = _equal("spliced_slab_score (bench batch)",
+                               K.spliced_slab_score(bp, prm), want)
+    cells, acc, don = _dp_cells(bp, range(bp.S))
+    ab["bound_ms"], ab["bound_by"] = _bound(
+        _operand_bytes(bp) + 4 * bp.B * (bp.Nmax + 1 + bp.Mpad + 1),
+        cells * OPS_CELL + acc * OPS_ACC + don * OPS_DON)
+    log(f"ablate: the production step equals its plain version "
+        f"({ab['plain_ms']:.1f} ms); bound {ab['bound_ms']:.4f} ms "
+        f"({ab['bound_by']}: {cells} band cells, {acc} acceptor and {don} "
+        f"donor cells)")
+    return {"probes": res["sweeps"], "rows": res["rows"], "ablate": ab,
+            "sass": sass}
+
+
 # --------------------------------------------------------------- phase 2
 def small_map(K, cli):
     """4 planted genes: kernels vs plain versions, byte for byte."""
@@ -2333,24 +2493,73 @@ def protein_map(TK, TD, cli, metrics):
     return runs
 
 
+_MANGLED = re.compile(r"(\w*?_kernel)((?:I(?:L\w+?-?\d+E)+E)?)")
+
+
+def _kernel_name(mangled: str) -> str:
+    """A kernel instance's name with its template arguments
+    (kernel<1,0>), from its mangled name."""
+    m = _MANGLED.search(mangled)
+    # the mangled name ends in <length><name>
+    pre = m.group(1)
+    name = next(pre[-k:] for k in range(1, len(pre))
+                if pre[:-k].endswith(str(k)))
+    args = re.findall(r"L[a-z]+(-?\d+)E", m.group(2))
+    return f"{name}<{','.join(args)}>" if args else name
+
+
 def _ptxas_report(text: str) -> list:
     """nvcc -Xptxas -v's lines for each kernel instance: its name with
     the template arguments (kernel<1,0>), its spills and its registers
     and barriers."""
     out = []
     for line in text.splitlines():
-        m = re.search(r"Compiling entry function '(\w*?_kernel)"
-                      r"((?:I(?:L\w+?-?\d+E)+E)?)", line)
-        if m:
-            # the mangled name ends in <length><name>
-            pre = m.group(1)
-            name = next(pre[-k:] for k in range(len(pre), 0, -1)
-                        if pre[:-k].endswith(str(k)))
-            args = re.findall(r"L[a-z]+(-?\d+)E", m.group(2))
-            out.append(f"{name}<{','.join(args)}>" if args else name)
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m and _MANGLED.search(m.group(1)):
+            out.append(_kernel_name(m.group(1)))
         elif "registers" in line or "spill" in line:
             out.append("  " + line.replace("ptxas info    :", "").strip())
     return out
+
+
+def _ptxas_instances(text: str) -> dict:
+    """Each kernel instance's registers and spill stores (bytes) in
+    nvcc's -Xptxas -v log: name -> {"regs", "spill"}."""
+    out, name = {}, None
+    for line in _ptxas_report(text):
+        if not line.startswith(" "):
+            name = line
+            out[name] = {"regs": 0, "spill": 0}
+        elif m := re.search(r"(\d+) bytes spill stores", line):
+            out[name]["spill"] = int(m.group(1))
+        elif m := re.search(r"Used (\d+) registers", line):
+            out[name]["regs"] = int(m.group(1))
+    return out
+
+
+def _sass(so: Path) -> tuple[dict, str]:
+    """(kernel instance -> [its SASS instructions but NOPs, those of its
+    largest loop (a backward branch's span)], the listing) of a library,
+    from cuobjdump -sass."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([exe, "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name, addrs = {}, None, []
+    for line in text.splitlines():
+        if m := re.match(r"\s*Function : (\S+)", line):
+            name = (_kernel_name(m.group(1))
+                    if _MANGLED.search(m.group(1)) else m.group(1))
+            counts[name], addrs = [0, 0], []
+        elif name and (m := re.match(
+                r"\s*/\*([0-9a-f]{4,})\*/\s+(?!NOP\b)(\S.*)", line)):
+            at = int(m.group(1), 16)
+            addrs.append(at)
+            counts[name][0] += 1
+            if (b := re.search(r"\bBRA 0x([0-9a-f]+)", m.group(2))) \
+                    and int(b.group(1), 16) < at:
+                span = sum(int(b.group(1), 16) <= a for a in addrs)
+                counts[name][1] = max(counts[name][1], span)
+    return counts, text
 
 
 def _card() -> str:
@@ -2361,13 +2570,17 @@ def _card() -> str:
 
 
 def timing_main(what: str, argv: list) -> int:
-    """--slab-timing or --tron-timing [--package-root DIR]: phase 1's
-    tetrapod-width timing (slab_timing) or the tron timing (tron_timing)
+    """--slab-timing, --tron-timing or --probe-timing [--package-root
+    DIR]: phase 1's tetrapod-width timing (slab_timing), the tron timing
+    (tron_timing) or the step probes and knock-outs (probe_timing)
     alone, of the package under DIR (default: this checkout), so that
     two commits are timed on one card; prints one JSON line."""
     if argv[:1] == ["--package-root"]:
         sys.path.insert(0, str(Path(argv[1]).resolve()))
     log(_card())
+    if what == "--probe-timing":
+        print(json.dumps({"probe_timing": probe_timing()}))
+        return 0
     if what == "--tron-timing":
         from spaln_tpu_torch.ops import dp_tron as TD
         from spaln_tpu_torch.ops import dp_tron_cuda as TK
@@ -2393,7 +2606,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if sys.argv[1:2] in (["--slab-timing"], ["--tron-timing"]):
+    if sys.argv[1:2] in (["--slab-timing"], ["--tron-timing"],
+                         ["--probe-timing"]):
         return timing_main(sys.argv[1], sys.argv[2:])
     from spaln_tpu_torch import cli
     from spaln_tpu_torch.align.driver import AlignerContext
@@ -2403,6 +2617,8 @@ def main() -> int:
     from spaln_tpu_torch.ops import dp_tron_cuda as TK
     from spaln_tpu_torch.score.tables import TableDir, find_table_dir
     from spaln_tpu_torch.utils.metrics import metrics
+    from spaln_tpu_torch import probes
+    from spaln_tpu_torch.probes import _cuda as PC
     from concurrent.futures import ThreadPoolExecutor
     import multiprocessing
 
@@ -2416,11 +2632,15 @@ def main() -> int:
     try:
         # one nvcc per source, started together
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(2) as pool:
-            builds = list(pool.map(K.build_library, (K.SOURCE, TK.SOURCE)))
+        with ThreadPoolExecutor(3) as pool:
+            builds = list(pool.map(K.build_library,
+                                   (K.SOURCE, TK.SOURCE, PC.SOURCE)))
         log(f"kernels built in {time.perf_counter() - t0:.1f} s")
         for so, secs, ptxas in builds:
             log(f"  {so.relative_to(ROOT)}: nvcc {secs:.1f} s")
+            if so.name.startswith("libprobes"):
+                log(f"  ptxas: {_ptxas_summary(ptxas)}")
+                continue
             for line in _ptxas_report(ptxas):
                 log("  ptxas: " + line)
         ctx = AlignerContext.create(
@@ -2445,6 +2665,10 @@ def main() -> int:
         yl3 = tetrapod_yl3_map(K, cli, metrics, truth)
         prot = protein_search(K, cli, metrics)
         pmap = protein_map(TK, TD, cli, metrics)
+        # the step probes, while K7's plain versions finish
+        mods = probes.modules()
+        probe_res = probe_phase(PC, mods, check_probes(PC, mods, (128, 1024)),
+                                (128, 1024))
         tron = tron_finish()
     finally:
         stack.close()
@@ -2477,13 +2701,25 @@ def main() -> int:
     names = K.KERNELS + TK.KERNELS
     if not all(launches[k] > 0 for k in names):
         raise AssertionError(f"a kernel of the path never ran: {launches}")
+    rows = probe_res["rows"]
+    idle = [k for k, r in rows.items() if r["launches"] == 0]
+    if idle:
+        raise AssertionError(f"a probe kernel never ran: {idle}")
+    probe_src = str(PC.SOURCE.relative_to(ROOT))
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=sources[k], replaces=REPLACES[k],
              launches=launches[k], max_abs_err=results[k]["max_abs_err"],
              ms=results[k]["ms"], plain_ms=results[k]["plain_ms"],
              bound_ms=results[k]["bound_ms"],
              bound_by=results[k]["bound_by"], library_ms=None)
-        for k in names]}))
+        for k in names] + [
+        dict(name=k, route="cuda", source=probe_src,
+             replaces=probes.REPLACES[k.split(":")[0]],
+             launches=r["launches"], max_abs_err=r["max_abs_err"],
+             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+             bound_by=r["bound_by"], library_ms=None, steps=r["steps"],
+             plain_steps=r["plain_steps"])
+        for k, r in rows.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -68,6 +68,34 @@ enum { G_RES, G_ISDON, G_ISACC, G_SIG5, G_ACCB, G_DINC5 };
 __device__ __constant__ int PSP_BIT[5] = {4, 1, 8, 2, 16};
 enum { MODE_TRACE, MODE_LINKS, MODE_SCORE };
 
+// Knock-outs of the score mode, for timing only: a build with
+// -DSLAB_ABLATE=n drops one piece of the step from slab_kernel<MODE_SCORE,
+// *>, the counterpart of spaln_tpu's SPALN_PALLAS_ABLATE
+// (ops/dp_spliced_pallas.py:215; scripts/ablate_pallas.py), and computes
+// wrong scores.  Without the define (0) the kernel is the production one.
+//   NOSCORE  score = residue code + the lane's class-0 row (358)
+//   NOEDGE   left = H of the previous step: no band-edge, column-0 or
+//            top-of-band selects, no reset at the band's first cell (378)
+//   NOIPEN   no intron-penalty gather: the candidate keeps 0 (455)
+//   NOCLOSE  no acceptor close (473)
+//   NOPUSH   no donor push (515)
+//   NOEMIT   no final-row, right-column or boundary-row writes (559)
+// NOCLOSE leaves the candidates no reader, and NOPUSH leaves them at
+// NEV, so nvcc drops the other piece with each.  Two more knock-outs
+// split the two and keep the other piece's work (their code is under
+// #if, so that every other build compiles what it compiled before):
+//   NOCLOSE_LIVE (7)  no acceptor close; the final-row write also reads
+//                     the last candidate, so the donor push stays live
+//   NOPUSH_LIVE (8)   no donor push; each lane's candidates start from
+//                     the gap-open penalty (a value nvcc cannot see),
+//                     so the close runs at every acceptor as it does
+//                     once donors have pushed
+#ifndef SLAB_ABLATE
+#define SLAB_ABLATE 0
+#endif
+enum { ABL_NONE, ABL_NOSCORE, ABL_NOEDGE, ABL_NOIPEN, ABL_NOCLOSE,
+       ABL_NOPUSH, ABL_NOEMIT, ABL_NOCLOSE_LIVE, ABL_NOPUSH_LIVE };
+
 // Geometry of the slab kernel; slab_geometry in ops/dp_spliced_cuda.py
 // holds the same numbers and picks k from them.
 //   max_threads: the __launch_bounds__ of each instance, from its
@@ -215,6 +243,22 @@ struct Lane {
   int cv[NCAND], cj[NCAND], cd[NCAND], c5[NCAND], lkc[NCAND];
 };
 
+#if SLAB_ABLATE == 8
+// NOPUSH_LIVE's candidates (timing only): values from the gap-open
+// penalty, which nvcc cannot see, live (> NEV / 2), of state < ns and
+// with an intron start near 0
+__device__ __forceinline__ void seed_live(Lane& x, int gop, int ns) {
+#pragma unroll
+  for (int l = 0; l < NCAND; ++l) {
+    const unsigned u = (unsigned)gop + l;
+    x.cv[l] = gop;
+    x.cj[l] = u & 7;
+    x.cd[l] = u % ns;
+    x.c5[l] = u & 15;
+  }
+}
+#endif
+
 template <int MODE, bool DAGP, bool MULTI, int MAXT, int P>
 __global__ void __launch_bounds__(MAXT)
 slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
@@ -235,6 +279,7 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
   constexpr int NB = DAGP ? 3 : 2;        // boundary rows H, F (, F2)
   constexpr int NLK = DAGP ? 5 : 4;       // link streams per slab
   constexpr int C = STAGE_C;
+  constexpr int ABL = MODE == MODE_SCORE ? SLAB_ABLATE : ABL_NONE;
   extern __shared__ int smem[];
   const int nthr = blockDim.x;               // P lanes a thread
   const int ksub = nthr * P / L;             // k sub-slabs of L lanes
@@ -399,6 +444,9 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
       for (int l = 0; l < NCAND; ++l) {
         x.cv[l] = NEV; x.cj[l] = x.cd[l] = x.c5[l] = 0; x.lkc[l] = 0;
       }
+#if SLAB_ABLATE == 8
+      if (ABL == ABL_NOPUSH_LIVE) seed_live(x, gop, NS);
+#endif
       x.lkh1 = 0; x.lke = 0; x.lke2 = 0;
       x.col_m = colinit(x.m, b_exgl, gop, gep);
       x.col_m1 = colinit(x.m - 1, b_exgl, gop, gep);
@@ -439,7 +487,7 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
         const bool first = r_off == 0;
         const bool active =
             r_off >= 0 && r_off < W && n >= 1 && n <= N && m <= M;
-        if (first) {
+        if (ABL != ABL_NOEDGE && first) {
           x.e1 = NEV;
           x.e2 = NEV;
           x.psp = 0;
@@ -447,6 +495,9 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
           for (int l = 0; l < NCAND; ++l) {
             x.cv[l] = NEV; x.cj[l] = x.cd[l] = x.c5[l] = 0;
           }
+#if SLAB_ABLATE == 8
+          if (ABL == ABL_NOPUSH_LIVE) seed_live(x, gop, NS);
+#endif
         }
         if (!LINKS && !active) {
           // Trace and score modes: an inactive cell emits H, F, F2 = NEV,
@@ -471,7 +522,8 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
           const int slot = x.slot;
           if (active) {
             const int w = gw[slot];
-            score = qp[v * A + (w & 255)];
+            score = ABL == ABL_NOSCORE ? (w & 255) + qp[v * A]
+                                       : qp[v * A + (w & 255)];
             if (n < N) {
               isdon = (w >> 8) & 1;
               isacc = (w >> 9) & 1;
@@ -482,14 +534,18 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
           }
           // the intron penalties of an acceptor close, gathered before the
           // neighbour values so that their loads overlap lane 0's
-          const bool closes = isacc && x.internal;
+#if SLAB_ABLATE == 7
+          const bool closes = ABL != ABL_NOCLOSE_LIVE && isacc && x.internal;
+#else
+          const bool closes = ABL != ABL_NOCLOSE && isacc && x.internal;
+#endif
           bool ok[NCAND];
           int pen[NCAND];
 #pragma unroll
           for (int l = 0; l < NCAND; ++l) {
             const int ilen = n - x.cj[l];
             ok[l] = closes && ilen >= llmt && x.cv[l] > NEV / 2;
-            pen[l] = !ok[l] ? 0
+            pen[l] = !ok[l] || ABL == ABL_NOIPEN ? 0
                      : ilen < 0 ? NEV / 2 : __ldg(ipen + min(ilen, Np - 1));
           }
           // ---- neighbour values and their links; lane 0's sources sit on
@@ -544,10 +600,13 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
           // descend from column 0, link 0
           const bool edge = first && n != 1;
           const int left_h =
-              n == 1 ? x.col_m : (edge ? e_const : (first ? NEV : x.h1));
+              ABL == ABL_NOEDGE ? x.h1
+              : n == 1 ? x.col_m : (edge ? e_const : (first ? NEV : x.h1));
           const int lk_left = (n == 1 || first) ? 0 : x.lkh1;
-          if (n == 1) { diag_h = x.col_m1; lk_diag = 0; }
-          if (r_off >= W - 1) { up_h = NEV; up_f = NEV; up_f2 = NEV; }
+          if (ABL != ABL_NOEDGE) {
+            if (n == 1) { diag_h = x.col_m1; lk_diag = 0; }
+            if (r_off >= W - 1) { up_h = NEV; up_f = NEV; up_f2 = NEV; }
+          }
           // ---- recurrence (order = fwd2s1.cc:276-431)
           int sv[NS], jn[NS], lks[NS];
           const int h_val = diag_h + score;
@@ -617,7 +676,11 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
           }
           // ---- donor push (fwd2s1.cc:380-406): sorted insertion, ties keep
           // existing entries first; the candidate carries its value's link
-          if (isdon && x.internal) {
+#if SLAB_ABLATE == 8
+          if (ABL != ABL_NOPUSH_LIVE && isdon && x.internal) {
+#else
+          if (ABL != ABL_NOPUSH && isdon && x.internal) {
+#endif
 #pragma unroll
             for (int k = 0; k < NS; ++k) {
               const int fv = sv[k];
@@ -690,8 +753,16 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
             for (int k = 0; k < NS; ++k)
               x.spj_out[(size_t)k * plane + (size_t)t * tstride] = jn[k];
           }
-          if (active) {
+          if (ABL != ABL_NOEMIT && active) {
+#if SLAB_ABLATE == 7
+            if (rowb && m == M)
+              rowb[n] = ABL == ABL_NOCLOSE_LIVE
+                            ? h_out ^ x.cv[NCAND - 1] ^ x.cj[NCAND - 1]
+                                  ^ x.cd[NCAND - 1] ^ x.c5[NCAND - 1]
+                            : h_out;
+#else
             if (rowb && m == M) rowb[n] = h_out;
+#endif
             if (rcb && n == N) rcb[m] = h_out;
             if (i == L - 1) {
               bh[n] = h_out;

@@ -107,12 +107,23 @@ def entry(name: str, prm: DpParams) -> str:
 
 
 # ------------------------------------------------------------------ build
-def build_library(source: Path = SOURCE) -> tuple[Path, float, str]:
-    """Compile a CUDA source of csrc/ (spliced_dp.cu unless named; once
-    per source content) and return (library path, seconds spent
-    compiling, nvcc's -Xptxas -v log)."""
-    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    so = BUILD_DIR / f"lib{source.stem}_{tag}.so"
+def build_tag(source: Path, defines: tuple[str, ...] = ()) -> str:
+    """The build's hash: of the source's content and of the nvcc defines
+    (``NAME`` or ``NAME=VALUE``), in their order; with no defines, of the
+    source alone."""
+    h = hashlib.sha256(source.read_bytes())
+    for d in defines:
+        h.update(b"\0-D" + d.encode())
+    return h.hexdigest()[:16]
+
+
+def build_library(source: Path = SOURCE, defines: tuple[str, ...] = ()
+                  ) -> tuple[Path, float, str]:
+    """Compile a CUDA source of csrc/ (spliced_dp.cu unless named), with
+    ``-D`` for each of ``defines``, once per (source content, defines),
+    and return (library path, seconds spent compiling, nvcc's -Xptxas -v
+    log)."""
+    so = BUILD_DIR / f"lib{source.stem}_{build_tag(source, defines)}.so"
     log_path = so.with_suffix(".log")
     if so.exists():
         log = log_path.read_text() if log_path.exists() else ""
@@ -124,7 +135,8 @@ def build_library(source: Path = SOURCE) -> tuple[Path, float, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    r = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
+    r = subprocess.run([nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines),
+                        "-o", str(tmp), str(source)],
                        capture_output=True, text=True)
     dt = time.perf_counter() - t0
     if r.returncode != 0:
@@ -135,9 +147,11 @@ def build_library(source: Path = SOURCE) -> tuple[Path, float, str]:
     return so, dt, r.stdout + r.stderr
 
 
-@functools.lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-    so, _, _ = build_library()
+@functools.lru_cache(maxsize=None)
+def _library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The library of spliced_dp.cu built with ``defines`` (none: the
+    production build; SLAB_ABLATE=n: a knock-out of the score mode)."""
+    so, _, _ = build_library(SOURCE, defines)
     lib = ctypes.CDLL(str(so))
     P, I = ctypes.c_void_p, ctypes.c_int
     # operands (7), then B, L, A, S, k, smem, ncta, prog and the 12 of
@@ -158,6 +172,7 @@ def _library() -> ctypes.CDLL:
         getattr(lib, name).restype = I
     lib.spliced_error_string.argtypes = [I]
     lib.spliced_error_string.restype = ctypes.c_char_p
+    lib.error_string = lib.spliced_error_string
     return lib
 
 
@@ -173,20 +188,25 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    """Call one C entry on ``device``'s current stream; raise unless it
-    returned cudaSuccess."""
+def _launch(name: str, device: torch.device, *args,
+            defines: tuple[str, ...] = (), loader=None) -> None:
+    """Call one C entry on ``device``'s current stream and raise unless it
+    returned cudaSuccess.  The entry is of the library ``loader()``
+    returns (one bound with its ``error_string``), or else of this
+    source's library built with ``defines``, and then counted in
+    ``launches``."""
     if device.type != "cuda":
         raise ValueError(f"{name}: tensors on {device}; the kernels take "
                          f"CUDA tensors and the plain versions CPU ones")
-    lib = _library()
+    lib = loader() if loader else _library(defines)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, name)(*args, ctypes.c_void_p(stream))
     if rc != 0:
-        msg = lib.spliced_error_string(rc).decode()
+        msg = lib.error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
-    launches[name] += 1
+    if not loader:
+        launches[name] += 1
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -464,10 +484,12 @@ def spliced_slab_links(bp: BatchProblem, prm: DpParams):
 
 
 # ------------------------------------------------------------- K5 score
-def spliced_slab_score(bp: BatchProblem, prm: DpParams):
+def spliced_slab_score(bp: BatchProblem, prm: DpParams,
+                       defines: tuple[str, ...] = ()):
     """K5, score-only mode: every slab of every problem with no planes
     and no links (single or double affine, by prm.dagp).  Returns (row,
-    rc) as K1's, for K2e."""
+    rc) as K1's, for K2e.  ``defines`` selects another build of the
+    kernel (SLAB_ABLATE=n: a knock-out, for timing only)."""
     geom = _slab_checks(bp, prm, "score", bp.S)
     if bp.device.type == "cpu":
         return slab_score_plain(bp, prm)
@@ -479,7 +501,7 @@ def spliced_slab_score(bp: BatchProblem, prm: DpParams):
     prog, gargs = _geom_args(bp, geom, B, S)
     _launch("spliced_slab_score", dev, *_operand_ptrs(bp), B, L,
             bp.qprof.shape[2], S, *gargs, *_dp_ints(bp, prm), int(prm.dagp),
-            _ptr(bnd), _ptr(row), _ptr(rc))
+            _ptr(bnd), _ptr(row), _ptr(rc), defines=defines)
     return row, rc
 
 

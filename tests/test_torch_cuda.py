@@ -7,13 +7,16 @@ and double affine and score-only, and run_bucket, the UDH path (its
 retrace at several plane budgets), `map --lanes 1024` and the protein
 search on the card equal to the CPU run; the tron kernels K7 and K8 at
 the rule's geometry and forced ones (1-11 slabs, 9-1,024 lanes) and the
-protein map.  Needs an NVIDIA GPU; skipped
+protein map; the step probes at 4-32 warps, the slab kernel's "none"
+knock-out build against the production one, and the production
+instances' registers.  Needs an NVIDIA GPU; skipped
 without one.  The machine with the card has no JAX, so run these
 without the repo's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -23,6 +26,8 @@ from spaln_tpu_torch.config import Config, resolve, CvsG
 from spaln_tpu_torch.ops import dp_spliced as dp
 from spaln_tpu_torch.ops import dp_spliced_cuda as K
 from spaln_tpu_torch.ops.params import DpParams
+from spaln_tpu_torch.probes import PROBES
+from spaln_tpu_torch.probes import _cuda as PC
 from spaln_tpu_torch.score.intron import IntronPenalty
 from spaln_tpu_torch.score.simmtx import Simmtx
 from spaln_tpu_torch.score.splice import build_splice_signals
@@ -617,3 +622,100 @@ def test_protein_map_on_card_equals_cpu(cuda, tmp_path):
         assert texts["cuda"] == texts["cpu"]
         assert texts["cuda"].count(b"\tgene\t") == 3
         assert TK.launches["tron_walk"] > before["tron_walk"]
+
+
+# ---------------------------------------------------------------- probes
+@pytest.mark.parametrize("name", PROBES)
+def test_probe_kernels_equal_plain_on_card(cuda, name):
+    """Every body of a step probe (csrc/probes.cu) equal to its plain
+    version on the card, 64 steps on the script's inputs, at 128, 256,
+    512 and 1024 threads: the CTA's size changes nothing."""
+    m = importlib.import_module(f"spaln_tpu_torch.probes.{name}")
+    for c in m.cases(cuda):
+        want = c.plain(64)
+        for th in PC.THREADS:
+            before = PC.launches.get(f"{c.entry}:{c.body}", 0)
+            got = c.run(64, th)
+            assert torch.equal(got, want), (c.body, th)
+            assert PC.launches[f"{c.entry}:{c.body}"] == before + 1
+
+
+def test_probe_launch_refuses_a_thread_count(cuda):
+    from spaln_tpu_torch.probes import pallas_probe
+    x = torch.zeros((8, 128), dtype=torch.int32, device=cuda)
+    tab = torch.zeros((8, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pallas_probe.run("base", x, tab, 4, threads=96)
+    with pytest.raises(ValueError, match="shape"):
+        pallas_probe.run("take1k_along", x, tab, 4)
+
+
+def test_knockout_none_build_equals_production(cuda):
+    """The SLAB_ABLATE=0 build of spliced_dp.cu (a library of its own)
+    gives the production score kernel's (row, rc) on the search batch of
+    chip_smoke.py's phase 1; a knocked-out build launches too, under the
+    same C entry."""
+    import chip_smoke
+    from spaln_tpu_torch.probes import ablate_pallas
+    bp, prm = chip_smoke._protein_batch(dp)
+    want = K.spliced_slab_score(bp, prm)
+    got = K.spliced_slab_score(bp, prm, ablate_pallas.defines("none"))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert K._library(ablate_pallas.defines("none")) is not K._library()
+    K.spliced_slab_score(bp, prm, ablate_pallas.defines("noclose"))
+    torch.cuda.synchronize()
+
+
+# (registers a thread, spill stores, spill loads) of every instance of the
+# production spliced_dp.cu, from nvcc 12.8's -Xptxas -v on the card
+# before the knock-out define (SLAB_ABLATE) was added: slab_kernel<MODE,
+# DAGP, MULTI, MAXT, P>
+SLAB_PTXAS = {
+    "slab_kernel<2,0,0,1024,2>": (64, 88, 116),
+    "slab_kernel<2,0,1,1024,2>": (64, 100, 124),
+    "slab_kernel<2,0,0,1024,1>": (64, 0, 0),
+    "slab_kernel<2,0,1,1024,1>": (63, 0, 0),
+    "slab_kernel<2,1,0,512,2>": (125, 0, 0),
+    "slab_kernel<2,1,1,512,2>": (127, 0, 0),
+    "slab_kernel<2,1,0,512,1>": (100, 0, 0),
+    "slab_kernel<2,1,1,512,1>": (97, 0, 0),
+    "slab_kernel<1,1,0,512,2>": (127, 0, 0),
+    "slab_kernel<1,1,1,512,2>": (128, 0, 0),
+    "slab_kernel<1,1,0,512,1>": (122, 0, 0),
+    "slab_kernel<1,1,1,512,1>": (128, 0, 0),
+    "slab_kernel<1,0,0,512,2>": (123, 0, 0),
+    "slab_kernel<1,0,1,512,2>": (128, 0, 0),
+    "slab_kernel<1,0,0,512,1>": (108, 0, 0),
+    "slab_kernel<1,0,1,512,1>": (116, 0, 0),
+    "slab_kernel<0,1,0,640,2>": (96, 28, 36),
+    "slab_kernel<0,1,1,640,2>": (96, 48, 60),
+    "slab_kernel<0,1,0,640,1>": (88, 0, 0),
+    "slab_kernel<0,1,1,640,1>": (95, 0, 0),
+    "slab_kernel<0,0,0,896,2>": (72, 76, 128),
+    "slab_kernel<0,0,1,896,2>": (72, 108, 164),
+    "slab_kernel<0,0,0,896,1>": (70, 0, 0),
+    "slab_kernel<0,0,1,896,1>": (68, 0, 0),
+    "tb_walk_kernel": (32, 0, 0),
+    "last_ends_kernel": (25, 0, 0),
+}
+
+
+def test_production_registers_unchanged(cuda):
+    """Every instance of the production spliced_dp.cu keeps the registers
+    and spills nvcc -Xptxas -v gave it before the knock-out define was
+    added (the define is off there: the same code)."""
+    import re
+    import chip_smoke
+    _, _, log = K.build_library()
+    got, name = {}, None
+    for line in chip_smoke._ptxas_report(log):
+        if not line.startswith("  "):
+            name = line
+            got[name] = [0, 0, 0]
+        elif "registers" in line:
+            got[name][0] = int(re.search(r"Used (\d+) registers", line)[1])
+        elif "spill" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            got[name][1:] = [int(m[1]), int(m[2])]
+    assert {k: tuple(v) for k, v in got.items()} == SLAB_PTXAS

@@ -1,6 +1,7 @@
 """The port imports neither jax nor spaln_tpu: checked in a fresh
 interpreter, after importing the package, its CLI and every module of
-the map (cDNA and protein), align and search paths."""
+the map (cDNA and protein), align and search paths and of the step
+probes."""
 import json
 import os
 import subprocess
@@ -21,7 +22,14 @@ MODULES = ["spaln_tpu_torch", "spaln_tpu_torch.cli",
            "spaln_tpu_torch.ops.tron_params",
            "spaln_tpu_torch.align.protein_driver",
            "spaln_tpu_torch.ops.convert", "spaln_tpu_torch.utils.metrics",
-           "spaln_tpu_torch.utils.errors", "spaln_tpu_torch.native"]
+           "spaln_tpu_torch.utils.errors", "spaln_tpu_torch.native",
+           "spaln_tpu_torch.probes", "spaln_tpu_torch.probes._cuda",
+           "spaln_tpu_torch.probes.pallas_probe",
+           "spaln_tpu_torch.probes.pallas_probe2",
+           "spaln_tpu_torch.probes.probe_gather",
+           "spaln_tpu_torch.probes.probe_step_ops",
+           "spaln_tpu_torch.probes.probe_int16",
+           "spaln_tpu_torch.probes.ablate_pallas"]
 
 
 @pytest.mark.parametrize("mods", [MODULES[:2], MODULES])
