@@ -4,9 +4,10 @@
 
 Builds the CUDA kernels of the map, align, search and pair paths from
 spaln_tpu_torch/csrc/spliced_dp.cu (ten C entries), of the protein
-path from spaln_tpu_torch/csrc/tron_dp.cu (three) and the step probes
-from spaln_tpu_torch/csrc/probes.cu (six), one nvcc per source, started
-together, then:
+path from spaln_tpu_torch/csrc/tron_dp.cu (three), the step probes
+from spaln_tpu_torch/csrc/probes.cu (six) and the step skeletons from
+spaln_tpu_torch/csrc/mosaic_repro.cu (one entry, 30 instances), one nvcc
+per source, started together, then:
 
 1. kernels: one bucket at main-path shapes (B=8, L=128, W=1152, 2 slabs,
    planted introns) through each kernel and its plain PyTorch version on
@@ -93,7 +94,14 @@ together, then:
    threads, then each probe's measure (what its main prints) at its
    script's T and 2T at 128 and 1024 threads: ns a step by
    T-differencing, and each body's bound (the integer operations its
-   result needs over the card's int32 rate).
+   result needs over the card's int32 rate);
+10. the step skeletons and the bench (spaln_tpu_torch.probes.mosaic_repro,
+   the counterpart of scripts/mosaic_repro.py, and spaln_tpu_torch.bench,
+   bench.py's): every level's kernel exactly equal to its plain version
+   on the card on all four outputs, at the script's inputs (B=16; levels
+   32-46 at B=8), then each level at 7 and 14 chunks (ns a step); the
+   bench's workload (B=256, M=512, W=4,096): GCUPS with the spread, its
+   scores equal to the plain version's, and the score launch's bound.
 
 Phases 3-8 also fail if per-query isolation skipped a query or a text's
 md5 differs from the one the phase has given since it was added.  Prints
@@ -113,14 +121,16 @@ the package takes a forced one, the sweep of k and CTAs per problem) and
 on each batch of phase 8's map and -y l3 map (summed), of
 the package under DIR (an unpacked checkout of another commit; its
 tables from $ALN_TAB), and print one JSON line: two commits timed in
-turns on one card.  --probe-timing builds the probes, the production
-slab library and its knock-out builds (-DSLAB_ABLATE, nvcc all at
-once), holds every probe body against its plain version at all four
-thread counts, runs the probes' sweep at 128, 256, 512 and 1024
-threads three times over, then spliced_slab_score in each knock-out
-build on the bench batch of scripts/ablate_pallas.py (the "none" build
-equal to the production kernel); it reports each probe instance's and
-each build's score-mode instances' SASS instructions (cuobjdump) and
+turns on one card.  --probe-timing builds the probes, the skeletons,
+the production slab library and its knock-out builds (-DSLAB_ABLATE
+0-17, nvcc all at once), holds every probe body against its plain
+version at all four thread counts, runs the probes' sweep at 128, 256,
+512 and 1024 threads three times over, then spliced_slab_score in each
+knock-out build on the bench batch of scripts/ablate_pallas.py (the
+"none" build and each forced k = 1, 2, 4 equal to the production
+kernel), each build on bisect_mosaic's batch, and each skeleton level
+at 7, 14 and 28 chunks; it reports each probe instance's and each
+build's score-mode instances' SASS instructions (cuobjdump) and
 registers and spills (ptxas), writes the probes' SASS to smoke_out/,
 and prints one JSON line.
 """
@@ -1572,23 +1582,43 @@ def _ptxas_summary(text: str) -> str:
 
 
 def probe_timing() -> dict:
-    """--probe-timing: the probe library and the production slab library
-    and its knock-out builds, one nvcc each, all at once, with each probe
-    instance's and each build's score-mode instances' SASS instructions,
-    registers and spills; every probe body against its plain version at
-    all four thread counts; the full sweep (3 repetitions); the
-    knock-outs on the bench batch of scripts/ablate_pallas.py, the "none"
-    build held equal to the production kernel and the production one to
-    its plain version, and the batch's bound."""
+    """--probe-timing: the probe library, the skeletons' (csrc/
+    mosaic_repro.cu) and the production slab library and its knock-out
+    builds (ablate_pallas.BUILDS), one nvcc each, all at once, with
+    each probe instance's and each build's score-mode instances' SASS
+    instructions, registers and spills; every probe body against its
+    plain version at all four thread counts; the full sweep (3
+    repetitions); the knock-outs on the bench batch of
+    scripts/ablate_pallas.py, the "none" build held equal to the
+    production kernel and the production one to its plain version, and
+    the batch's bound; then the builds of time_kernel_pieces and
+    bisect_mosaic (SLAB_ABLATE 9-17, and k = 1, 2, 4 on the production
+    build) on the same batch, each launched on bisect_mosaic's batch, and
+    each mosaic_repro level's ns a step at 7, 14 and 28 chunks (a
+    checkout without those modules skips them)."""
     from concurrent.futures import ThreadPoolExecutor
     from spaln_tpu_torch import probes
     from spaln_tpu_torch.probes import _cuda as PC, ablate_pallas as AB
     from spaln_tpu_torch.ops.dp_spliced_cuda import build_library
+    # a checkout from before the skeletons and the variant tables
+    # (--package-root) has neither
+    pieces = (Path(AB.__file__).parent / "mosaic_repro.py").exists()
+    if pieces:
+        from spaln_tpu_torch.probes import (bisect_mosaic as BM,
+                                            mosaic_repro as MR,
+                                            time_kernel_pieces as TKP)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        fut = pool.submit(AB.build_all)
+    with ThreadPoolExecutor(3) as pool:
+        fut = pool.submit(AB.build_all, AB.BUILDS) if pieces else \
+            pool.submit(AB.build_all)
+        skel = pool.submit(build_library, MR.SOURCE) if pieces else None
         so, secs, ptxas = build_library(PC.SOURCE)
-        slabs = fut.result()
+        slabs = {n: v[:2] for n, v in fut.result().items()}
+        if skel:
+            sk_so, sk_secs, sk_ptxas = skel.result()
+            log(f"skeletons: {sk_so.name} nvcc {sk_secs:.1f} s "
+                f"({_ptxas_summary(sk_ptxas)}); SASS (all, the loop) "
+                f"{_sass(sk_so)[0]}")
     log(f"probes + slab knock-outs built in {time.perf_counter() - t0:.1f} "
         f"s: {so.name} nvcc {secs:.1f} s ({_ptxas_summary(ptxas)}); "
         + ", ".join(f"{n} {v[1]:.1f} s" for n, v in slabs.items()))
@@ -1629,8 +1659,125 @@ def probe_timing() -> dict:
         f"({ab['plain_ms']:.1f} ms); bound {ab['bound_ms']:.4f} ms "
         f"({ab['bound_by']}: {cells} band cells, {acc} acceptor and {don} "
         f"donor cells)")
-    return {"probes": res["sweeps"], "rows": res["rows"], "ablate": ab,
-            "sass": sass}
+    out = {"probes": res["sweeps"], "rows": res["rows"], "ablate": ab,
+           "sass": sass}
+    if pieces:
+        out.update(pieces_timing(AB, TKP, BM, MR, bp, prm))
+    return out
+
+
+def pieces_timing(AB, TKP, BM, MR, bp, prm) -> dict:
+    """--probe-timing's builds of time_kernel_pieces and bisect_mosaic
+    (SLAB_ABLATE 9-17) and time_kernel_pieces' forced k on the bench
+    batch (each held as ablate_pallas.ablate holds them) and each build
+    on bisect_mosaic's batch, and each skeleton level's ns a step at 7,
+    14 and 28 chunks."""
+    from spaln_tpu_torch.probes._cuda import elapsed_ms
+    new = [b for b in AB.BUILDS if b not in AB.KNOCKOUTS]
+    t = AB.ablate(bp, prm, new, TKP.TILINGS, reps=3)["knockouts"]
+    for name, r in t.items():
+        log(f"pieces: {name:16s} {r['ms']:9.3f} ms  {r['steps']} serial "
+            f"steps  {r['ns_per_step']:8.1f} ns a serial step  saves "
+            f"{r['saves_ns']:8.1f}")
+    del bp
+    torch.cuda.empty_cache()
+    sb, sprm = BM.bisect_batch("cuda")
+    bis = BM.bisect(sb, sprm, list(BM.VARIANTS))
+    log("bisect_mosaic: " + ", ".join(f"{v} {r.split(' |')[0]}"
+                                      for v, r in bis.items()))
+    if any(r.startswith("FAIL") for r in bis.values()):
+        raise AssertionError(f"bisect_mosaic: {bis}")
+    dev = torch.device("cuda")
+    steps = {}
+    for lev in MR.LEVELS:
+        B = MR.script_B(lev)
+        ms = []
+        for ch in SKELETON_CHUNKS:
+            a = MR.level_inputs(lev, MR.inputs(B, ch), dev)
+            MR.run(lev, a, ch)                     # loads the instance
+            ms.append(elapsed_ms(lambda: MR.run(lev, a, ch), dev, 5))
+        ns = [(ms[i + 1] - ms[i]) / (MR.CHUNK * (SKELETON_CHUNKS[i + 1]
+                                                 - SKELETON_CHUNKS[i])) * 1e6
+              for i in range(len(ms) - 1)]
+        steps[lev] = dict(ms=ms, ns_per_step=ns)
+        log(f"skeleton level {lev:2d} (B={B}): ms at {SKELETON_CHUNKS} "
+            f"chunks {', '.join(f'{x:.4f}' for x in ms)}; ns a step "
+            f"{', '.join(f'{x:.2f}' for x in ns)}")
+    return {"pieces": t, "bisect": bis, "skeleton_steps": steps}
+
+
+# -------------------------------------------------------------- phase 10
+SKELETON_CHUNKS = (7, 14, 28)     # --probe-timing's lengths, in chunks
+
+
+def check_skeletons(MR, dev=torch.device("cuda")) -> dict:
+    """Phase 10, the skeletons: every mosaic_repro level's kernel against
+    its plain version on the card at the script's inputs and shapes, all
+    four outputs exactly equal; then, the launch counts set to 0 just
+    before and read just after, each level as the module's main measures
+    it (ms at 7 chunks and at 14: ns a step).  Returns level -> its
+    kernels row."""
+    rows, bad = {}, []
+    t0 = time.perf_counter()
+    for lev in MR.LEVELS:
+        B = MR.script_B(lev)
+        a = MR.level_inputs(lev, MR.inputs(B), dev)
+        want, plain_ms = _plain_ms(lambda: MR.plain(lev, a))
+        err = max(_max_abs_err(x, y) for x, y in zip(MR.run(lev, a), want))
+        if err:
+            bad.append(f"level {lev} ({err})")
+        bound, by = _bound(*MR.bound_work(lev, a, MR.N_CHUNKS))
+        rows[lev] = dict(max_abs_err=err, plain_ms=plain_ms, bound_ms=bound,
+                         bound_by=by, B=B)
+    if bad:
+        raise AssertionError(f"skeleton kernels differ from their plain "
+                             f"versions: {', '.join(bad)}")
+    MR.reset_counts()
+    for lev, r in rows.items():
+        ns, r["ms"], _ = MR.step_ns(
+            lev, lambda ch, lev=lev, B=r["B"]: MR.level_inputs(
+                lev, MR.inputs(B, ch), dev), MR.N_CHUNKS, dev)
+        r["ns_per_step"] = ns
+    counts = dict(MR.launches)
+    for lev, r in rows.items():
+        r["launches"] = counts.get(f"level{lev}", 0)
+        log(f"skeleton level {lev:2d} (B={r['B']}): equal to its plain "
+            f"version ({r['plain_ms']:.1f} ms); {r['ms']:.4f} ms at "
+            f"{MR.N_CHUNKS} chunks, {r['ns_per_step']:.2f} ns a step, "
+            f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), launches "
+            f"{r['launches']}")
+    log(f"skeletons: {len(rows)} levels in {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def bench_phase(K) -> dict:
+    """Phase 10, the bench: spaln_tpu_torch.bench's workload (bench.py's
+    batch: B=256, M=512, W=4,096, L=128), the launch counts set to 0 just
+    before and read just after: GCUPS with the spread, the scores held
+    against the plain version's on the card (bench.measure holds the
+    score launch's (row, rc) equal to the plain version's: max_abs_err),
+    and the score launch's bound."""
+    from spaln_tpu_torch import bench
+    t0 = time.perf_counter()
+    bp, prm = bench.bench_batch(device="cuda")
+    _reset_counts(K)
+    res = bench.measure(bp, prm)
+    launches = K.launches["spliced_slab_score"]
+    cells, acc, don = _dp_cells(bp, range(bp.S))
+    bound, by = _bound(
+        _operand_bytes(bp) + 4 * bp.B * (bp.Nmax + 1 + bp.Mpad + 1),
+        cells * OPS_CELL + acc * OPS_ACC + don * OPS_DON)
+    line = {k: res[k] for k in ("metric", "value", "unit", "repeats",
+                                "spread_gcups", "device")}
+    log(f"bench: {json.dumps(line)}; median {res['ms']:.3f} ms a run "
+        f"(launch and synchronize), (row, rc) equal to the plain "
+        f"version's (max_abs_err {res['max_abs_err']}) and so its scores "
+        f"({res['plain_ms']:.1f} ms), bound {bound:.4f} ms ({by}), "
+        f"{launches} score launches ({time.perf_counter() - t0:.1f} s)")
+    return dict(max_abs_err=res["max_abs_err"], ms=res["ms"],
+                plain_ms=res["plain_ms"],
+                bound_ms=bound, bound_by=by, launches=launches,
+                gcups=res["value"], spread_gcups=res["spread_gcups"])
 
 
 # --------------------------------------------------------------- phase 2
@@ -2618,7 +2765,7 @@ def main() -> int:
     from spaln_tpu_torch.score.tables import TableDir, find_table_dir
     from spaln_tpu_torch.utils.metrics import metrics
     from spaln_tpu_torch import probes
-    from spaln_tpu_torch.probes import _cuda as PC
+    from spaln_tpu_torch.probes import _cuda as PC, mosaic_repro as MR
     from concurrent.futures import ThreadPoolExecutor
     import multiprocessing
 
@@ -2632,13 +2779,14 @@ def main() -> int:
     try:
         # one nvcc per source, started together
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(3) as pool:
+        with ThreadPoolExecutor(4) as pool:
             builds = list(pool.map(K.build_library,
-                                   (K.SOURCE, TK.SOURCE, PC.SOURCE)))
+                                   (K.SOURCE, TK.SOURCE, PC.SOURCE,
+                                    MR.SOURCE)))
         log(f"kernels built in {time.perf_counter() - t0:.1f} s")
         for so, secs, ptxas in builds:
             log(f"  {so.relative_to(ROOT)}: nvcc {secs:.1f} s")
-            if so.name.startswith("libprobes"):
+            if so.name.startswith(("libprobes", "libmosaic_repro")):
                 log(f"  ptxas: {_ptxas_summary(ptxas)}")
                 continue
             for line in _ptxas_report(ptxas):
@@ -2669,6 +2817,11 @@ def main() -> int:
         mods = probes.modules()
         probe_res = probe_phase(PC, mods, check_probes(PC, mods, (128, 1024)),
                                 (128, 1024))
+        # phase 10: the skeletons and the bench, while they finish
+        t10 = time.perf_counter()
+        skeletons = check_skeletons(MR)
+        bench_row = bench_phase(K)
+        log(f"phase 10 took {time.perf_counter() - t10:.1f} s")
         tron = tron_finish()
     finally:
         stack.close()
@@ -2705,7 +2858,12 @@ def main() -> int:
     idle = [k for k, r in rows.items() if r["launches"] == 0]
     if idle:
         raise AssertionError(f"a probe kernel never ran: {idle}")
+    idle = [lev for lev, r in skeletons.items() if r["launches"] == 0]
+    if idle or not bench_row["launches"]:
+        raise AssertionError(f"a skeleton level never ran: {idle}, or the "
+                             f"bench's score kernel: {bench_row}")
     probe_src = str(PC.SOURCE.relative_to(ROOT))
+    skel_src = str(MR.SOURCE.relative_to(ROOT))
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=sources[k], replaces=REPLACES[k],
              launches=launches[k], max_abs_err=results[k]["max_abs_err"],
@@ -2719,7 +2877,21 @@ def main() -> int:
              ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
              bound_by=r["bound_by"], library_ms=None, steps=r["steps"],
              plain_steps=r["plain_steps"])
-        for k, r in rows.items()]}))
+        for k, r in rows.items()] + [
+        dict(name=f"skeleton_kernel<{lev}>", route="cuda", source=skel_src,
+             replaces=MR.REPLACES[MR.kernel_of(lev)], launches=r["launches"],
+             max_abs_err=r["max_abs_err"], ms=r["ms"],
+             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+             bound_by=r["bound_by"], library_ms=None, B=r["B"],
+             ns_per_step=r["ns_per_step"])
+        for lev, r in skeletons.items()] + [
+        dict(name="spliced_slab_score (bench)", route="cuda", source=src,
+             replaces="bench.py:92", launches=bench_row["launches"],
+             max_abs_err=bench_row["max_abs_err"], ms=bench_row["ms"],
+             plain_ms=bench_row["plain_ms"], bound_ms=bench_row["bound_ms"],
+             bound_by=bench_row["bound_by"], library_ms=None,
+             gcups=bench_row["gcups"],
+             spread_gcups=bench_row["spread_gcups"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

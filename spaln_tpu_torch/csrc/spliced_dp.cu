@@ -90,11 +90,54 @@ enum { MODE_TRACE, MODE_LINKS, MODE_SCORE };
 //                     the gap-open penalty (a value nvcc cannot see),
 //                     so the close runs at every acceptor as it does
 //                     once donors have pushed
+// Values 9-17 are the counterparts of scripts/time_kernel_pieces.py's
+// and scripts/bisect_mosaic.py's textual variants of the Pallas kernel
+// (probes/time_kernel_pieces.py maps every variant to its value):
+//   NOFILLS (9)       lane 0 never reads the previous slab's boundary
+//                     row: its up, diagonal and F neighbours are NEV
+//   NORECUR (10)      H = the lane's previous H + score: the diagonal
+//                     dependence dropped
+//   NOPSP (11)        psp carried unchanged through the E update
+//   MIN_BODY (12)     _cut_body's three stand-ins: the recurrence as
+//                     diag + score + left - up + up_F - E with E, F one
+//                     and two below it, the close as the sum of its
+//                     operands (acceptor base, sig5, dinucleotide, four
+//                     joint terms, the site bits), no push
+//   RECUR_ONLY (13)   the recurrence kept, the close's stand-in, no push
+//   RECUR_CLOSE (14)  the recurrence and the close kept, no push; the
+//                     candidates start live as NOPUSH_LIVE's do
+//   RECUR_PUSH (15)   the recurrence and the push kept, the close's
+//                     stand-in; the final-row write reads the last
+//                     candidate as NOCLOSE_LIVE's does
+//   ALL_OFF (16)      NOIPEN, NOCLOSE, NOPUSH, NOEMIT and NOFILLS at once
+//   ALL_OFF_NOEDGE (17)  ALL_OFF and NOEDGE
+// A knock-out build (SLAB_ABLATE > 0) instantiates the score mode alone;
+// its other entries refuse (cudaErrorNotSupported).
 #ifndef SLAB_ABLATE
 #define SLAB_ABLATE 0
 #endif
 enum { ABL_NONE, ABL_NOSCORE, ABL_NOEDGE, ABL_NOIPEN, ABL_NOCLOSE,
-       ABL_NOPUSH, ABL_NOEMIT, ABL_NOCLOSE_LIVE, ABL_NOPUSH_LIVE };
+       ABL_NOPUSH, ABL_NOEMIT, ABL_NOCLOSE_LIVE, ABL_NOPUSH_LIVE,
+       ABL_NOFILLS, ABL_NORECUR, ABL_NOPSP, ABL_MIN_BODY, ABL_RECUR_ONLY,
+       ABL_RECUR_CLOSE, ABL_RECUR_PUSH, ABL_ALL_OFF, ABL_ALL_OFF_NOEDGE };
+// KO(piece): the build drops the piece; KEEP(piece): it runs.  Below 16
+// a build drops the one piece its value names (the text every build
+// below 16 compiled before the combinations existed); 16 and 17 drop
+// several.
+#if SLAB_ABLATE >= 16
+__host__ __device__ constexpr bool ko_combo(int abl, int piece) {
+  return (abl == ABL_ALL_OFF || abl == ABL_ALL_OFF_NOEDGE)
+         && (piece == ABL_NOIPEN || piece == ABL_NOCLOSE
+             || piece == ABL_NOPUSH || piece == ABL_NOEMIT
+             || piece == ABL_NOFILLS
+             || (piece == ABL_NOEDGE && abl == ABL_ALL_OFF_NOEDGE));
+}
+#define KO(piece) ko_combo(ABL, piece)
+#define KEEP(piece) !ko_combo(ABL, piece)
+#else
+#define KO(piece) ABL == piece
+#define KEEP(piece) ABL != piece
+#endif
 
 // Geometry of the slab kernel; slab_geometry in ops/dp_spliced_cuda.py
 // holds the same numbers and picks k from them.
@@ -243,8 +286,8 @@ struct Lane {
   int cv[NCAND], cj[NCAND], cd[NCAND], c5[NCAND], lkc[NCAND];
 };
 
-#if SLAB_ABLATE == 8
-// NOPUSH_LIVE's candidates (timing only): values from the gap-open
+#if SLAB_ABLATE == 8 || SLAB_ABLATE == 14
+// NOPUSH_LIVE's and RECUR_CLOSE's candidates (timing only): values from the gap-open
 // penalty, which nvcc cannot see, live (> NEV / 2), of state < ns and
 // with an intron start near 0
 __device__ __forceinline__ void seed_live(Lane& x, int gop, int ns) {
@@ -444,8 +487,9 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
       for (int l = 0; l < NCAND; ++l) {
         x.cv[l] = NEV; x.cj[l] = x.cd[l] = x.c5[l] = 0; x.lkc[l] = 0;
       }
-#if SLAB_ABLATE == 8
-      if (ABL == ABL_NOPUSH_LIVE) seed_live(x, gop, NS);
+#if SLAB_ABLATE == 8 || SLAB_ABLATE == 14
+      if (ABL == ABL_NOPUSH_LIVE || ABL == ABL_RECUR_CLOSE)
+        seed_live(x, gop, NS);
 #endif
       x.lkh1 = 0; x.lke = 0; x.lke2 = 0;
       x.col_m = colinit(x.m, b_exgl, gop, gep);
@@ -487,7 +531,7 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
         const bool first = r_off == 0;
         const bool active =
             r_off >= 0 && r_off < W && n >= 1 && n <= N && m <= M;
-        if (ABL != ABL_NOEDGE && first) {
+        if (KEEP(ABL_NOEDGE) && first) {
           x.e1 = NEV;
           x.e2 = NEV;
           x.psp = 0;
@@ -495,8 +539,9 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
           for (int l = 0; l < NCAND; ++l) {
             x.cv[l] = NEV; x.cj[l] = x.cd[l] = x.c5[l] = 0;
           }
-#if SLAB_ABLATE == 8
-          if (ABL == ABL_NOPUSH_LIVE) seed_live(x, gop, NS);
+#if SLAB_ABLATE == 8 || SLAB_ABLATE == 14
+          if (ABL == ABL_NOPUSH_LIVE || ABL == ABL_RECUR_CLOSE)
+            seed_live(x, gop, NS);
 #endif
         }
         if (!LINKS && !active) {
@@ -537,7 +582,7 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
 #if SLAB_ABLATE == 7
           const bool closes = ABL != ABL_NOCLOSE_LIVE && isacc && x.internal;
 #else
-          const bool closes = ABL != ABL_NOCLOSE && isacc && x.internal;
+          const bool closes = KEEP(ABL_NOCLOSE) && isacc && x.internal;
 #endif
           bool ok[NCAND];
           int pen[NCAND];
@@ -545,7 +590,7 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
           for (int l = 0; l < NCAND; ++l) {
             const int ilen = n - x.cj[l];
             ok[l] = closes && ilen >= llmt && x.cv[l] > NEV / 2;
-            pen[l] = !ok[l] || ABL == ABL_NOIPEN ? 0
+            pen[l] = !ok[l] || KO(ABL_NOIPEN) ? 0
                      : ilen < 0 ? NEV / 2 : __ldg(ipen + min(ilen, Np - 1));
           }
           // ---- neighbour values and their links; lane 0's sources sit on
@@ -553,7 +598,11 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
           int up_h, up_f, diag_h, up_f2 = NEV;
           int lk_up_h = 0, lk_up_f = 0, lk_diag = 0, lk_up_f2 = 0;
           if (i == 0) {
+#if SLAB_ABLATE == 9 || SLAB_ABLATE >= 16
+            const bool in = KEEP(ABL_NOFILLS) && n >= 0 && n < nbnd;
+#else
             const bool in = n >= 0 && n < nbnd;
+#endif
             const int raw_h = in ? ld_bnd(bh + n) : NEV;
             const int raw_f = in ? ld_bnd(bf + n) : NEV;
             const int raw_f2 = DAGP && in ? ld_bnd(bf2 + n) : NEV;
@@ -561,7 +610,12 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
             up_h = ok_up ? raw_h : NEV;
             up_f = ok_up ? raw_f : NEV;
             if (DAGP) up_f2 = ok_up ? raw_f2 : NEV;
+#if SLAB_ABLATE == 9 || SLAB_ABLATE >= 16
+            diag_h = KEEP(ABL_NOFILLS) && n >= 1 && n - 1 <= N
+                         ? ld_bnd(bh + n - 1) : NEV;
+#else
             diag_h = (n >= 1 && n - 1 <= N) ? ld_bnd(bh + n - 1) : NEV;
+#endif
             if (LINKS) {
               lk_up_h = n * 8;
               lk_up_f = n * 8 + 2;
@@ -600,16 +654,37 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
           // descend from column 0, link 0
           const bool edge = first && n != 1;
           const int left_h =
-              ABL == ABL_NOEDGE ? x.h1
+              KO(ABL_NOEDGE) ? x.h1
               : n == 1 ? x.col_m : (edge ? e_const : (first ? NEV : x.h1));
           const int lk_left = (n == 1 || first) ? 0 : x.lkh1;
-          if (ABL != ABL_NOEDGE) {
+          if (KEEP(ABL_NOEDGE)) {
             if (n == 1) { diag_h = x.col_m1; lk_diag = 0; }
             if (r_off >= W - 1) { up_h = NEV; up_f = NEV; up_f2 = NEV; }
           }
           // ---- recurrence (order = fwd2s1.cc:276-431)
           int sv[NS], jn[NS], lks[NS];
+#if SLAB_ABLATE == 12
+          // MIN_BODY's stand-in (wrapping, as the script's int32 sums)
+          const bool f_open = false, e_open = false;
+          const bool f2_open = false, e2_open = false;
+          const int h_val =
+              (int)((unsigned)diag_h + score + left_h - up_h + up_f - x.e1);
+          int mx = h_val, mk = 0, lk_mx = lk_diag;
+          sv[0] = h_val;
+          sv[1] = (int)((unsigned)h_val - 1);
+          sv[2] = (int)((unsigned)h_val - 2);
+          if constexpr (DAGP) { sv[3] = sv[1]; sv[4] = sv[2]; }
+          lks[0] = lk_diag; lks[1] = x.lke; lks[2] = lk_up_f;
+          if constexpr (DAGP) { lks[3] = x.lke2; lks[4] = lk_up_f2; }
+          (void)up_f2;
+          (void)lk_up_h;
+          (void)lk_left;
+#else
+#if SLAB_ABLATE == 10
+          const int h_val = (KO(ABL_NORECUR) ? x.h1 : diag_h) + score;
+#else
           const int h_val = diag_h + score;
+#endif
           int mx = h_val, mk = 0, lk_mx = lk_diag;
           int xo = up_h + gop;                     // F: new gap >= extend
           const bool f_open = xo >= up_f;
@@ -631,7 +706,12 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
           const bool e_open = xo >= x.e1;
           const int e_val = (e_open ? xo : x.e1) + gep;
           if (e_open) x.lke = lk_left;
+#if SLAB_ABLATE == 11
+          x.psp = KO(ABL_NOPSP) ? prev_psp
+                  : e_open ? (prev_psp != 0 ? 1 : 0) : (prev_psp & 1);
+#else
           x.psp = e_open ? (prev_psp != 0 ? 1 : 0) : (prev_psp & 1);
+#endif
           if (e_val >= mx) { mx = e_val; mk = 1; lk_mx = x.lke; }
           bool e2_open = false;
           if constexpr (DAGP) {                    // E2, >= into the max
@@ -647,9 +727,21 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
           }
           sv[0] = h_val; sv[1] = e_val; sv[2] = f_val;
           lks[0] = lk_diag; lks[1] = x.lke; lks[2] = lkf;
+#endif
 #pragma unroll
           for (int k = 0; k < NS; ++k) jn[k] = 0;
           // ---- acceptor close (fwd2s1.cc:333-354)
+#if SLAB_ABLATE == 12 || SLAB_ABLATE == 13 || SLAB_ABLATE == 15
+          {   // the close's stand-in: its operands summed (wrapping)
+            unsigned h = (unsigned)mx + accb + sig5 + dinc5 + isdon
+                         + 2 * isacc;
+#pragma unroll
+            for (int l = 0; l < NCAND; ++l) h += jr[slot * 16 + l];
+            mx = (int)h;
+#pragma unroll
+            for (int k = 0; k < NS; ++k) sv[k] = mx;
+          }
+#else
           if (closes) {
             int xc[NCAND];
 #pragma unroll
@@ -674,12 +766,15 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
               }
             }
           }
+#endif
           // ---- donor push (fwd2s1.cc:380-406): sorted insertion, ties keep
           // existing entries first; the candidate carries its value's link
 #if SLAB_ABLATE == 8
           if (ABL != ABL_NOPUSH_LIVE && isdon && x.internal) {
+#elif SLAB_ABLATE >= 12 && SLAB_ABLATE <= 14
+          if (MODE != MODE_SCORE && isdon && x.internal) {   // no push
 #else
-          if (ABL != ABL_NOPUSH && isdon && x.internal) {
+          if (KEEP(ABL_NOPUSH) && isdon && x.internal) {
 #endif
 #pragma unroll
             for (int k = 0; k < NS; ++k) {
@@ -753,10 +848,10 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
             for (int k = 0; k < NS; ++k)
               x.spj_out[(size_t)k * plane + (size_t)t * tstride] = jn[k];
           }
-          if (ABL != ABL_NOEMIT && active) {
-#if SLAB_ABLATE == 7
+          if (KEEP(ABL_NOEMIT) && active) {
+#if SLAB_ABLATE == 7 || SLAB_ABLATE == 15
             if (rowb && m == M)
-              rowb[n] = ABL == ABL_NOCLOSE_LIVE
+              rowb[n] = ABL == ABL_NOCLOSE_LIVE || ABL == ABL_RECUR_PUSH
                             ? h_out ^ x.cv[NCAND - 1] ^ x.cj[NCAND - 1]
                                   ^ x.cd[NCAND - 1] ^ x.c5[NCAND - 1]
                             : h_out;
@@ -981,6 +1076,13 @@ int launch_slab(const int* qprof, const int* gops, const int* joint,
                 const int* snap, int* bnd, unsigned char* flags, int* spj,
                 int* row, int* rc, int* links, int* snaps,
                 cudaStream_t stream) {
+#if SLAB_ABLATE
+  // a knock-out build times the score mode alone: no other mode's kernel
+  // is instantiated, and their entries refuse
+  if constexpr (MODE != MODE_SCORE) {
+    return (int)cudaErrorNotSupported;
+  } else {
+#endif
   constexpr int MAXT = max_threads(MODE, DAGP);
   const int KL = k * L;
   const int P = (KL + MAXT - 1) / MAXT;      // lanes a thread
@@ -1014,6 +1116,9 @@ int launch_slab(const int* qprof, const int* gops, const int* joint,
       nslab, W, T, Mpad, Np, gop, gep, lgop, lgep, llmt, a_exgl, a_exgr,
       b_exgl, snap, bnd, flags, spj, row, rc, links, snaps, ncta, prog);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
+#if SLAB_ABLATE
+  }
+#endif
 }
 
 }  // namespace

@@ -7,8 +7,11 @@ with its script's arguments, plus ``--device`` (cuda, the default, is an
 error without a card; cpu runs the plain versions) and ``--threads``
 (the CTA's 128-1024 threads), and holds a plain PyTorch version of every
 body, the wrapper of its kernel in csrc/probes.cu and a ``main`` that
-prints ns a step (T-differenced, _cuda.step_ns).  ablate_pallas times
-spliced_slab_score in knocked-out builds of csrc/spliced_dp.cu.
+prints ns a step (T-differenced, _cuda.step_ns).  ablate_pallas,
+time_kernel_pieces and bisect_mosaic time or launch spliced_slab_score
+in knocked-out builds of csrc/spliced_dp.cu; mosaic_repro holds the
+growing skeletons of the slab step (csrc/mosaic_repro.cu), each level
+with its plain version.
 
   module          C entry          replaces (the script's pallas_call)
   pallas_probe    probe_k0         scripts/pallas_probe.py:69
@@ -20,6 +23,12 @@ spliced_slab_score in knocked-out builds of csrc/spliced_dp.cu.
   ablate_pallas   spliced_slab_score (SLAB_ABLATE builds)
                                    scripts/ablate_pallas.py:53 ->
                                    spaln_tpu/ops/dp_spliced_pallas.py:215
+  time_kernel_pieces, bisect_mosaic
+                  spliced_slab_score (SLAB_ABLATE builds)
+                                   scripts/time_kernel_pieces.py:60,
+                                   scripts/bisect_mosaic.py:103 ->
+                                   spaln_tpu/ops/dp_spliced_pallas.py:767
+  mosaic_repro    mosaic_repro     scripts/mosaic_repro.py:93, 265, 449
 """
 from __future__ import annotations
 

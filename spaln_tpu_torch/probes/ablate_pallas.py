@@ -29,8 +29,12 @@ split them, keeping the other piece's work:
   nopush_live   no donor push; the close runs at every acceptor on
                 candidates nvcc cannot see
 
-A knocked-out build computes wrong scores: it is for timing only.  The
-"none" build must equal the production kernel.  Prints ms, ns a serial
+BUILDS continues the enum with the builds of time_kernel_pieces and
+bisect_mosaic (SLAB_ABLATE 9-17), whose variant tables map onto it;
+ablate also times the production build at a forced k (slabs a CTA runs
+at once, forced_k).  A knocked-out build computes wrong scores: it is
+for timing only.  The "none" build and each forced k must equal the
+production kernel.  Prints ms, ns a serial
 step (the launch's critical path, slab_serial_steps) and what each
 knock-out saves against "none".  The builds run in parallel, one nvcc
 each.  With --device cpu only the production step runs, as its plain
@@ -39,21 +43,14 @@ version (the knock-outs exist only as CUDA builds).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
-import numpy as np
 import torch
 
-from ..config import Config, CvsG, resolve
+from ..bench import bench_batch
 from ..ops import dp_spliced_cuda as K
-from ..ops.dp_spliced import prepare_spliced_batch
-from ..ops.params import DpParams
-from ..score.intron import IntronPenalty
-from ..score.simmtx import Simmtx
-from ..score.splice import build_splice_signals
-from ..score.tables import TableDir, find_table_dir
-from ..seq.codec import encode_dna
 from ._cuda import elapsed_ms
 
 SCRIPT = "scripts/ablate_pallas.py:53"
@@ -61,35 +58,31 @@ KNOCKOUTS = ("none", "noscore", "noedge", "noipen", "noclose", "nopush",
              "noemit", "noclose_live", "nopush_live")
 
 
-def defines(knockout: str) -> tuple[str, ...]:
-    """The nvcc defines of a knock-out's build of spliced_dp.cu."""
-    return (f"SLAB_ABLATE={KNOCKOUTS.index(knockout)}",)
+# every SLAB_ABLATE value of csrc/spliced_dp.cu by name, in the order of
+# its enum: PR 9's knock-outs, then those of time_kernel_pieces and
+# bisect_mosaic
+BUILDS = KNOCKOUTS + (
+    "nofills", "norecur", "nopsp", "min_body", "recur_only", "recur_close",
+    "recur_push", "all_off", "all_off_noedge")
 
 
-def bench_batch(B: int = 256, M: int = 512, W: int = 4096,
-                device: torch.device | str = "cpu"):
-    """(batch, params) of the script's bench geometry: B problems, each
-    a query of three M//3-nt exons and a genome with a 300 and a 500 nt
-    intron (GT..AG) between them, from numpy's default_rng(0) as the
-    script draws them; one band of W columns, lw = -(W // 2), L = 128."""
-    cfg = resolve(Config(), CvsG)
-    prm = DpParams.build(cfg, Simmtx.dna(), CvsG,
-                         ipen=IntronPenalty(cfg, CvsG))
-    tables = TableDir(find_table_dir())
-    rng = np.random.default_rng(0)
-    bases = np.array(list("ACGT"))
-    queries, genomes, sigs = [], [], []
-    for _ in range(B):
-        e = ["".join(rng.choice(bases, M // 3)) for _ in range(3)]
-        i1 = "GTAAGT" + "".join(rng.choice(bases, 300)) + "TTTTTAG"
-        i2 = "GTGAGT" + "".join(rng.choice(bases, 500)) + "TTTCTAG"
-        queries.append(encode_dna("".join(e)))
-        genomes.append(encode_dna(e[0] + i1 + e[1] + i2 + e[2]))
-        sigs.append(build_splice_signals(genomes[-1], cfg, tables))
-    lw = -(W // 2)
-    bp = prepare_spliced_batch(queries, genomes, prm, sigs=sigs, lw=lw,
-                               up=lw + W - 1, L=128, device=device)
-    return bp, prm
+def defines(build: str) -> tuple[str, ...]:
+    """The nvcc defines of a build of spliced_dp.cu."""
+    return (f"SLAB_ABLATE={BUILDS.index(build)}",)
+
+
+@contextlib.contextmanager
+def forced_k(k: int | None):
+    """Force the slabs a CTA runs at once to min(S, k) (None: the
+    production geometry), as chip_smoke.py --slab-timing forces them."""
+    orig = K.slab_geometry
+    if k is not None:
+        K.slab_geometry = (lambda mode, dagp, L, A, S:
+                           orig(mode, dagp, L, A, min(S, k)))
+    try:
+        yield
+    finally:
+        K.slab_geometry = orig
 
 
 def serial_steps(bp, prm) -> int:
@@ -101,40 +94,55 @@ def serial_steps(bp, prm) -> int:
     return K.slab_serial_steps(bp.T, bp.L, k, bp.S, ncta)
 
 
-def build_all(knockouts=KNOCKOUTS) -> dict:
-    """Build the production library and every knock-out's, one nvcc each,
-    all at once: name -> (library path, nvcc seconds)."""
-    names = ("production",) + tuple(knockouts)
+def builds_of(variants, table: dict) -> list:
+    """The distinct builds that the variants of ``table`` (variant -> a
+    BUILDS name, or another word for no build of its own) run, "none"
+    always first."""
+    return list(dict.fromkeys(["none"] + [table[v] for v in variants
+                                          if table[v] in BUILDS]))
+
+
+def build_all(builds=KNOCKOUTS) -> dict:
+    """Build the production library and each build's, one nvcc each, all
+    at once: name -> (library path, nvcc seconds, ptxas log)."""
+    names = ("production",) + tuple(builds)
     with ThreadPoolExecutor(len(names)) as pool:
         built = pool.map(
             lambda n: K.build_library(K.SOURCE,
                                       () if n == "production" else defines(n)),
             names)
-        return {n: (so, secs) for n, (so, secs, _) in zip(names, built)}
+        return dict(zip(names, built))
 
 
-def ablate(bp, prm, knockouts=KNOCKOUTS, reps: int = 3) -> dict:
-    """Time each knock-out's spliced_slab_score on the batch (the median
-    of ``reps`` launches after a warm-up, CUDA events); hold the "none"
-    build's (row, rc) equal to the production build's.  Returns name ->
-    {ms, ns_per_step, saves_ns}, and the serial steps."""
-    steps = serial_steps(bp, prm)
+def ablate(bp, prm, builds=KNOCKOUTS, ks=(), reps: int = 3) -> dict:
+    """Time spliced_slab_score in each build, and in the production build
+    at each forced k of ``ks``, on the batch (the median of ``reps``
+    launches after a warm-up, CUDA events); the "none" build (always run,
+    first) and each k must give the production kernel's (row, rc).
+    Returns the serial steps of a launch and, under "knockouts", name ->
+    {ms, steps, ns_per_step, saves_ns}: a k's row is "k=<k>", over its own
+    serial steps; saves against "none", over its steps."""
     prod = K.spliced_slab_score(bp, prm)
+    runs = [(b, defines(b), None)
+            for b in dict.fromkeys(("none",) + tuple(builds))]
+    runs += [(f"k={k}", (), k) for k in ks]
     out = {}
-    for ko in knockouts:
-        d = defines(ko)
-        got = K.spliced_slab_score(bp, prm, d)
-        if ko == "none" and not all(torch.equal(a, b)
-                                    for a, b in zip(got, prod)):
-            raise AssertionError("ablate_pallas: the SLAB_ABLATE=0 build "
-                                 "differs from the production kernel")
-        ms = elapsed_ms(lambda: K.spliced_slab_score(bp, prm, d),
-                        bp.device, reps)
-        out[ko] = {"ms": ms, "ns_per_step": ms / steps * 1e6}
+    for name, d, k in runs:
+        with forced_k(k):
+            got = K.spliced_slab_score(bp, prm, d)
+            if (name == "none" or k is not None) and not all(
+                    torch.equal(a, b) for a, b in zip(got, prod)):
+                raise AssertionError(f"ablate_pallas: {name} differs from "
+                                     f"the production kernel")
+            ms = elapsed_ms(lambda: K.spliced_slab_score(bp, prm, d),
+                            bp.device, reps)
+            steps = serial_steps(bp, prm)
+        out[name] = {"ms": ms, "steps": steps,
+                     "ns_per_step": ms / steps * 1e6}
+    base = out["none"]
     for v in out.values():
-        v["saves_ns"] = out["none"]["ns_per_step"] - v["ns_per_step"] \
-            if "none" in out else None
-    return {"serial_steps": steps, "knockouts": out}
+        v["saves_ns"] = (base["ms"] - v["ms"]) / base["steps"] * 1e6
+    return {"serial_steps": base["steps"], "knockouts": out}
 
 
 def report(res: dict, bp) -> None:
@@ -160,8 +168,8 @@ def main(argv: list | None = None) -> int:
     p.add_argument("--knockouts", default=",".join(KNOCKOUTS))
     args = p.parse_args(argv)
     kos = tuple(args.knockouts.split(","))
-    if any(k not in KNOCKOUTS for k in kos):
-        raise SystemExit(f"--knockouts: of {KNOCKOUTS}")
+    if any(k not in BUILDS for k in kos):
+        raise SystemExit(f"--knockouts: of {BUILDS}")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available (use "
                          "--device cpu to run the plain version)")
@@ -170,7 +178,7 @@ def main(argv: list | None = None) -> int:
         ms = elapsed_ms(lambda: K.spliced_slab_score(bp, prm), bp.device)
         print(f"ablate=none (plain version on the CPU): {ms:.1f} ms")
         return 0
-    for name, (so, secs) in build_all(kos).items():
+    for name, (so, secs, _) in build_all(kos).items():
         print(f"{name}: {so.name}, nvcc {secs:.1f} s", file=sys.stderr)
     report(ablate(bp, prm, kos), bp)
     return 0

@@ -9,7 +9,11 @@ search on the card equal to the CPU run; the tron kernels K7 and K8 at
 the rule's geometry and forced ones (1-11 slabs, 9-1,024 lanes) and the
 protein map; the step probes at 4-32 warps, the slab kernel's "none"
 knock-out build against the production one, and the production
-instances' registers.  Needs an NVIDIA GPU; skipped
+instances' registers; every step skeleton (csrc/mosaic_repro.cu) at the
+script's inputs, the knock-out builds of time_kernel_pieces and
+bisect_mosaic (each launched, "none" and each forced k equal to the
+production kernel) and the bench's scores against the plain versions.
+Needs an NVIDIA GPU; skipped
 without one.  The machine with the card has no JAX, so run these
 without the repo's conftest:
 
@@ -719,3 +723,71 @@ def test_production_registers_unchanged(cuda):
                           r"loads", line)
             got[name][1:] = [int(m[1]), int(m[2])]
     assert {k: tuple(v) for k, v in got.items()} == SLAB_PTXAS
+
+
+# ------------------------------------------- skeletons, pieces, the bench
+def test_skeleton_levels_equal_plain_on_card(cuda):
+    """Every mosaic_repro level the script distinguishes, at the script's
+    inputs and shapes (B=16; 32-46 at B=8) and at 3 chunks with --sop8's
+    stack: all four outputs equal to the plain version's on the card."""
+    from spaln_tpu_torch.probes import mosaic_repro as MR
+    for lev in MR.LEVELS:
+        B = MR.script_B(lev)
+        for chunks, sop8 in ((MR.N_CHUNKS, False), (3, True)):
+            a = MR.level_inputs(lev, MR.inputs(B, chunks, sop8), cuda)
+            before = MR.launches.get(f"level{lev}", 0)
+            got = MR.run(lev, a, chunks)
+            want = MR.plain(lev, a, chunks)
+            assert all(torch.equal(x, y) for x, y in zip(got, want)), lev
+            assert MR.launches[f"level{lev}"] == before + 1
+
+
+def test_kernel_piece_builds_on_card(cuda):
+    """Every variant build of bisect_mosaic launches on its batch ("orig"
+    equal to the production kernel), and the production build at each
+    forced k of time_kernel_pieces gives the production geometry's
+    outputs."""
+    from spaln_tpu_torch.probes import ablate_pallas as AB
+    from spaln_tpu_torch.probes import bisect_mosaic as BM
+    from spaln_tpu_torch.probes import time_kernel_pieces as TKP
+    AB.build_all(AB.BUILDS)
+    bp, prm = BM.bisect_batch(cuda)
+    res = BM.bisect(bp, prm, list(BM.VARIANTS))
+    assert all(r == "PASS" for v, r in res.items()
+               if BM.VARIANTS[v] is not None), res
+    t = AB.ablate(bp, prm, [], TKP.TILINGS, reps=1)["knockouts"]
+    assert set(t) == {"none", "k=1", "k=2", "k=4"}
+
+
+def test_bench_scores_equal_plain_on_card(cuda):
+    """The bench's workload at a cut size on the card: its scores (held
+    inside against the plain version on the card) equal the plain
+    version's on the CPU."""
+    from spaln_tpu_torch import bench
+    bp, prm = bench.bench_batch(4, 96, 2048, cuda)
+    res = bench.measure(bp, prm, iters=2)
+    cbp, cprm = bench.bench_batch(4, 96, 2048, "cpu")
+    want = bench.scores_of(cbp, cprm, K.spliced_slab_score(cbp, cprm))
+    assert np.array_equal(res["scores"], want)
+    assert res["max_abs_err"] == 0
+    assert res["value"] > 0 and res["device"] == torch.cuda.get_device_name()
+
+
+def test_bench_holds_row_rc_not_only_scores(cuda, monkeypatch):
+    """A plain (row, rc) one lower at each problem's smallest row cell
+    leaves every score as it was, and the bench still refuses it."""
+    from spaln_tpu_torch import bench
+    bp, prm = bench.bench_batch(4, 96, 2048, cuda)
+    plain = K.slab_score_plain
+
+    def off(bp, prm):
+        row, rc = plain(bp, prm)
+        row = row.clone()
+        j = row.argmin(dim=1)
+        row[torch.arange(row.shape[0]), j] -= 1
+        return row, rc
+    assert np.array_equal(bench.scores_of(bp, prm, off(bp, prm)),
+                          bench.scores_of(bp, prm, plain(bp, prm)))
+    monkeypatch.setattr(K, "slab_score_plain", off)
+    with pytest.raises(AssertionError, match="by up to 1"):
+        bench.measure(bp, prm, iters=1)

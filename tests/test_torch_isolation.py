@@ -1,7 +1,7 @@
 """The port imports neither jax nor spaln_tpu: checked in a fresh
 interpreter, after importing the package, its CLI and every module of
-the map (cDNA and protein), align and search paths and of the step
-probes."""
+the map (cDNA and protein), align and search paths, of the step probes
+and skeletons and of the bench."""
 import json
 import os
 import subprocess
@@ -29,7 +29,10 @@ MODULES = ["spaln_tpu_torch", "spaln_tpu_torch.cli",
            "spaln_tpu_torch.probes.probe_gather",
            "spaln_tpu_torch.probes.probe_step_ops",
            "spaln_tpu_torch.probes.probe_int16",
-           "spaln_tpu_torch.probes.ablate_pallas"]
+           "spaln_tpu_torch.probes.ablate_pallas",
+           "spaln_tpu_torch.probes.mosaic_repro",
+           "spaln_tpu_torch.probes.time_kernel_pieces",
+           "spaln_tpu_torch.probes.bisect_mosaic", "spaln_tpu_torch.bench"]
 
 
 @pytest.mark.parametrize("mods", [MODULES[:2], MODULES])
