@@ -14,7 +14,8 @@ per source, started together, then:
    the card; outputs must be exactly equal (integer DP: tolerance 0).
    K4 (links), K1's retrace of slab 1 from K4's snapshot (against the
    full K1 planes of slab 1) and K3's strip mode (spliced_tb_strips)
-   included.  Then the
+   included; the walks' steps and tile loads (their kernels' stats)
+   equal to the CPU model's (walk_stats) on the same records.  Then the
    same for the double-affine (-yl3) entries on a bucket of the same
    shape whose genes also carry 30-90 nt in-exon indels (some path cell
    must be won by a long-gap state), and the score-only entry on that
@@ -42,7 +43,8 @@ per source, started together, then:
    compared at the end) at the rule's geometry, and at the forced sweep
    of k = 1, 2, 3 (1, 2 double affine) slabs a CTA x 1, 2, 3 CTAs per
    problem equal to the rule's outputs; K8 on each to its plain version
-   on the card; then K7 on one problem of 11 slabs and on two of one
+   on the card, its steps and tile loads to the model's
+   (tron_walk_stats); then K7 on one problem of 11 slabs and on two of one
    1,024-lane slab (three pieces), each at its rule's geometry and
    forced ones, against its plain version;
 2. map, small: `index` + `map -O0` and `-O4` of 4 planted genes through
@@ -84,7 +86,9 @@ per source, started together, then:
    `index -K P`, then `map -T Tetrapod -O0,4` (Smith-Waterman local,
    3 states) and `map -y l3` (5 states); every batch on K7 and K8 with no
    plain call, >= 90% of queries at their planted locus and strand, some
-   K7 launch with a problem on more than one CTA; each launch of K7
+   K7 launch with a problem on more than one CTA; after each map, every
+   K8 launch's records (the batch's K7 run again) equal to K8's plain
+   version's on the card and its tile loads to the model's; each launch of K7
    (with its k, CTAs per problem and serial steps) and K8 timed on the
    map's run beside the bound of its batch, and the sums over the
    launches;
@@ -113,6 +117,7 @@ smoke_work/ (removed at the end), map text to smoke_out/.
 
     python3 chip_smoke.py --slab-timing [--package-root DIR]
     python3 chip_smoke.py --tron-timing [--package-root DIR]
+    python3 chip_smoke.py --walk-timing [--package-root DIR]
     python3 chip_smoke.py --probe-timing [--package-root DIR]
 
 run phase 1's timing buckets alone, or K7 on phase 1's tron batch and
@@ -121,7 +126,10 @@ the package takes a forced one, the sweep of k and CTAs per problem) and
 on each batch of phase 8's map and -y l3 map (summed), of
 the package under DIR (an unpacked checkout of another commit; its
 tables from $ALN_TAB), and print one JSON line: two commits timed in
-turns on one card.  --probe-timing builds the probes, the skeletons,
+turns on one card.  --walk-timing times the two traceback walks alone
+(walk_timing: K3 and its strips on phase 1's buckets, K3 at tetrapod
+width, K8 on phase 1's tron batch and phase 8's launches).
+--probe-timing builds the probes, the skeletons,
 the production slab library and its knock-out builds (-DSLAB_ABLATE
 0-17, nvcc all at once), holds every probe body against its plain
 version at all four thread counts, runs the probes' sweep at 128, 256,
@@ -138,6 +146,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import json
 import re
@@ -355,11 +364,17 @@ def plain_on_card(K):
     """Test hook: route run_bucket's three kernel calls to the plain
     PyTorch versions, on the same CUDA tensors."""
     saved = (K.spliced_slab_trace, K.spliced_last_ends, K.spliced_tb_walk)
+
+    def walk(bp, fl, spj, ends, out=None, stats=None):
+        recs = K.tb_walk_plain(bp, fl, spj, ends)
+        if stats is not None:
+            stats.copy_(K.walk_stats(recs, fl, bp.lws_t))
+        return recs
+
     K.spliced_slab_trace = lambda bp, prm: K.slab_trace_plain(bp, prm)
     K.spliced_last_ends = (lambda bp, prm, row, rc, out=None:
                            K.last_ends_plain(bp, prm, row, rc))
-    K.spliced_tb_walk = (lambda bp, fl, spj, ends, out=None:
-                         K.tb_walk_plain(bp, fl, spj, ends))
+    K.spliced_tb_walk = walk
     try:
         yield
     finally:
@@ -368,8 +383,93 @@ def plain_on_card(K):
 
 
 # --------------------------------------------------------------- phase 1
-def check_kernels(K, dp, ctx):
-    """Each kernel against its plain version at main-path shapes."""
+WALK_KEYS = ("steps", "ns_per_step", "tile_loads", "tile_loads_max")
+
+
+def _walk_keys(stats: torch.Tensor) -> dict:
+    """A walk launch's row keys from its kernel's (steps, tile loads) per
+    walk: the longest walk's serial steps, the tile loads a walk (mean
+    and most)."""
+    stats = stats.cpu()
+    return dict(steps=int(stats[:, 0].max()),
+                tile_loads=float(stats[:, 1].float().mean()),
+                tile_loads_max=int(stats[:, 1].max()))
+
+
+def _walk_check(K, label: str, recs, stats, *model) -> dict:
+    """K3's steps and tile loads (its ``stats``) equal to the model's
+    (walk_stats, given ``model``, its arguments after the records) on the
+    same records; returns _walk_keys."""
+    want = K.walk_stats(recs, *model)
+    if not torch.equal(stats.cpu(), want):
+        raise AssertionError(f"{label}: steps and tile loads "
+                             f"{stats.cpu().tolist()} differ from the "
+                             f"model's {want.tolist()}")
+    return _walk_keys(stats)
+
+
+def _launch_ms(M, fn, reps: int) -> float:
+    """Device ms a launch of the one C entry that fn reaches through the
+    wrapper module M, from a cold L2 (as after the forward's gigabytes of
+    planes): the entry's arguments caught on a first call (and every
+    tensor they point into kept), then reps times a 128 MB buffer
+    zeroed (the L2 is 50 MB) and the entry called between CUDA events,
+    queued while the card still zeroes, so that no host work lies
+    between the events."""
+    import ctypes
+    seen, keep = [], []
+    launch, ptr = M._launch, M._ptr
+
+    def catch_ptr(t):
+        keep.append(t)
+        return ptr(t)
+
+    def catch(name, device, *args, **kw):
+        seen.append((name, args))
+        return launch(name, device, *args, **kw)
+    M._launch, M._ptr = catch, catch_ptr
+    try:
+        fn()
+    finally:
+        M._launch, M._ptr = launch, ptr
+    (name, args), = seen
+    entry = getattr(M._library(), name)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    flush = torch.empty(32 << 20, dtype=torch.int32, device="cuda")
+    events = []
+    for _ in range(reps):
+        flush.zero_()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        entry(*args, stream)
+        t1.record()
+        events.append((t0, t1))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / reps
+
+
+def _timed_walk(row: dict, fn, reps: int, M) -> dict:
+    """Time a walk launch into its row: ms, the kernel's device time a
+    launch (_launch_ms, M its wrapper module), ns a serial step from it,
+    and call_ms, CUDA events around the wrapper's call (its host work
+    included, as the walks' times of earlier PRs were taken)."""
+    row["ms"] = _launch_ms(M, fn, reps)
+    row["call_ms"] = _timed(fn, reps)
+    row["ns_per_step"] = row["ms"] * 1e6 / max(row["steps"], 1)
+    return row
+
+
+def _walk_log(name: str, r: dict) -> str:
+    return (f"{name}: {r['ms']:.4f} ms on the card ({r['call_ms']:.4f} ms "
+            f"a wrapper call), {r['steps']} serial steps = "
+            f"{r['ns_per_step']:.1f} ns a step, {r['tile_loads']:.2f} tile "
+            f"loads a walk (most {r['tile_loads_max']})")
+
+
+def _phase1_bucket(dp, ctx):
+    """Phase 1's bucket: B=8 planted 2-3 exon genes (exons of 60-85 nt,
+    introns of 70-300 nt) at main-path shapes, L=128, W=1,152: 2 slabs."""
     from spaln_tpu_torch.score.splice import build_splice_signals
     from spaln_tpu_torch.seq.codec import encode_dna
     rng = np.random.default_rng(SEED)
@@ -393,6 +493,13 @@ def check_kernels(K, dp, ctx):
                                   lws=lws, W=1152, L=128, device="cuda")
     if (bp.S, bp.B, bp.L) != (2, 8, 128):
         raise AssertionError(f"kernel bucket geometry {bp.S, bp.B, bp.L}")
+    return bp
+
+
+def check_kernels(K, dp, ctx):
+    """Each kernel against its plain version at main-path shapes; the
+    walks' steps and tile loads against the model's."""
+    bp = _phase1_bucket(dp, ctx)
     prm = ctx.prm
     out = {}
     k1 = K.spliced_slab_trace(bp, prm)
@@ -419,7 +526,8 @@ def check_kernels(K, dp, ctx):
         max_abs_err=err,
         ms=_timed(lambda: K.spliced_last_ends(bp, prm, row, rc), 20),
         plain_ms=_timed(lambda: K.last_ends_plain(bp, prm, row, rc), 5))
-    r_k = K.spliced_tb_walk(bp, flags, spj, e_k)
+    st = torch.empty((bp.B, 2), dtype=torch.int32, device="cuda")
+    r_k = K.spliced_tb_walk(bp, flags, spj, e_k, stats=st)
     r_p = K.tb_walk_plain(bp, flags, spj, e_k)
     err = _max_abs_err(r_k, r_p)
     if err:
@@ -427,10 +535,12 @@ def check_kernels(K, dp, ctx):
     ops = dp.ops_from_records(r_k.cpu().numpy(), bp.B)
     if not all(any(o[0] == "I" for o in x) for x in ops):
         raise AssertionError("a planted intron was not recovered")
-    out["spliced_tb_walk"] = dict(
+    out["spliced_tb_walk"] = _timed_walk(dict(
         max_abs_err=err,
-        ms=_timed(lambda: K.spliced_tb_walk(bp, flags, spj, e_k), 20),
-        plain_ms=_timed(lambda: K.tb_walk_plain(bp, flags, spj, e_k), 2))
+        plain_ms=_timed(lambda: K.tb_walk_plain(bp, flags, spj, e_k), 2),
+        **_walk_check(K, "spliced_tb_walk", r_k, st, flags, bp.lws_t)),
+        lambda: K.spliced_tb_walk(bp, flags, spj, e_k), 20,
+        K)
     # ---- K4, the links forward, against its plain version
     k4 = K.spliced_slab_links(bp, prm)
     torch.cuda.synchronize()
@@ -472,7 +582,10 @@ def check_kernels(K, dp, ctx):
     L = bp.L
     starts = _end_strips(e_k, L)
     IT = dp.strip_walk_bound(L, bp.W)
-    rs_k = K.spliced_tb_strips(r1[0], r1[1], starts, bp.lws_t, 1, IT)
+    sst = torch.empty((starts.shape[0], 2), dtype=torch.int32,
+                      device="cuda")
+    rs_k = K.spliced_tb_strips(r1[0], r1[1], starts, bp.lws_t, 1, IT,
+                               stats=sst)
     rs_p = K.tb_strips_plain(r1[0], r1[1], starts, bp.lws_t, 1, IT)
     err = _max_abs_err(rs_k, rs_p)
     if err:
@@ -482,12 +595,14 @@ def check_kernels(K, dp, ctx):
         raise AssertionError("strip walks differ from the full walk")
     if sum(map(len, strips)) == 0:
         raise AssertionError("no strip walked in slab 1")
-    out["spliced_tb_strips"] = dict(
+    out["spliced_tb_strips"] = _timed_walk(dict(
         max_abs_err=err,
-        ms=_timed(lambda: K.spliced_tb_strips(r1[0], r1[1], starts,
-                                              bp.lws_t, 1, IT), 20),
         plain_ms=_timed(lambda: K.tb_strips_plain(r1[0], r1[1], starts,
-                                                  bp.lws_t, 1, IT), 2))
+                                                  bp.lws_t, 1, IT), 2),
+        **_walk_check(K, "spliced_tb_strips", rs_k, sst,
+                      *_strip_model(r1[0], bp.lws_t, starts, 1))),
+        lambda: K.spliced_tb_strips(r1[0], r1[1], starts, bp.lws_t, 1, IT),
+        20, K)
     # ---- bounds from this run's inputs
     B, S, T, A = bp.B, bp.S, bp.T, bp.qprof.shape[2]
     Np = bp.Nmax + 1
@@ -522,6 +637,8 @@ def check_kernels(K, dp, ctx):
             f"(B=8 L=128 W=1152 S=2 T={T}: {cells} band cells of "
             f"{S * T * B * L} lane-steps, {acc} acceptor and {don} donor "
             f"cells; slab 1: {c1} band cells)")
+    for name in ("spliced_tb_walk", "spliced_tb_strips"):
+        log(_walk_log(f"kernel {name}", out[name]))
     return out
 
 
@@ -668,9 +785,14 @@ def check_k5_kernels(K, dp, ctx3):
     if spj.shape[1] != 5:
         raise AssertionError(f"dagp planes hold {spj.shape[1]} states")
     e_k = K.spliced_last_ends(bp, prm, row, rc)
-    r_k = K.spliced_tb_walk(bp, flags, spj, e_k)
+    st = torch.empty((bp.B, 2), dtype=torch.int32, device="cuda")
+    r_k = K.spliced_tb_walk(bp, flags, spj, e_k, stats=st)
     walks["walk"] = _equal("spliced_tb_walk (5 states)", [r_k],
                            [K.tb_walk_plain(bp, flags, spj, e_k)])
+    walk5 = _timed_walk(_walk_check(K, "spliced_tb_walk (5 states)", r_k,
+                                    st, flags, bp.lws_t),
+                        lambda: K.spliced_tb_walk(bp, flags, spj, e_k), 20,
+                        K)
     ops = dp.ops_from_records(r_k.cpu().numpy(), bp.B)
     if not all(any(o[0] == "I" for o in x) for x in ops):
         raise AssertionError("dagp bucket: a planted intron was not "
@@ -711,10 +833,18 @@ def check_k5_kernels(K, dp, ctx3):
                   5))
     starts = _end_strips(e_k, L)
     IT = dp.strip_walk_bound(L, bp.W)
-    rs_k = K.spliced_tb_strips(r1[0], r1[1], starts, bp.lws_t, 1, IT)
+    sst = torch.empty((starts.shape[0], 2), dtype=torch.int32,
+                      device="cuda")
+    rs_k = K.spliced_tb_strips(r1[0], r1[1], starts, bp.lws_t, 1, IT,
+                               stats=sst)
     walks["strip"] = _equal(
         "spliced_tb_strips (5 states)", [rs_k],
         [K.tb_strips_plain(r1[0], r1[1], starts, bp.lws_t, 1, IT)])
+    strip5 = _timed_walk(
+        _walk_check(K, "spliced_tb_strips (5 states)", rs_k, sst,
+                    *_strip_model(r1[0], bp.lws_t, starts, 1)),
+        lambda: K.spliced_tb_strips(r1[0], r1[1], starts, bp.lws_t, 1, IT),
+        20, K)
     strips = dp.ops_from_records(rs_k.cpu().numpy(), bp.B)
     if strips != [[o for o in x if o[1] > L] for x in ops]:
         raise AssertionError("dagp strip walks differ from the full walk")
@@ -773,6 +903,8 @@ def check_k5_kernels(K, dp, ctx3):
         f"in both gap models ({dagp_score_ms:.3f} ms double affine)")
     log(f"protein batch (B={pbp.B} L={pbp.L} W={pbp.W} S={pbp.S} "
         f"T={pbp.T} A={pbp.qprof.shape[2]}): {pcells} band cells")
+    log(_walk_log("kernel spliced_tb_walk (5 states)", walk5))
+    log(_walk_log("kernel spliced_tb_strips (5 states)", strip5))
     return out
 
 
@@ -1054,8 +1186,8 @@ def _slab_timing(K, bp, prm, tag):
                           lambda s0=s0, nslab=nslab, snap=snap, k=k:
                           _with_k(K, k, lambda: K.spliced_slab_retrace(
                               bp, prm, s0, nslab, snap, sel)))
+    out = {} if tag else _k3_timing(K, bp, prm, k1, "tetrapod width")
     del k1
-    out = {}
     for name, (mode, nslab, kf, fn) in runs.items():
         if mode == "retrace":
             k, ncta = _retrace_geom(K, bp, nslab, kf)
@@ -1076,6 +1208,66 @@ def _slab_timing(K, bp, prm, tag):
 def _with_k(K, k, fn):
     with _retrace_k(K, k):
         return fn()
+
+
+def _copy_ms(t: torch.Tensor, reps: int = 5) -> float:
+    """Median ms of one device-to-host copy of t into pageable memory
+    (.cpu(), as run_bucket copies), host clock."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.cpu()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[reps // 2]
+
+
+def _strip_model(flags, lws, starts, s0: int) -> tuple:
+    """walk_stats' arguments after the records for a strip launch."""
+    col = starts[:, 4].long()
+    return flags, lws[col], s0, starts[:, 2], col
+
+
+def _k3_row(K, label: str, recs, stats, *model) -> dict:
+    """A K3 launch's row keys: the kernel's steps and tile loads held
+    against the model's where the package has it, else the longest
+    walk's steps from its records (the same count)."""
+    if hasattr(K, "walk_stats"):
+        return _walk_check(K, label, recs, stats, *model)
+    return dict(steps=int((recs[:, :, 1] != 0).sum(0).max()))
+
+
+def _k3_timing(K, bp, prm, k1, label: str, clock: bool = False) -> dict:
+    """K3 (the full walk) on a bucket's K1 planes ``k1``: exact against its
+    plain version, ms a launch, serial steps, ns a step and tile loads;
+    and its records' copy to the host, every IT row (as run_bucket copied
+    them before it read the walks' steps) against the rows the walks
+    wrote."""
+    flags, spj, row, rc = k1
+    se = K.spliced_last_ends(bp, prm, row, rc)
+    stats = torch.empty((bp.B, 2), dtype=torch.int32, device="cuda")
+    fn = lambda: K.spliced_tb_walk(bp, flags, spj, se)
+    recs = (K.spliced_tb_walk(bp, flags, spj, se, stats=stats)
+            if hasattr(K, "walk_stats") else fn())
+    _equal(f"spliced_tb_walk ({label})", [recs],
+           [K.tb_walk_plain(bp, flags, spj, se)])
+    r = _timed_walk(_k3_row(K, label, recs, stats, flags, bp.lws_t), fn, 5,
+                    K)
+    if clock:
+        r.update(_clock_k3(K, bp, flags, spj, se, recs, stats))
+    r.update(copy_all_ms=_copy_ms(recs), copy_rows_ms=_copy_ms(
+        recs[:r["steps"]]), IT=bp.IT)
+    log(f"{label} bucket (B={bp.B} L={bp.L} W={bp.W} S={bp.S} T={bp.T}): "
+        f"spliced_tb_walk: {r['ms']:.4f} ms, {r['steps']} serial steps = "
+        f"{r['ns_per_step']:.1f} ns a step"
+        + (f", {r['tile_loads']:.2f} tile loads a walk (most "
+           f"{r['tile_loads_max']})" if "tile_loads" in r else "")
+        + (f"; clocked: {r['cycles_step']:.0f} cycles a step outside the "
+           f"loads, {r['cycles_load']:.0f} a load, latency floor "
+           f"{r['floor_ms']:.5f} ms" if clock else "")
+        + f"; records to the host: all {bp.IT} rows {r['copy_all_ms']:.3f} "
+        f"ms, the {r['steps']} rows written {r['copy_rows_ms']:.3f} ms")
+    return {f"spliced_tb_walk {label}": r}
 
 
 # ---------------------------------------------------- phase 1, tron path
@@ -1268,6 +1460,38 @@ def _tron_plain_job(job):
     return (list(planes) + [row, rc, loc]), (time.perf_counter() - t0) * 1e3
 
 
+def _tron_walk_check(TK, label: str, bp, planes, et, recs, counts,
+                     stats=None) -> tuple[dict, float]:
+    """K8's records equal to its plain version's on the card, and its
+    steps and tile loads (``stats``, unless None) to the model's
+    (tron_walk_stats) on the same records; returns (_walk_keys or {},
+    the plain version's ms)."""
+    (precs, pcounts, pdone), wplain = _plain_ms(
+        lambda: TK.tron_walk_plain(bp, planes, et))
+    if not (torch.equal(counts, pcounts) and bool(pdone.all())):
+        raise AssertionError(f"tron_walk counts differ ({label})")
+    for b in range(bp.B):
+        n = int(counts[b])
+        _equal(f"tron_walk ({label})", [recs[b, :n]], [precs[b, :n]])
+    if stats is None:
+        return {}, wplain
+    want = TK.tron_walk_stats(bp, planes[0], et, recs, counts)
+    if not torch.equal(stats.cpu(), want):
+        raise AssertionError(f"tron_walk ({label}): steps and tile loads "
+                             f"{stats.cpu().tolist()} differ from the "
+                             f"model's {want.tolist()}")
+    return _walk_keys(stats), wplain
+
+
+def _tron_ends(TD, bp, row, rc, loc) -> torch.Tensor:
+    """A batch's end cells (B, 2) on the card, as run_tron_batch takes
+    them."""
+    ends = TD.collect_tron_ends(bp, row.cpu().numpy(), rc.cpu().numpy(),
+                                loc.cpu().numpy())
+    return torch.tensor([[e[1], e[2]] for e in ends], dtype=torch.int32,
+                        device="cuda")
+
+
 def check_tron_kernels(TK, TD, pool):
     """K7 (3 and 5 states, Local on and off) and K8 against their plain
     versions on phase 1's tron batch (B=4, L=128, 3 slabs, W = 15,744):
@@ -1318,24 +1542,18 @@ def check_tron_kernels(TK, TD, pool):
                     TRON_SWEEP[dagp])
         got[dagp, local] = [x.cpu() for x in mine]
         del mine
-        ends = TD.collect_tron_ends(bp, row.cpu().numpy(), rc.cpu().numpy(),
-                                    loc.cpu().numpy())
-        et = torch.tensor([[e[1], e[2]] for e in ends], dtype=torch.int32,
-                          device="cuda")
-        recs, counts = TK.tron_walk(bp, planes, et)
-        (precs, pcounts, pdone), wplain = _plain_ms(
-            lambda: TK.tron_walk_plain(bp, planes, et))
-        if not (torch.equal(counts, pcounts) and bool(pdone.all())):
-            raise AssertionError(f"tron_walk counts differ ({name}, local "
-                                 f"{local})")
-        for b in range(bp.B):
-            n = int(counts[b])
-            _equal(f"tron_walk ({name}, local {local})",
-                   [recs[b, :n]], [precs[b, :n]])
+        et = _tron_ends(TD, bp, row, rc, loc)
+        st = torch.empty((bp.B, 2), dtype=torch.int32, device="cuda")
+        recs, counts = TK.tron_walk(bp, planes, et, stats=st)
+        wrow, wplain = _tron_walk_check(TK, f"{name}, local {local}", bp,
+                                        planes, et, recs, counts, st)
+        _timed_walk(wrow, lambda: TK.tron_walk(bp, planes, et), 5,
+                    TK)
         introns = sum(int(((recs[b, :int(counts[b]), 0] >= 4)).sum())
                       for b in range(bp.B))
         log(f"kernel tron_walk on {name} (local {local}): exact, "
-            f"{int(counts.sum())} records, {introns} introns on the paths")
+            f"{int(counts.sum())} records, {introns} introns on the paths; "
+            + _walk_log("K8", wrow))
         if not introns:
             raise AssertionError("no intron on the tron paths")
         if not local:
@@ -1358,10 +1576,10 @@ def check_tron_kernels(TK, TD, pool):
             steps = int(counts.sum())
             wb, wo = _walk_work(steps, bp.B)
             wbound, wby = _bound(wb, wo)
-            out["tron_walk"] = dict(max_abs_err=0, ms=_timed(
-                lambda: TK.tron_walk(bp, planes, et), 5), plain_ms=wplain,
-                bound_ms=wbound, bound_by=wby, work=(wb, wo))
-            log(f"kernel tron_walk: {out['tron_walk']['ms']:.3f} ms vs "
+            out["tron_walk"] = dict(max_abs_err=0, plain_ms=wplain,
+                                    bound_ms=wbound, bound_by=wby,
+                                    work=(wb, wo), **wrow)
+            log(f"kernel tron_walk: {wrow['ms']:.3f} ms vs "
                 f"plain {wplain:.1f} ms (on the card), bound {wbound:.7f} "
                 f"ms by {wby} ({steps} records)")
         del planes
@@ -1499,6 +1717,249 @@ def tron_timing(TK, TD) -> dict:
         del kept
         torch.cuda.empty_cache()
     return out
+
+
+def walk_timing(K, dp, TK, TD) -> dict:
+    """K3 and K8 alone, of the package under test: K3 on phase 1's bucket
+    (3 and 5 states) and its slab-1 strips, and on the tetrapod-width
+    bucket; K8 on phase 1's tron batch (3 and 5 states, Smith-Waterman
+    local) and on each of phase 8's batches (default and -y l3, summed).
+    Every walk but phase 8's is held against its plain version on the
+    card.  Returns name -> ms a launch, serial steps, ns a step and,
+    where the package has the tile model, tile loads a walk (the
+    kernel's, held against the model's)."""
+    from spaln_tpu_torch import cli
+    from spaln_tpu_torch.align.driver import AlignerContext
+    from spaln_tpu_torch.align.protein_driver import ProteinAlignerContext
+    from spaln_tpu_torch.score.tables import TableDir, find_table_dir
+    out = {}
+    clock = hasattr(K, "walk_stats")     # a package with the band kernels
+    dict_tables = TableDir(find_table_dir(), species="Dictyost")
+    ctx = AlignerContext.create(dict_tables, "cuda")
+    ctx3 = AlignerContext.create(dict_tables, "cuda", y_args=["-yl3"])
+    for label, c, bp in (("phase 1", ctx, _phase1_bucket(dp, ctx)),
+                         ("phase 1 dagp", ctx3, _indel_bucket(dp, ctx3))):
+        k1 = K.spliced_slab_trace(bp, c.prm)
+        out.update(_k3_timing(K, bp, c.prm, k1, label, clock))
+        se = K.spliced_last_ends(bp, c.prm, k1[2], k1[3])
+        snap = K.spliced_slab_links(bp, c.prm)[1][1].contiguous()
+        sel = torch.arange(bp.B, dtype=torch.int32, device="cuda")
+        r1 = K.spliced_slab_retrace(bp, c.prm, 1, 1, snap, sel)
+        starts = _end_strips(se, bp.L)
+        IT = dp.strip_walk_bound(bp.L, bp.W)
+        stats = torch.empty((starts.shape[0], 2), dtype=torch.int32,
+                            device="cuda")
+        fn = lambda: K.spliced_tb_strips(r1[0], r1[1], starts, bp.lws_t, 1,
+                                         IT)
+        rs = (K.spliced_tb_strips(r1[0], r1[1], starts, bp.lws_t, 1, IT,
+                                  stats=stats)
+              if hasattr(K, "walk_stats") else fn())
+        _equal(f"spliced_tb_strips ({label})", [rs],
+               [K.tb_strips_plain(r1[0], r1[1], starts, bp.lws_t, 1, IT)])
+        r = _timed_walk(_k3_row(K, label, rs, stats,
+                                *_strip_model(r1[0], bp.lws_t, starts, 1)),
+                        fn, 20, K)
+        out[f"spliced_tb_strips {label}"] = r
+        log(f"{label}: spliced_tb_strips ({starts.shape[0]} strips): "
+            f"{r['ms']:.4f} ms, {r['steps']} serial steps = "
+            f"{r['ns_per_step']:.1f} ns a step")
+        del k1, r1
+    tctx = AlignerContext.create(TableDir(find_table_dir(),
+                                          species="Tetrapod"), "cuda")
+    bp = _tetrapod_width_bucket(dp, tctx)
+    out.update(_k3_timing(K, bp, tctx.prm, K.spliced_slab_trace(
+        bp, tctx.prm), "tetrapod width", clock))
+    del bp
+    torch.cuda.empty_cache()
+    tables = TableDir(find_table_dir(), species="Tetrapod")
+    pctx = {dagp: ProteinAlignerContext.create(
+        tables, "cuda", y_args=["-yl3"] if dagp else None)
+        for dagp in (False, True)}
+    bp = _tron_bucket(TD, pctx[False], True)
+    for dagp in (False, True):
+        planes, row, rc, loc = TK.tron_forward(bp, pctx[dagp].prm)
+        et = _tron_ends(TD, bp, row, rc, loc)
+        name = f"tron_walk phase 1{' dagp' if dagp else ''}"
+        out[name] = r = _k8_timing(TK, bp, planes, et, name, check=True)
+        if clock:
+            st = torch.empty((bp.B, 2), dtype=torch.int32, device="cuda")
+            recs, counts = TK.tron_walk(bp, planes, et, stats=st)
+            r.update(_clock_k8(K, TD, bp, planes, et, recs, counts, st))
+        log(f"{name} (B={bp.B} L={bp.L} W={bp.W} S={bp.S} T={bp.T}): "
+            f"{r['ms']:.4f} ms, {r['records']} records"
+            + (f", {r['steps']} serial steps = {r['ns_per_step']:.1f} ns a "
+               f"step, {r['tile_loads']:.2f} tile loads a walk"
+               if "steps" in r else "")
+            + (f"; clocked: {r['cycles_step']:.0f} cycles a step outside "
+               f"the loads, {r['cycles_load']:.0f} a load, latency floor "
+               f"{r['floor_ms']:.5f} ms" if clock else ""))
+        del planes
+    for mode, kept in _phase8_batches(TK, cli).items():
+        rows = []
+        for bp, prm in kept:
+            planes, row, rc, loc = TK.tron_forward(bp, prm)
+            rows.append(_k8_timing(TK, bp, planes,
+                                   _tron_ends(TD, bp, row, rc, loc),
+                                   f"phase 8 {mode}", check=False))
+            del planes
+        name = f"tron_walk phase 8 {mode}"
+        out[name] = dict(ms=sum(r["ms"] for r in rows), launches=len(rows),
+                         each=rows)
+        log(f"{name}: {out[name]['ms']:.3f} ms in {len(rows)} launches: "
+            + ", ".join(f"{r['ms']:.3f} ms" + (f" ({r['steps']} steps, "
+                                               f"{r['ns_per_step']:.0f} ns)"
+                                               if "steps" in r else "")
+                        for r in rows))
+        del kept
+        torch.cuda.empty_cache()
+    return out
+
+
+def _clocked_source(K) -> str:
+    """The two walk kernels of the package's csrc/ with clock64() around
+    each band's load and over the whole walk (a __device__ array of
+    (cycles, load cycles) per walk), and an entry each that launches,
+    synchronizes and copies the array out."""
+    sp = (K.CSRC / "spliced_dp.cu").read_text()
+    tr = (K.CSRC / "tron_dp.cu").read_text()
+    k3 = sp[sp.index("constexpr int TB_CELLS"):
+            sp.index("// One launch of the slab kernel")]
+    k8 = tr[tr.index("constexpr int TW_CELLS"):
+            tr.index("// One launch of K7")]
+    a = tr.index("constexpr int DEAD = 0")
+    consts = tr[a:tr.index(";", a) + 1]
+
+    def clocked(k, w, head, tail):
+        k = re.sub(r"__syncwarp\(\); +// every lane is off the old band",
+                   "const long long c0 = clock64(); __syncwarp();", k, 1)
+        k = k.replace("++loads;", "++loads; lc += clock64() - c0;", 1)
+        k = k.replace(head, head + " long long lc = 0; const long long "
+                      "t0 = clock64();", 1)
+        k = k.replace(tail, f"if (lane == 0) {{ g_clk[{w} * 2] = clock64() "
+                      f"- t0; g_clk[{w} * 2 + 1] = lc; }}\n" + tail, 1)
+        if k.count("clock64") != 4:
+            raise AssertionError("the walk kernels' source moved")
+        return k
+    return ("#include <cuda_runtime.h>\n#include <stdint.h>\n"
+            "__device__ long long g_clk[1 << 16];\nnamespace {\n" + consts
+            + "\n" + clocked(k3, "w", "const int w = blockIdx.x, lane = "
+                             "threadIdx.x;", "  if (stats && lane == 0) {")
+            + "\n" + clocked(k8, "b", "const int b = blockIdx.x, lane = "
+                             "threadIdx.x;", "  if (lane == 0) {\n"
+                             "    counts[b] = cnt;")
+            + "\n}\n" + """extern "C" {
+int clocked_tb_walk(const unsigned char* flags, const int* spj,
+                    const int* ends, const int* lws, int B, int L, int S,
+                    int T, int IT, int NS, int* recs, long long* clk) {
+  int e = tb_walk_entry(flags, spj, ends, nullptr, lws, B, B, L, S, T, IT,
+                        NS, 0, recs, nullptr, 0);
+  if (e || (e = (int)cudaDeviceSynchronize())) return e;
+  return (int)cudaMemcpyFromSymbol(clk, g_clk, sizeof(long long) * 2 * B);
+}
+int clocked_tron_walk(const unsigned char* fl, const int* spj,
+                      const signed char* php, const int* meta,
+                      const int* ends, int* recs, int* counts, int* done,
+                      int B, int S, int T, int L, int NN, int IT, int NM,
+                      int NR, long long* clk) {
+  tron_walk_kernel<<<B, 32>>>(fl, spj, php, meta, ends, recs, counts, done,
+                              B, S, T, L, NN, IT, NM, NR, nullptr);
+  int e = (int)cudaGetLastError();
+  if (e || (e = (int)cudaDeviceSynchronize())) return e;
+  return (int)cudaMemcpyFromSymbol(clk, g_clk, sizeof(long long) * 2 * B);
+}
+}
+""")
+
+
+@functools.lru_cache(maxsize=1)
+def _clocked_library(K):
+    """The clocked walks, built with nvcc (smoke_work/walk_clock/)."""
+    import ctypes
+    d = WORK / "walk_clock"
+    d.mkdir(parents=True, exist_ok=True)
+    src = d / "walk_clock.cu"
+    src.write_text(_clocked_source(K))
+    return ctypes.CDLL(str(K.build_library(src)[0]))
+
+
+def _walk_cycles(clk: torch.Tensor, stats: torch.Tensor) -> dict:
+    """The slowest walk's split of the clocked run: cycles a step outside
+    the loads and cycles a load (SM clocks, clock64()), and the latency
+    floor: the longest walk's serial steps at that step's cycles (ms at
+    the card's SM clock)."""
+    c = clk.view(-1, 2).tolist()
+    st = stats.cpu().tolist()
+    w = max(range(len(c)), key=lambda k: c[k][0])
+    (tot, lc), (steps, loads) = c[w], st[w]
+    step = (tot - lc) / max(steps, 1)
+    khz = torch.cuda.get_device_properties(0).clock_rate
+    return dict(cycles_step=step, cycles_load=lc / max(loads, 1),
+                cycles_walk=tot,
+                floor_ms=max(x[0] for x in st) * step / khz)
+
+
+def _clock_k3(K, bp, flags, spj, se, recs, stats) -> dict:
+    import ctypes
+    P = lambda t: ctypes.c_void_p(t.data_ptr())
+    lib = _clocked_library(K)
+    got = torch.zeros_like(recs)
+    clk = torch.zeros(2 * bp.B, dtype=torch.int64)
+    rc = lib.clocked_tb_walk(P(flags), P(spj), P(se), P(bp.lws_t), bp.B,
+                             bp.L, bp.S, bp.T, bp.IT, spj.shape[1], P(got),
+                             ctypes.c_void_p(clk.data_ptr()))
+    if rc or not torch.equal(got, recs):
+        raise AssertionError(f"the clocked K3 differs ({rc})")
+    return _walk_cycles(clk, stats)
+
+
+def _clock_k8(K, TD, bp, planes, et, recs, counts, stats) -> dict:
+    import ctypes
+    P = lambda t: ctypes.c_void_p(t.data_ptr())
+    lib = _clocked_library(K)
+    got = torch.empty_like(recs)
+    n = torch.empty_like(counts)
+    done = torch.empty_like(counts)
+    clk = torch.zeros(2 * bp.B, dtype=torch.int64)
+    fl, spj, php = planes
+    rc = lib.clocked_tron_walk(P(fl), P(spj), P(php), P(bp.meta), P(et),
+                               P(got), P(n), P(done), bp.B, bp.S, bp.T,
+                               bp.L, fl.shape[3], bp.IT, TD.N_META,
+                               TD.N_REC, ctypes.c_void_p(clk.data_ptr()))
+    if rc or not torch.equal(n, counts) or not all(
+            torch.equal(got[b, :c], recs[b, :c])
+            for b, c in enumerate(counts.tolist())):
+        raise AssertionError(f"the clocked K8 differs ({rc})")
+    return _walk_cycles(clk, stats)
+
+
+def _k8_timing(TK, bp, planes, et, label: str, check: bool) -> dict:
+    """K8 on a batch's planes: ms a launch (5 launches) and, where the
+    package has the tile model, serial steps, ns a step and tile loads a
+    walk (held against the model's); with ``check``, the records against
+    its plain version on the card."""
+    new = hasattr(TK, "tron_walk_stats")
+    stats = (torch.empty((bp.B, 2), dtype=torch.int32, device="cuda")
+             if new else None)
+    recs, counts = (TK.tron_walk(bp, planes, et, stats=stats) if new
+                    else TK.tron_walk(bp, planes, et))
+    if check:
+        r, _ = _tron_walk_check(TK, label, bp, planes, et, recs, counts,
+                                stats)
+    else:
+        r = {}
+        if new:
+            want = TK.tron_walk_stats(bp, planes[0], et, recs, counts)
+            if not torch.equal(stats.cpu(), want):
+                raise AssertionError(f"tron_walk ({label}): steps and tile "
+                                     f"loads differ from the model's")
+            r = _walk_keys(stats)
+    r["records"] = int(counts.sum())
+    fn = lambda: TK.tron_walk(bp, planes, et)
+    r["ms"] = _launch_ms(TK, fn, 5)
+    r["call_ms"] = _timed(fn, 5)
+    if "steps" in r:
+        r["ns_per_step"] = r["ms"] * 1e6 / r["steps"]
+    return r
 
 
 # ----------------------------------------------------------- the probes
@@ -2068,6 +2529,41 @@ def _check_udh_kernels(K, metrics, label: str) -> None:
                              f"{K.plain_calls}")
 
 
+@contextlib.contextmanager
+def _walk_shapes(K):
+    """Each K3 launch's (IT, B, stats) while the block runs (run_bucket's
+    walks, which take stats)."""
+    seen, orig = [], K.spliced_tb_walk
+
+    def walk(bp, flags, spj, ends, out=None, stats=None):
+        recs = orig(bp, flags, spj, ends, out=out, stats=stats)
+        seen.append((bp.IT, bp.B, stats))
+        return recs
+    K.spliced_tb_walk = walk
+    try:
+        yield seen
+    finally:
+        K.spliced_tb_walk = orig
+
+
+def _copy_back_ms(seen) -> tuple[float, float, int, int]:
+    """run_bucket's copies of K3's records to the host, for each walk
+    launch in ``seen``, timed on buffers of their sizes: (ms of one copy
+    of every IT row with the ends, as before the walks reported their
+    steps; ms of the ends and stats, then of the rows the walks wrote;
+    the bytes of each)."""
+    old = new = old_b = new_b = 0
+    for IT, B, stats in seen:
+        rows = max(int(stats[:, 0].max()), 1)
+        full = torch.empty(IT * B * 4 + 3 * B, dtype=torch.int32,
+                           device="cuda")
+        old += _copy_ms(full)
+        new += _copy_ms(full[:5 * B]) + _copy_ms(full[:rows * B * 4])
+        old_b += 4 * (IT * B * 4 + 3 * B)
+        new_b += 4 * (5 * B + rows * B * 4)
+    return old, new, old_b, new_b
+
+
 def tetrapod_map(K, cli, metrics):
     """The map's UDH path at full width: default size rule, then -A 3."""
     d = WORK / "tetra"
@@ -2085,7 +2581,7 @@ def tetrapod_map(K, cli, metrics):
         _reset_counts(K)
         out = OUT / f"tetra.{mode}.O0_4"
         retraces = []
-        with kernel_clock(K, retraces) as kms:
+        with kernel_clock(K, retraces) as kms, _walk_shapes(K) as walks:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             cli.main(["map", str(d / "cdna.fa"), "-d", str(d / "genome"),
@@ -2093,6 +2589,12 @@ def tetrapod_map(K, cli, metrics):
                       "--device", "cuda", *extra])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        if walks:
+            old, new, old_b, new_b = _copy_back_ms(walks)
+            log(f"tetrapod map ({mode}): K3's records to the host in "
+                f"{len(walks)} buckets: every IT row {old:.3f} ms "
+                f"({old_b} bytes), the rows the walks wrote {new:.3f} ms "
+                f"({new_b} bytes, two copies a bucket)")
         _check_udh_kernels(K, metrics, f"tetrapod map ({mode})")
         texts[mode] = out.read_text()
         c = dict(metrics.counters)
@@ -2529,7 +3031,8 @@ def _keep_tron_batches(TK):
 
     def walk_(bp, planes, ends):
         recs, counts = walk(bp, planes, ends)
-        kept["walk"].append((bp.B, int(counts.sum())))
+        kept["walk"].append(dict(B=bp.B, records=int(counts.sum()),
+                                 recs=recs, counts=counts))
         return recs, counts
     TK.tron_forward, TK.tron_walk = forward, walk_
     try:
@@ -2555,17 +3058,45 @@ def _tron_launches(TK, TD, kept: dict, each: dict, fwd: str) -> dict:
             f"CTAs={plan['ncta']} steps={plan['steps']}: {ms:.3f} ms = "
             f"{1e3 * ms / plan['steps']:.3f} us a step, bound "
             f"{bound:.5f} ms by {by}")
-    for (B, steps), ms in zip(kept["walk"], each["tron_walk"]):
-        bound, by = _bound(*_walk_work(steps, B))
+    for w, ms in zip(kept["walk"], each["tron_walk"]):
+        bound, by = _bound(*_walk_work(w["records"], w["B"]))
         rows["tron_walk"].append(ms - bound)
-        log(f"  tron_walk: B={B}, {steps} records: {ms:.3f} ms, bound "
-            f"{bound:.7f} ms by {by}")
+        log(f"  tron_walk: B={w['B']}, {w['records']} records, "
+            f"{w['steps']} serial steps: {ms:.3f} ms = "
+            f"{ms * 1e6 / w['steps']:.1f} ns a step, "
+            f"{w['tile_loads']:.2f} tile loads a walk (most "
+            f"{w['tile_loads_max']}), bound {bound:.7f} ms by {by}")
     out = {}
     for k, ex in rows.items():
         out[k] = dict(launches=len(ex), ms=sum(each[k]),
                       ms_minus_bound=sum(ex))
     out[fwd]["max_ctas"] = ctas
     return out
+
+
+def _recheck_tron_walks(TK, TD, kept: dict, label: str) -> float:
+    """Each K8 launch of a map, after it: the batch's K7 run again, the
+    map's records held against K8's plain version and against K8 run
+    again with its stats, whose steps and tile loads must equal the
+    model's; each walk entry of ``kept`` gains their _walk_keys.
+    Returns the seconds it took."""
+    t0 = time.perf_counter()
+    for j, ((bp, prm), w) in enumerate(zip(kept["forward"], kept["walk"])):
+        planes, row, rc, loc = TK.tron_forward(bp, prm)
+        et = _tron_ends(TD, bp, row, rc, loc)
+        st = torch.empty((bp.B, 2), dtype=torch.int32, device="cuda")
+        recs, counts = TK.tron_walk(bp, planes, et, stats=st)
+        if not torch.equal(counts, w["counts"]) or not all(
+                torch.equal(recs[b, :n], w["recs"][b, :n])
+                for b, n in enumerate(counts.tolist())):
+            raise AssertionError(f"{label}: batch {j}'s walk differs on a "
+                                 f"second run")
+        keys, _ = _tron_walk_check(TK, f"{label}, batch {j}", bp, planes,
+                                   et, w.pop("recs"), w.pop("counts"), st)
+        w.update(keys)
+        del planes, recs
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0
 
 
 def protein_map(TK, TD, cli, metrics):
@@ -2627,6 +3158,10 @@ def protein_map(TK, TD, cli, metrics):
         if hit < 0.9 * len(truth):
             raise AssertionError(f"protein map ({mode}): only {hit} of "
                                  f"{len(truth)} at their planted locus")
+        secs = _recheck_tron_walks(TK, TD, kept, f"protein map ({mode})")
+        log(f"protein map ({mode}): every K8 launch exact against its "
+            f"plain version, its steps and tile loads equal to the model's "
+            f"({secs:.1f} s after the map)")
         log(f"protein map ({mode}): each launch of K7 and K8")
         per = _tron_launches(TK, TD, kept, each, fwd)
         geoms = {k: v for k, v in c.items() if k.startswith("tron_k7")}
@@ -2725,6 +3260,21 @@ def timing_main(what: str, argv: list) -> int:
     if argv[:1] == ["--package-root"]:
         sys.path.insert(0, str(Path(argv[1]).resolve()))
     log(_card())
+    if what == "--walk-timing":
+        from concurrent.futures import ThreadPoolExecutor
+        from spaln_tpu_torch.ops import dp_spliced as dp
+        from spaln_tpu_torch.ops import dp_spliced_cuda as K
+        from spaln_tpu_torch.ops import dp_tron as TD
+        from spaln_tpu_torch.ops import dp_tron_cuda as TK
+        with ThreadPoolExecutor(2) as pool:
+            builds = list(pool.map(K.build_library, (K.SOURCE, TK.SOURCE)))
+        for so, secs, ptxas in builds:
+            log(f"  {so.name}: nvcc {secs:.1f} s")
+            for line in _ptxas_report(ptxas):
+                log("  ptxas: " + line)
+        print(json.dumps({"walk_timing": walk_timing(K, dp, TK, TD),
+                          "package": K.__file__}))
+        return 0
     if what == "--probe-timing":
         print(json.dumps({"probe_timing": probe_timing()}))
         return 0
@@ -2754,7 +3304,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if sys.argv[1:2] in (["--slab-timing"], ["--tron-timing"],
-                         ["--probe-timing"]):
+                         ["--probe-timing"], ["--walk-timing"]):
         return timing_main(sys.argv[1], sys.argv[2:])
     from spaln_tpu_torch import cli
     from spaln_tpu_torch.align.driver import AlignerContext
@@ -2869,7 +3419,8 @@ def main() -> int:
              launches=launches[k], max_abs_err=results[k]["max_abs_err"],
              ms=results[k]["ms"], plain_ms=results[k]["plain_ms"],
              bound_ms=results[k]["bound_ms"],
-             bound_by=results[k]["bound_by"], library_ms=None)
+             bound_by=results[k]["bound_by"], library_ms=None,
+             **{x: results[k][x] for x in WALK_KEYS if x in results[k]})
         for k in names] + [
         dict(name=k, route="cuda", source=probe_src,
              replaces=probes.REPLACES[k.split(":")[0]],

@@ -50,6 +50,8 @@
 //   recs  (IT, nw, 4)         walk records (kind, m, n, jnc - 1) of nw
 //                             walks (B for the full walk), zeroed by the
 //                             caller
+//   stats (nw, 2)             each walk's steps (records written) and
+//                             tile loads, or null
 // A link is column * 8 + state: where the cell's path crossed the
 // previous slab boundary (state 0 = H, 2 = F, 4 = F2).
 #include <cooperative_groups.h>
@@ -986,23 +988,41 @@ __global__ void last_ends_kernel(const int* __restrict__ row,
 // states 1 and 3 are horizontal, 2 and 4 vertical, _tb_walker
 // 1137-1184).
 //
-// Design: one thread per walk, a loop of at most IT steps that stops
-// when the walk ends (the caller zeroes the records).  Bound on the
-// H100: the chain of dependent global loads, two or three per step, one
-// step per path cell; a full walk is ~M + W steps against the forward's
-// S * T * L cells per problem, a strip ~L + its introns' jumps.  One
-// launch takes every strip of a retrace launch (nb problems x nslab
-// slabs), so the walks of a bucket run in one or two launches, all in
-// flight at once, not one launch of nb walks per slab.
-__global__ void tb_walk_kernel(const unsigned char* __restrict__ flags,
-                               const int* __restrict__ spj,
-                               const int* __restrict__ ends,
-                               const int* __restrict__ starts,
-                               const int* __restrict__ lws, int nw, int B,
-                               int L, int S, int T, int IT, int NS, int s0,
-                               int* __restrict__ recs) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= nw) return;
+// What bounds it on the H100: latency.  A walk is a chain of steps, each
+// choosing its move from the flags and junction words of the cell the
+// last step reached: read from global memory, one round trip a step
+// (an L2 hit at best, an HBM read once the planes outgrow the L2).
+//
+// Design: one warp a walk (a CTA each, several to an SM).  The warp
+// stages in shared memory, in one round trip, the cells a run of steps
+// in the walk's state reaches from the step's cell (i, t): lane k reads
+// the flags and every junction plane at (i - k, t - 2k) in state 0 (a
+// diagonal run), (i, t - k) in a horizontal state, (i - k, t - k) in a
+// vertical one, k < 32, within its slab's lanes and the planes' rows (a
+// band, no wider: a staged rectangle of lanes x rows costs a 128-byte
+// line a row and plane, one SM's misses queue behind each other, and
+// most of the lines hold cells the walk never reads).  A step whose cell
+// is off the band (a change of state, an intron close, a slab crossing,
+// the band's end) stages the band from that cell in its state.  Every
+// lane runs the same walk on the same values (shared-memory reads
+// broadcast, no divergence).  A run of plain
+// diagonal steps in state 0 (the bulk of a path) takes a loop of its own
+// whose chain is two shared-memory reads and one test; the other steps
+// take the full rule.  The walk's slab and lane follow m by a decrement,
+// not a division.  Lane it % 32 keeps step it's record, and the warp
+// writes each run of 32 records with one store.  tb_walk_tiles in
+// dp_spliced_cuda.py models the loads.
+constexpr int TB_CELLS = 32;                     // cells of a staged band
+constexpr int TB_STEP_T = 2;                     // rows a diagonal step
+
+__global__ void __launch_bounds__(32)
+tb_walk_kernel(const unsigned char* __restrict__ flags,
+               const int* __restrict__ spj, const int* __restrict__ ends,
+               const int* __restrict__ starts, const int* __restrict__ lws,
+               int nw, int B, int L, int S, int T, int IT, int NS, int s0,
+               int* __restrict__ recs, int* __restrict__ stats) {
+  __shared__ int band[1 + 5][TB_CELLS];     // flags, then junction planes
+  const int w = blockIdx.x, lane = threadIdx.x;
   int b, m, n, st, m_stop;
   if (starts) {             // (m, n, state, m_stop, problem column)
     const int* x = starts + (size_t)w * 5;
@@ -1012,19 +1032,77 @@ __global__ void tb_walk_kernel(const unsigned char* __restrict__ flags,
     m = ends[b * 3 + 1]; n = ends[b * 3 + 2]; st = 0; m_stop = 0;
   }
   const int lw = lws[b];
+  const size_t BL = (size_t)B * L, TBL = (size_t)T * BL;
   bool done = m <= m_stop || n < 1;
-  const size_t plane = (size_t)T * B * L;
-  for (int it = 0; it < IT && !done; ++it) {
-    const int s = (m - 1) / L - s0, i = (m - 1) % L;   // m >= 1 here
+  // the walk's slab (relative to s0) and lane of row m, m >= 1 while it
+  // runs
+  int s = done ? 0 : (m - 1) / L - s0, i = done ? 0 : (m - 1) % L;
+  // the band in force: slab bs, cells (bi - di k, bt - dt k), k < blen
+  int bs = -1, bi = 0, bt = 0, di = 0, dt = 0, blen = 0, loads = 0;
+  int4 held = make_int4(0, 0, 0, 0);
+  int it = 0;
+  // step it's record: lane it % 32 keeps it, the warp stores 32 at once
+  auto emit = [&](int kind, int x) {
+    if (lane == (it & 31)) held = make_int4(kind, m, n, x);
+    if ((it & 31) == 31)
+      reinterpret_cast<int4*>(recs)[(size_t)(it - 31 + lane) * nw + w] =
+          held;
+    ++it;
+  };
+  while (it < IT && !done) {
     const int t = (n - m) - lw - 1 + 2 * i;
     const bool ok = t >= 0 && t < T && s >= 0 && s < S;
     int fl = 255, jnc_s = 0, jnc_0 = 0;
     if (ok) {
-      const size_t cell = ((size_t)t * B + b) * L + i;
-      fl = flags[(size_t)s * plane + cell];
+      int k = di ? bi - i : bt - t;
+      if (s != bs || (unsigned)k >= (unsigned)blen || i != bi - di * k
+          || t != bt - dt * k) {
+        bs = s;
+        bi = i;
+        bt = t;
+        di = st == 1 || st == 3 ? 0 : 1;    // horizontal: the same lane
+        dt = st == 0 ? TB_STEP_T : 1;
+        blen = min(min(TB_CELLS, di ? i + 1 : TB_CELLS), t / dt + 1);
+        k = 0;
+        __syncwarp();                       // every lane is off the old band
+        if (lane < blen) {
+          const size_t c = (size_t)(t - dt * lane) * BL + b * L
+                           + (i - di * lane);
+          const int f = flags[s * TBL + c];
+          int x[5];
+#pragma unroll
+          for (int q = 0; q < 5; ++q)
+            if (q < NS) x[q] = spj[((size_t)s * NS + q) * TBL + c];
+          band[0][lane] = f;
+#pragma unroll
+          for (int q = 0; q < 5; ++q)
+            if (q < NS) band[1 + q][lane] = x[q];
+        }
+        __syncwarp();                       // the band is staged
+        ++loads;
+      }
+      if (st == 0 && dt == TB_STEP_T) {
+        // a run of plain diagonal steps (state 0, flags 0, no intron
+        // close) along a diagonal band
+        for (;;) {
+          if (((band[0][k] & 0x87) | band[1][k]) != 0) break;
+          emit(1, -1);
+          --m;
+          --n;
+          ++k;
+          if (--i < 0) {                    // the slab above: a new band
+            i = L - 1;
+            --s;
+          }
+          done = m <= m_stop || n < 1;
+          if (done || it >= IT || k >= blen || s != bs) break;
+        }
+        if (done || it >= IT || k >= blen || s != bs) continue;
+      }
       const int stc = min(max(st, 0), NS - 1);
-      jnc_s = spj[((size_t)s * NS + stc) * plane + cell];
-      jnc_0 = spj[(size_t)s * NS * plane + cell];
+      fl = band[0][k];
+      jnc_s = band[1 + stc][k];
+      jnc_0 = band[1][k];
     }
     const int hd = fl & 7;
     const bool is0 = st == 0;
@@ -1041,17 +1119,38 @@ __global__ void tb_walk_kernel(const unsigned char* __restrict__ flags,
     const bool opened = (fl & obit) != 0;
     const bool i_close = i_close0 || i_close_g;
     const int jncv = is0 ? jnc_0 : jnc_s;
-    const int kind = (!ok || dead || trans) ? 0
-                     : i_close ? 4 : diag ? 1 : horiz ? 2 : 3;
-    int* r = recs + ((size_t)it * nw + w) * 4;
-    r[0] = kind; r[1] = m; r[2] = n; r[3] = jncv - 1;
+    emit((!ok || dead || trans) ? 0 : i_close ? 4 : diag ? 1 : horiz ? 2 : 3,
+         jncv - 1);
     const int n2 = i_close ? jncv - 1 : ((diag || horiz) ? n - 1 : n);
-    const int m2 = (diag || vert) ? m - 1 : m;
     st = trans ? hd : (((horiz || vert) && opened) ? 0 : st);
-    done = dead || !ok || m2 <= m_stop || n2 < 1;
-    m = m2;
+    if (diag || vert) {                     // row m - 1: the lane above
+      --m;
+      if (--i < 0) {
+        i = L - 1;
+        --s;
+      }
+    }
+    done = dead || !ok || m <= m_stop || n2 < 1;
     n = n2;
   }
+  const int pend = it & 31;                 // records not yet written
+  if (lane < pend)
+    reinterpret_cast<int4*>(recs)[(size_t)(it - pend + lane) * nw + w] = held;
+  if (stats && lane == 0) {
+    stats[w * 2] = it;
+    stats[w * 2 + 1] = loads;
+  }
+}
+
+int tb_walk_entry(const unsigned char* flags, const int* spj,
+                  const int* ends, const int* starts, const int* lws, int nw,
+                  int B, int L, int S, int T, int IT, int NS, int s0,
+                  int* recs, int* stats, cudaStream_t stream) {
+  if (nw <= 0) return 0;
+  if (NS != 3 && NS != 5) return (int)cudaErrorInvalidValue;
+  tb_walk_kernel<<<nw, 32, 0, stream>>>(flags, spj, ends, starts, lws, nw,
+                                        B, L, S, T, IT, NS, s0, recs, stats);
+  return (int)cudaGetLastError();
 }
 
 // One launch of the slab kernel: nb CTAs of k sub-slabs of L lanes,
@@ -1234,21 +1333,18 @@ int spliced_last_ends(const int* row, const int* rc, const int* Ms,
 
 int spliced_tb_walk(const unsigned char* flags, const int* spj,
                     const int* ends, const int* lws, int B, int L, int S,
-                    int T, int IT, int NS, int* recs, cudaStream_t stream) {
-  const int threads = 32;
-  tb_walk_kernel<<<(B + threads - 1) / threads, threads, 0, stream>>>(
-      flags, spj, ends, nullptr, lws, B, B, L, S, T, IT, NS, 0, recs);
-  return (int)cudaGetLastError();
+                    int T, int IT, int NS, int* recs, int* stats,
+                    cudaStream_t stream) {
+  return tb_walk_entry(flags, spj, ends, nullptr, lws, B, B, L, S, T, IT, NS,
+                       0, recs, stats, stream);
 }
 
 int spliced_tb_strips(const unsigned char* flags, const int* spj,
                       const int* starts, const int* lws, int nw, int B,
                       int L, int S, int T, int IT, int NS, int s0,
-                      int* recs, cudaStream_t stream) {
-  const int threads = 32;
-  tb_walk_kernel<<<(nw + threads - 1) / threads, threads, 0, stream>>>(
-      flags, spj, nullptr, starts, lws, nw, B, L, S, T, IT, NS, s0, recs);
-  return (int)cudaGetLastError();
+                      int* recs, int* stats, cudaStream_t stream) {
+  return tb_walk_entry(flags, spj, nullptr, starts, lws, nw, B, L, S, T, IT,
+                       NS, s0, recs, stats, stream);
 }
 
 }  // extern "C"

@@ -73,8 +73,9 @@
 // S T + 6(k-1)L ceil(S/k); on a cluster of ceil(S/k) CTAs about
 // T + 6(S-1)L plus up to 2 STAGE per round for the publications.
 //
-// K8: one thread a problem walks its planes from its end cell back to
-// the matrix edge: 5 states, per-phase junction closes, split codons.
+// K8: a warp a problem walks its planes from its end cell back to the
+// matrix edge (5 states, per-phase junction closes, split codons) on
+// tiles of the planes staged in shared memory.
 //
 // Layouts (row-major):
 //   gen   (B, 4, Nmax)            code word (btron | dinc5 << 5 | dinc3
@@ -99,6 +100,8 @@
 //   row   (B, Nmax + 2)           H(M, n); rc (B, Mpad + 2) H(m, N)
 //   loc   (B, 3)                  best LocalR end (value, m, n)
 //   recs  (B, IT, 5)              K8 records (kind, m, n, a1, a2)
+//   stats (B, 2)                  K8: each walk's steps and tile loads,
+//                                 or null
 #include <cooperative_groups.h>
 #include <cuda/atomic>
 #include <cuda_runtime.h>
@@ -745,40 +748,134 @@ __global__ void __launch_bounds__(max_threads(DAGP))
   }
 }
 
-// K8: one thread a problem (_tron_tb_walker's step, records of moves
-// only, in walk order)
-__global__ void tron_walk_kernel(const unsigned char* __restrict__ fl,
-                                 const int* __restrict__ spj,
-                                 const signed char* __restrict__ php,
-                                 const int* __restrict__ meta,
-                                 const int* __restrict__ ends,
-                                 int* __restrict__ recs,
-                                 int* __restrict__ counts,
-                                 int* __restrict__ done_out, int B, int S,
-                                 int T, int L, int NN, int IT, int NM,
-                                 int NR) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+// K8 (_tron_tb_walker's step, records of moves only, in walk order).
+//
+// What bounds it on the H100: latency.  A walk is a chain of steps, each
+// reading the junction word, phase and flags of the cell the last step
+// reached (a diagonal step goes to (i - 1, t - 6), an E move to (i, t -
+// 1..3), an F move to (i - 1, t - 3..5); intron closes and split codons
+// jump): one global round trip a step, from HBM once the planes outgrow
+// the L2.
+//
+// Design: one warp a problem (a CTA each).  The warp stages in shared
+// memory, in one round trip, the cells a run of diagonal steps reaches:
+// lane k reads the three planes of every state at (i - k, t - 6k), k <
+// 32, from the step's cell (i, t), within its slab's lanes and the
+// planes' rows (a band of the diagonal, no wider: the planes keep a
+// row's states apart, so a staged rectangle costs a 128-byte line per
+// row, state and plane, six rows a diagonal step, and one SM's misses
+// queue behind each other).  A step whose cell is off the staged
+// diagonal (an E or F move, an intron close, a split codon's jump, a
+// slab crossing, the band's end) stages the band from that cell.  Every
+// lane runs the same walk on
+// the same values (broadcast reads, no divergence).  A run of plain
+// diagonal steps in state 0 takes a loop of its own whose chain is two
+// shared-memory reads and one test.  The walk's slab and lane follow m
+// by a decrement, not a division.  Lane cnt % 32 keeps record cnt, and
+// the warp writes each run of 32 records at once.  tron_walk_tiles in
+// dp_tron_cuda.py models the loads.
+constexpr int TW_CELLS = 32;                     // cells of a staged band
+constexpr int TW_STEP_T = 6;                     // rows a diagonal step
+
+__global__ void __launch_bounds__(32)
+tron_walk_kernel(const unsigned char* __restrict__ fl,
+                 const int* __restrict__ spj,
+                 const signed char* __restrict__ php,
+                 const int* __restrict__ meta, const int* __restrict__ ends,
+                 int* __restrict__ recs, int* __restrict__ counts,
+                 int* __restrict__ done_out, int B, int S, int T, int L,
+                 int NN, int IT, int NM, int NR, int* __restrict__ stats) {
+  // the band: flags, junction words and phases of every state
+  __shared__ int bf[5][TW_CELLS], bj[5][TW_CELLS], bp[5][TW_CELLS];
+  const int b = blockIdx.x, lane = threadIdx.x;
   const int lw = meta[b * NM + 2];
+  const size_t NL = (size_t)NN * L;
   int m = ends[b * 2], n = ends[b * 2 + 1], st = 0, cnt = 0;
   bool done = m < 1 || n < 1;
+  // the walk's slab and lane of row m (m >= 1 while it runs), and the
+  // offset of its cell's step t: t = n + tc + 3 i
+  int s = done ? 0 : (m - 1) / L, i = done ? 0 : (m - 1) % L;
+  int tc = -3 * (s * L + 1) - lw + 1;
+  // the band in force: slab bs, cells (bi - k, bt - 6k) for k < blen
+  int bs = -1, bi = 0, bt = 0, blen = 0, loads = 0;
+  int h0 = 0, h1 = 0, h2 = 0, h3 = 0, h4 = 0;         // the record kept
   int* out = recs + (size_t)b * IT * NR;
-  for (int it = 0; it < IT && !done; ++it) {
-    const int s = (m - 1) / L;              // m >= 1 while not done
-    const int i = (m - 1) - s * L;
-    const int t = n - 3 * (s * L + 1) - lw + 1 + 3 * i;
+  // record cnt: lane cnt % 32 keeps it, the warp stores 32 at once
+  auto emit = [&](int kind, int a1, int a2) {
+    if (lane == (cnt & 31)) {
+      h0 = kind; h1 = m; h2 = n; h3 = a1; h4 = a2;
+    }
+    if ((++cnt & 31) == 0) {
+      int* o = out + (size_t)(cnt - 32 + lane) * NR;
+      o[0] = h0; o[1] = h1; o[2] = h2; o[3] = h3; o[4] = h4;
+    }
+  };
+  int it = 0;
+  while (it < IT && !done) {
+    const int t = n + tc + 3 * i;
     if (t < 0 || t >= T || s >= S) {
       done = true;
       break;
     }
-    const size_t cell = (((size_t)b * S + s) * T + t) * NN * L + i;
-    const int stc = st < NN ? st : NN - 1;
-    const int jnc = spj[cell + stc * L];
-    const int phs = php[cell + stc * L];
-    int kind = 0, a1 = 0, a2 = 0, m2 = m, n2 = n, st2 = st;
-    bool dead = false;
+    int k = bi - i;
+    if (s != bs || (unsigned)k >= (unsigned)blen
+        || t != bt - TW_STEP_T * k) {
+      bs = s;
+      bi = i;
+      bt = t;
+      blen = min(min(TW_CELLS, i + 1), t / TW_STEP_T + 1);
+      k = 0;
+      __syncwarp();                         // every lane is off the old band
+      if (lane < blen) {
+        const size_t c = (((size_t)b * S + s) * T + t - TW_STEP_T * lane)
+                             * NL + (i - lane);
+        int f[5], j[5], p[5];
+#pragma unroll
+        for (int q = 0; q < 5; ++q)
+          if (q < NN) {
+            f[q] = fl[c + q * L];
+            j[q] = spj[c + q * L];
+            p[q] = php[c + q * L];
+          }
+#pragma unroll
+        for (int q = 0; q < 5; ++q)
+          if (q < NN) {
+            bf[q][lane] = f[q];
+            bj[q][lane] = j[q];
+            bp[q][lane] = p[q];
+          }
+      }
+      __syncwarp();                         // the band is staged
+      ++loads;
+    }
     if (st == 0) {
-      const int flh = fl[cell];
+      // a run of plain diagonal steps (state 0, no winner, not dead, no
+      // intron close) along the band
+      for (;;) {
+        const int f = bf[0][k];
+        if (((f & 0xE0) | bj[0][k]) != 0 || (f & 15) == DEAD) break;
+        emit(1, 0, 0);
+        ++it;
+        --m;
+        n -= 3;
+        ++k;
+        if (--i < 0) {                      // the slab above: a new band
+          i = L - 1;
+          --s;
+          tc += 3 * L;
+        }
+        done = m < 1 || n < 1;
+        if (done || it >= IT || k >= blen || s != bs) break;
+      }
+      if (done || it >= IT || k >= blen || s != bs) continue;
+    }
+    const int stc = st < NN ? st : NN - 1;
+    const int jnc = bj[stc][k];
+    const int phs = bp[stc][k];
+    int kind = 0, a1 = 0, a2 = 0, n2 = n, st2 = st;
+    bool dead = false, up = false;          // up: to row m - 1
+    if (st == 0) {
+      const int flh = bf[0][k];
       const int winner = (flh >> 5) & 7;
       if (flh == 255 || (winner == 0 && jnc == 0 && (flh & 15) == DEAD)) {
         dead = true;
@@ -789,14 +886,14 @@ __global__ void tron_walk_kernel(const unsigned char* __restrict__ fl,
         a1 = jnc - 1;
         a2 = phs;
         if (phs == 1) {
-          m2 = m - 1;
+          up = true;
           n2 = jnc - 3;
         } else {
           n2 = phs == 0 ? jnc - 1 : jnc - 2;
         }
       } else {
         kind = 1;
-        m2 = m - 1;
+        up = true;
         n2 = n - 3;
       }
     } else if (jnc > 0) {                   // a gap state's intron close
@@ -805,7 +902,7 @@ __global__ void tron_walk_kernel(const unsigned char* __restrict__ fl,
       a2 = phs;
       n2 = jnc - 1 + phs;
     } else {
-      const int fg = fl[cell + st * L];
+      const int fg = bf[st][k];
       const int base = fg & 15;
       if (st == 1 || st == 3) {
         kind = 2;
@@ -814,27 +911,38 @@ __global__ void tron_walk_kernel(const unsigned char* __restrict__ fl,
       } else {
         kind = 3;
         a1 = base == SLA2 ? 2 : (base == SLA1 ? 1 : 0);
-        m2 = m - 1;
+        up = true;
         n2 = n - a1;
       }
       if (fg & 0x80) st2 = 0;
     }
-    if (kind) {
-      int* r = out + (size_t)cnt * NR;
-      r[0] = kind;
-      r[1] = m;
-      r[2] = n;
-      r[3] = a1;
-      r[4] = a2;
-      ++cnt;
+    if (kind) emit(kind, a1, a2);
+    if (up) {                               // row m - 1: the lane above
+      --m;
+      if (--i < 0) {
+        i = L - 1;
+        --s;
+        tc += 3 * L;
+      }
     }
-    done = dead || m2 < 1 || n2 < 1;
-    m = m2;
+    done = dead || m < 1 || n2 < 1;
     n = n2;
     st = st2;
+    ++it;
   }
-  counts[b] = cnt;
-  done_out[b] = done ? 1 : 0;
+  const int pend = cnt & 31;                // records not yet written
+  if (lane < pend) {
+    int* o = out + (size_t)(cnt - pend + lane) * NR;
+    o[0] = h0; o[1] = h1; o[2] = h2; o[3] = h3; o[4] = h4;
+  }
+  if (lane == 0) {
+    counts[b] = cnt;
+    done_out[b] = done ? 1 : 0;
+    if (stats) {
+      stats[b * 2] = it;
+      stats[b * 2 + 1] = loads;
+    }
+  }
 }
 
 
@@ -937,12 +1045,13 @@ int tron_forward_dagp(FORWARD_PARAMS) {
 int tron_walk(const unsigned char* fl, const int* spj,
               const signed char* php, const int* meta, const int* ends,
               int* recs, int* counts, int* done, int B, int S, int T, int L,
-              int NN, int IT, int NM, int NR, cudaStream_t stream) {
+              int NN, int IT, int NM, int NR, int* stats,
+              cudaStream_t stream) {
   if (B <= 0) return 0;
-  const int threads = 64;
-  tron_walk_kernel<<<(B + threads - 1) / threads, threads, 0, stream>>>(
-      fl, spj, php, meta, ends, recs, counts, done, B, S, T, L, NN, IT, NM,
-      NR);
+  if (NN != 3 && NN != 5) return (int)cudaErrorInvalidValue;
+  tron_walk_kernel<<<B, 32, 0, stream>>>(fl, spj, php, meta, ends, recs,
+                                         counts, done, B, S, T, L, NN, IT,
+                                         NM, NR, stats);
   return (int)cudaGetLastError();
 }
 

@@ -166,8 +166,8 @@ def _library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
         getattr(lib, name).argtypes = slab + [P] * 5 + [P]
     lib.spliced_slab_score.argtypes = slab + [I] + [P] * 3 + [P]
     lib.spliced_last_ends.argtypes = [P] * 5 + [I] * 10 + [P, P]
-    lib.spliced_tb_walk.argtypes = [P] * 4 + [I] * 6 + [P, P]
-    lib.spliced_tb_strips.argtypes = [P] * 4 + [I] * 8 + [P, P]
+    lib.spliced_tb_walk.argtypes = [P] * 4 + [I] * 6 + [P, P, P]
+    lib.spliced_tb_strips.argtypes = [P] * 4 + [I] * 8 + [P, P, P]
     for name in KERNELS:
         getattr(lib, name).restype = I
     lib.spliced_error_string.argtypes = [I]
@@ -971,16 +971,41 @@ def last_ends_plain(bp: BatchProblem, prm: DpParams, row: torch.Tensor,
 
 
 # ------------------------------------------------------------------- K3
+# K3's band, as csrc/spliced_dp.cu has it (TB_CELLS, TB_STEP_T): from the
+# cell (i, t) of the step that left the band in force, a walk stages the
+# cells (i - di k, t - dt k), k < 32, of its slab: (di, dt) = (1, 2) in
+# state 0, (0, 1) in a horizontal state (1, 3), (1, 1) in a vertical one
+TB_BAND_CELLS = 32
+TB_BAND_STEP = 2
+OPEN_BIT = (0, 8, 16, 32, 64)     # flags' gap-open bit of each state
+
+
+def _walk_out(name: str, t: torch.Tensor | None, shape, dev):
+    """A caller's output tensor (or a new zeroed one), checked; the
+    kernel stores records 16 bytes at a time."""
+    if t is None:
+        return torch.zeros(shape, dtype=I32, device=dev)
+    _check(name, t, I32, shape, dev)
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: not 16-byte aligned")
+    return t
+
+
 def spliced_tb_walk(bp: BatchProblem, flags: torch.Tensor,
                     spj: torch.Tensor, ends: torch.Tensor,
-                    out: torch.Tensor | None = None) -> torch.Tensor:
+                    out: torch.Tensor | None = None,
+                    stats: torch.Tensor | None = None) -> torch.Tensor:
     """K3: walk every problem's path back from its end cell through the
     planes (3 states, or 5 under double affine: spj's second axis).
     ``ends`` is K2e's (B, 3) (score, m, n).  Returns records (IT, B, 4)
     int32 = (kind, m, n, jnc - 1), kind 1 D, 2 E, 3 F, 4 I (0 = no op);
-    all zero once a walk has ended."""
+    all zero once a walk has ended.  ``stats`` (B, 2) int32, if given,
+    receives each walk's steps (records written) and tile loads."""
     if bp.device.type == "cpu":
-        return tb_walk_plain(bp, flags, spj, ends)
+        recs = tb_walk_plain(bp, flags, spj, ends)
+        if stats is not None:
+            stats.copy_(walk_stats(recs, flags, bp.lws_t))
+        return recs
     dev = bp.device
     S, T, B, L = bp.S, bp.T, bp.B, bp.L
     NS = _walk_states(spj)
@@ -988,27 +1013,35 @@ def spliced_tb_walk(bp: BatchProblem, flags: torch.Tensor,
     _check("spj", spj, I32, (S, NS, T, B, L), dev)
     _check("ends", ends, I32, (B, 3), dev)
     _check("lws_t", bp.lws_t, I32, (B,), dev)
-    if out is None:
-        out = torch.zeros((bp.IT, B, 4), dtype=I32, device=dev)
-    _check("out", out, I32, (bp.IT, B, 4), dev)
+    out = _walk_out("out", out, (bp.IT, B, 4), dev)
+    if stats is not None:
+        _check("stats", stats, I32, (B, 2), dev)
     _launch("spliced_tb_walk", dev,
             _ptr(flags), _ptr(spj), _ptr(ends), _ptr(bp.lws_t),
-            B, L, S, T, bp.IT, NS, _ptr(out))
+            B, L, S, T, bp.IT, NS, _ptr(out),
+            None if stats is None else _ptr(stats))
     return out
 
 
 def spliced_tb_strips(flags: torch.Tensor, spj: torch.Tensor,
                       starts: torch.Tensor, lws: torch.Tensor, s0: int,
-                      IT: int) -> torch.Tensor:
+                      IT: int, stats: torch.Tensor | None = None
+                      ) -> torch.Tensor:
     """K3, strip mode: every strip of one retrace launch in one launch.
     ``flags`` (S', T, B', L) and ``spj`` are the planes of slabs s0.. of
     B' problems; ``starts`` (nw, 5) int32 = (m, n, state, m_stop, b), one
     walk per row, from cell (m, n) in ``state`` down to row m_stop
     (exclusive) through the planes of problem column b; ``lws`` (B',)
-    are the problems' band placements.  Records as K3's, (IT, nw, 4)."""
+    are the problems' band placements.  Records as K3's, (IT, nw, 4);
+    ``stats`` (nw, 2), if given, as K3's."""
     S, T, B, L = flags.shape
     if flags.device.type == "cpu":
-        return tb_strips_plain(flags, spj, starts, lws, s0, IT)
+        recs = tb_strips_plain(flags, spj, starts, lws, s0, IT)
+        if stats is not None:
+            col = starts[:, 4].long()
+            stats.copy_(walk_stats(recs, flags, lws[col], s0, starts[:, 2],
+                                   col))
+        return recs
     dev = flags.device
     NS = _walk_states(spj)
     nw = int(starts.shape[0])
@@ -1016,12 +1049,100 @@ def spliced_tb_strips(flags: torch.Tensor, spj: torch.Tensor,
     _check("spj", spj, I32, (S, NS, T, B, L), dev)
     _check("starts", starts, I32, (nw, 5), dev)
     _check("lws", lws, I32, (B,), dev)
-    out = torch.zeros((IT, nw, 4), dtype=I32, device=dev)
+    out = _walk_out("out", None, (IT, nw, 4), dev)
+    if stats is not None:
+        _check("stats", stats, I32, (nw, 2), dev)
     if nw:
         _launch("spliced_tb_strips", dev, _ptr(flags), _ptr(spj),
                 _ptr(starts), _ptr(lws), nw, B, L, S, T, IT, NS, s0,
-                _ptr(out))
+                _ptr(out), None if stats is None else _ptr(stats))
     return out
+
+
+def tb_walk_tiles(recs, flags, lw, s0: int = 0, st0=None, col=None
+                  ) -> list:
+    """The bands K3's kernel stages, walk by walk, from the walks' records
+    (IT, nw, 4) over planes whose flags are ``flags`` (S, T, B, L) (slabs
+    s0..), band placements lw (nw,), start states st0 (nw,) (default 0)
+    and problem columns col (nw,) (default the walk's index): for each
+    walk a list of (step, band), band = (s, i, t, di, dt, n) the cells
+    (i - di k, t - dt k), k < n, of slab s (relative to s0), loaded at
+    record index step.  The kernel reads the cell of every record that
+    lies in the planes; where it is off the band in force, it first
+    stages the band from it in the walk's state there.  The flags at the
+    cells read give that state (a record of kind 0 that is not the last
+    hands state 0 over to the gap state of its flags; a gap move whose
+    flags carry its state's open bit returns to state 0)."""
+    S, T, B, L = flags.shape
+    recs = torch.as_tensor(recs).cpu().numpy()
+    nw = recs.shape[1]
+    lw = torch.as_tensor(lw).cpu().numpy().astype(np.int64)
+    st0 = (np.zeros(nw, np.int64) if st0 is None
+           else torch.as_tensor(st0).cpu().numpy())
+    col = (np.arange(nw) if col is None
+           else torch.as_tensor(col).cpu().numpy().astype(np.int64))
+    m = recs[:, :, 1].astype(np.int64)
+    n = recs[:, :, 2].astype(np.int64)
+    s = (m - 1) // L - s0
+    i = (m - 1) % L
+    t = n - m - lw[None, :] - 1 + 2 * i
+    read = (m != 0) & (t >= 0) & (t < T) & (s >= 0) & (s < S)
+    idx = [torch.as_tensor(np.where(read, x, 0).reshape(-1),
+                           device=flags.device)
+           for x in (s, t, np.broadcast_to(col, s.shape), i)]
+    fl = flags[idx[0], idx[1], idx[2], idx[3]].cpu().numpy().reshape(
+        s.shape).astype(np.int64)
+    out = []
+    for w in range(nw):
+        tiles, cur, st = [], None, int(st0[w])
+        rows = np.flatnonzero(m[:, w] != 0)
+        for it in rows:
+            if not read[it, w]:
+                continue
+            c = (int(s[it, w]), int(i[it, w]), int(t[it, w]))
+            if cur is None or not on_band(cur, *c):
+                cur = band_at(*c, *band_step(st), TB_BAND_CELLS)
+                tiles.append((int(it), cur))
+            kind, f = recs[it, w, 0], fl[it, w]
+            if it == rows[-1]:
+                break
+            if st == 0 and kind == 0:                   # the hand-over
+                st = int(f & 7)
+            elif kind in (2, 3) and f & OPEN_BIT[st]:
+                st = 0
+        out.append(tiles)
+    return out
+
+
+def band_step(st: int) -> tuple:
+    """K3's band direction (di, dt) in state st."""
+    return ((1, TB_BAND_STEP) if st == 0 else (0, 1) if st in (1, 3)
+            else (1, 1))
+
+
+def band_at(s: int, i: int, t: int, di: int, dt: int, cells: int
+            ) -> tuple:
+    """The band a walk stages from cell (i, t) of slab s in direction
+    (di, dt): (s, i, t, di, dt, n), the cells (i - di k, t - dt k) for
+    k < n, within lanes >= 0 and rows >= 0."""
+    return s, i, t, di, dt, min(cells, i + 1 if di else cells, t // dt + 1)
+
+
+def on_band(band, s: int, i: int, t: int) -> bool:
+    bs, bi, bt, di, dt, n = band
+    k = bi - i if di else bt - t
+    return (s == bs and 0 <= k < n and i == bi - di * k
+            and t == bt - dt * k)
+
+
+def walk_stats(recs, flags, lw, s0: int = 0, st0=None, col=None
+               ) -> torch.Tensor:
+    """(nw, 2) int32 (steps, tile loads) of K3's walks from their records
+    (the arguments of tb_walk_tiles): what the kernel writes to
+    ``stats``."""
+    steps = (torch.as_tensor(recs)[:, :, 1] != 0).sum(0).cpu()
+    loads = [len(x) for x in tb_walk_tiles(recs, flags, lw, s0, st0, col)]
+    return torch.stack([steps.to(I32), torch.tensor(loads, dtype=I32)], 1)
 
 
 def tb_walk_plain(bp: BatchProblem, flags: torch.Tensor, spj: torch.Tensor,
@@ -1145,23 +1266,28 @@ def slab_retrace_plain(bp: BatchProblem, prm: DpParams, s0: int,
 # ----------------------------------------------------------- one bucket
 def run_bucket(bp: BatchProblem, prm: DpParams):
     """One geometry bucket on the device: K1 (its double-affine mode under
-    prm.dagp) -> K2e -> K3 on one stream, then one device-to-host copy of
-    the packed walk records, scores and ends.  Returns (scores (B,)
-    int64, ends [(m, n)], ops_all) with the contract of spaln_tpu's
+    prm.dagp) -> K2e -> K3 on one stream, then two device-to-host copies:
+    the scores, ends and walk stats, then the records' first rows, as
+    many as the longest walk wrote.  Returns (scores (B,) int64, ends
+    [(m, n)], ops_all) with the contract of spaln_tpu's
     run_bucket_fused (dp_spliced_pallas.py:1190-1261)."""
     B, IT = bp.B, bp.IT
     flags, spj, row, rc = spliced_slab_trace(bp, prm)
     nrec = IT * B * 4
-    packed = torch.zeros(nrec + 3 * B, dtype=I32, device=bp.device)
+    # records (IT, B, 4) | ends (B, 3) | walk stats (B, 2)
+    packed = torch.zeros(nrec + 5 * B, dtype=I32, device=bp.device)
     se = spliced_last_ends(bp, prm, row, rc,
-                           out=packed[nrec:].view(B, 3))
+                           out=packed[nrec:nrec + 3 * B].view(B, 3))
     recs = spliced_tb_walk(bp, flags, spj, se,
-                           out=packed[:nrec].view(IT, B, 4))
+                           out=packed[:nrec].view(IT, B, 4),
+                           stats=packed[nrec + 3 * B:].view(B, 2))
     if recs.data_ptr() != packed.data_ptr():     # plain versions
         packed[:nrec] = recs.reshape(-1)
-        packed[nrec:] = se.reshape(-1)
-    host = packed.cpu().numpy()
-    se_h = host[nrec:].reshape(B, 3)
+        packed[nrec:nrec + 3 * B] = se.reshape(-1)
+    tail = packed[nrec:].cpu().numpy()
+    se_h = tail[:3 * B].reshape(B, 3)
+    rows = max(int(tail[3 * B:].reshape(B, 2)[:, 0].max()), 1)
+    host = packed[:rows * B * 4].cpu().numpy()
     scores = se_h[:, 0].astype(np.int64)
     ends = [(int(se_h[b, 1]), int(se_h[b, 2])) for b in range(B)]
-    return scores, ends, ops_from_records(host[:nrec].reshape(IT, B, 4), B)
+    return scores, ends, ops_from_records(host.reshape(rows, B, 4), B)

@@ -34,10 +34,11 @@ import contextlib
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from .dp_spliced_cuda import (CSRC, CLUSTER_MAX, SMEM_MAX, _check, _n_sm,
-                              _ptr, build_library)
+                              _ptr, band_at, build_library, on_band)
 from .dp_tron import (TronBatchProblem, NCAND, NEV, N_META, N_REC, N_GEN,
                       G_CODE, G_SIGE, G_SIG5, G_ACCB, BT_BITS, D5_SHIFT,
                       D3_SHIFT, P5_SHIFT, P3_SHIFT, CODE_FILL, B_H, B_HD,
@@ -77,7 +78,7 @@ def _library() -> ctypes.CDLL:
         # operands and outputs (11), shapes, modes and scores (21), the
         # geometry (k, threads, ncta, smem), the scratch (prog, pb, lbest)
         getattr(lib, name).argtypes = [P] * 11 + [I] * 25 + [P] * 3 + [P]
-    lib.tron_walk.argtypes = [P] * 8 + [I] * 8 + [P]
+    lib.tron_walk.argtypes = [P] * 8 + [I] * 8 + [P, P]
     for name in KERNELS:
         getattr(lib, name).restype = I
     lib.tron_error_string.argtypes = [I]
@@ -279,14 +280,23 @@ def tron_forward(bp: TronBatchProblem, prm: TronDpParams,
     return (fl, spj, php), row, rc, loc
 
 
-def tron_walk(bp: TronBatchProblem, planes: tuple, ends: torch.Tensor):
+# K8's band, as csrc/tron_dp.cu has it (TW_CELLS, TW_STEP_T): a walk
+# stages the cells (i - k, t - 6k), k < 32, of its slab, every state,
+# from the cell (i, t) of the step that left the band in force
+TRON_BAND_CELLS = 32
+TRON_BAND_STEP = 6
+
+
+def tron_walk(bp: TronBatchProblem, planes: tuple, ends: torch.Tensor,
+              stats: torch.Tensor | None = None):
     """K8: walk every problem back from its end cell (``ends`` (B, 2)
-    int32 = (m, n)) through K7's planes, one thread a problem.  Returns
+    int32 = (m, n)) through K7's planes, one warp a problem.  Returns
     (recs (B, IT, 5) int32, counts (B,) int32): problem b's first
     counts[b] records, from the end backwards, are (kind, m, n, a1, a2):
     kind 1 D, 2 E (a1 = nt), 3 F (a1 = nt), 4 I (a1 = donor position
     nb5, a2 = phase), 5 an I across a split codon followed by its D.
-    Raises if a walk has not ended within bp.IT steps."""
+    ``stats`` (B, 2) int32, if given, receives each walk's steps and tile
+    loads.  Raises if a walk has not ended within bp.IT steps."""
     fl, spj, php = planes
     dev = bp.device
     B, S, T, L = bp.B, bp.S, bp.T, bp.L
@@ -295,19 +305,108 @@ def tron_walk(bp: TronBatchProblem, planes: tuple, ends: torch.Tensor):
                         ("php", php, torch.int8)):
         _check(name, t, dt, (B, S, T, nn, L), dev)
     _check("ends", ends, I32, (B, 2), dev)
+    if stats is not None:
+        _check("stats", stats, I32, (B, 2), dev)
     if dev.type == "cpu":
         recs, counts, done = tron_walk_plain(bp, planes, ends)
+        if stats is not None:
+            stats.copy_(tron_walk_stats(bp, fl, ends, recs, counts))
     else:
         recs = torch.empty((B, bp.IT, N_REC), dtype=I32, device=dev)
         counts = torch.empty((B,), dtype=I32, device=dev)
         done = torch.empty((B,), dtype=I32, device=dev)
         _launch("tron_walk", dev, _ptr(fl), _ptr(spj), _ptr(php),
                 _ptr(bp.meta), _ptr(ends), _ptr(recs), _ptr(counts),
-                _ptr(done), B, S, T, L, nn, bp.IT, N_META, N_REC)
+                _ptr(done), B, S, T, L, nn, bp.IT, N_META, N_REC,
+                None if stats is None else _ptr(stats))
     if not bool(done.bool().all()):
         raise RuntimeError(f"tron walk: a walk did not end within "
                            f"{bp.IT} steps")
     return recs, counts
+
+
+def tron_walk_tiles(bp: TronBatchProblem, fl: torch.Tensor,
+                    ends: torch.Tensor, recs: torch.Tensor,
+                    counts: torch.Tensor) -> list:
+    """The bands K8's kernel stages, problem by problem, from the walks'
+    records and end cells and from the flags plane ``fl`` (B, S, T, NN,
+    L) at the records' cells (the one fact the records leave out: the
+    state in which the walk arrives at a cell, which decides where an
+    intron close at phase 2 resumes): for each problem (steps, [(step,
+    (s, i, t, 1, 6, n))]), the cells (i - k, t - 6k), k < n, of slab s loaded
+    at step ``step``.  The kernel reads the walk's cell every step
+    (twice where state 0 hands over to a gap state) while the cell lies
+    in the planes; where it is off the band in force, it first stages
+    the band from it: n = min(32, i + 1, t // 6 + 1)."""
+    B, S, T, nn, L = fl.shape
+    lw = bp.meta[:, 2].cpu().numpy().astype(np.int64)
+    counts = counts.cpu().numpy()
+    n_max = max(int(counts.max()), 1) if B else 1
+    rec = recs[:, :n_max].cpu().numpy().astype(np.int64)
+    ends = ends.cpu().numpy().astype(np.int64)
+
+    def cell(b, m, n):
+        s = (m - 1) // L
+        i = (m - 1) - s * L
+        return s, i, n - 3 * (s * L + 1) - lw[b] + 1 + 3 * i
+
+    # the flags of every state at each record's cell, in one gather
+    bb = np.repeat(np.arange(B), n_max)
+    s, i, t = cell(bb, rec[:, :, 1].reshape(-1), rec[:, :, 2].reshape(-1))
+    live = np.arange(n_max)[None, :] < counts[:, None]
+    idx = [torch.as_tensor(np.where(live.reshape(-1), x, 0), device=fl.device)
+           for x in (bb, s, t, i)]
+    flv = fl[idx[0], idx[1], idx[2], :, idx[3]].cpu().numpy().reshape(
+        B, n_max, nn).astype(np.int64)
+    out = []
+    for b in range(B):
+        m, n = int(ends[b, 0]), int(ends[b, 1])
+        st = steps = 0
+        tiles, cur = [], None
+
+        def read(m, n):
+            nonlocal cur, steps
+            c = cell(b, m, n)
+            if not (0 <= c[2] < T and c[0] < S):
+                return False
+            if cur is None or not on_band(cur, *c):
+                cur = band_at(*c, 1, TRON_BAND_STEP, TRON_BAND_CELLS)
+                tiles.append((steps, cur))
+            steps += 1
+            return True
+
+        for j in range(int(counts[b])):
+            k, rm, rn, a1, a2 = (int(v) for v in rec[b, j])
+            if (rm, rn) != (m, n) or not read(m, n):
+                raise ValueError(f"tron walk {b}: record {j} at {(rm, rn)}, "
+                                 f"the walk at {(m, n)}")
+            if st == 0 and flv[b, j, 0] >> 5 & 7:
+                st = int(flv[b, j, 0] >> 5 & 7)       # the hand-over step
+                steps += 1
+            if k == 1:
+                m, n = m - 1, n - 3
+            elif k == 5:
+                m, n = m - 1, a1 - 2
+            elif k == 4:
+                n = a1 + a2 if st else (a1 if a2 == 0 else a1 - 1)
+            else:
+                m, n = m - (k == 3), n - a1
+                if flv[b, j, st] & 0x80:
+                    st = 0
+        if m >= 1 and n >= 1:
+            read(m, n)                          # the dead cell that ends it
+        out.append((steps, tiles))
+    return out
+
+
+def tron_walk_stats(bp: TronBatchProblem, fl: torch.Tensor,
+                    ends: torch.Tensor, recs: torch.Tensor,
+                    counts: torch.Tensor) -> torch.Tensor:
+    """(B, 2) int32 (steps, band loads) of K8's walks from their records:
+    what the kernel writes to ``stats``."""
+    return torch.tensor([[steps, len(tiles)] for steps, tiles in
+                         tron_walk_tiles(bp, fl, ends, recs, counts)],
+                        dtype=I32).reshape(-1, 2)
 
 
 # ------------------------------------------------------- plain versions

@@ -99,6 +99,61 @@ def test_kernels_equal_plain_on_card(cuda, setup, B, M, ilen, L, lws):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("dagp", [False, True])
+def test_walk_steps_and_tile_loads_equal_model_on_card(cuda, setup, dagp):
+    """K3, a strip launch and K8 report each walk's steps and tile loads;
+    they equal the models' (walk_stats, tron_walk_stats) on the same
+    records, and the records equal the plain versions'."""
+    from spaln_tpu_torch.ops import dp_tron as TD
+    from spaln_tpu_torch.ops import dp_tron_cuda as TK
+    from spaln_tpu_torch.ops.params import DpFlags
+    cfg, prm, tables = setup
+    p = _dagp(prm) if dagp else prm
+    qs, gs, ss = _problems(cfg, tables, 5, 150, 200, seed=9)
+    bp = dp.prepare_spliced_batch(qs, gs, p, sigs=ss, L=16, device=cuda)
+    fl, spj, row, rc = K.spliced_slab_trace(bp, p)
+    se = K.spliced_last_ends(bp, p, row, rc)
+    st = torch.empty((bp.B, 2), dtype=torch.int32, device=cuda)
+    recs = K.spliced_tb_walk(bp, fl, spj, se, stats=st)
+    assert torch.equal(recs, K.tb_walk_plain(bp, fl, spj, se))
+    assert torch.equal(st.cpu(), K.walk_stats(recs, fl, bp.lws_t))
+    starts = torch.tensor([[min((s + 1) * 16, bp.Ms[b]),
+                            min((s + 1) * 16, bp.Ms[b]) + bp.lws[b]
+                            + bp.W // 2, (0, 2)[(b + s) % 2], s * 16, b]
+                           for b in range(bp.B) for s in range(1, bp.S)],
+                          dtype=torch.int32, device=cuda)
+    IT = dp.strip_walk_bound(16, bp.W)
+    sst = torch.empty((starts.shape[0], 2), dtype=torch.int32, device=cuda)
+    r = K.spliced_tb_strips(fl[1:].contiguous(), spj[1:].contiguous(),
+                            starts, bp.lws_t, 1, IT, stats=sst)
+    assert torch.equal(r, K.tb_strips_plain(fl[1:].contiguous(),
+                                            spj[1:].contiguous(), starts,
+                                            bp.lws_t, 1, IT))
+    col = starts[:, 4].long()
+    assert torch.equal(sst.cpu(), K.walk_stats(
+        r, fl[1:].contiguous(), bp.lws_t[col], 1, starts[:, 2], col))
+    tcfg, tprm, ipen = _tron_setup(dagp)
+    tq, tg, ts, lws, W, lbs = _tron_problems(tcfg, 4, seed=21)
+    tbp = TD.prepare_tron_batch(tq, tg, ts, tprm, ipen, lws=lws, W=W, L=32,
+                                flags=DpFlags(local=True), loc_bounds=lbs,
+                                device=cuda)
+    planes, row, rc, loc = TK.tron_forward(tbp, tprm)
+    ends = TD.collect_tron_ends(tbp, row.cpu().numpy(), rc.cpu().numpy(),
+                                loc.cpu().numpy())
+    et = torch.tensor([[e[1], e[2]] for e in ends], dtype=torch.int32,
+                      device=cuda)
+    tst = torch.empty((tbp.B, 2), dtype=torch.int32, device=cuda)
+    recs, counts = TK.tron_walk(tbp, planes, et, stats=tst)
+    precs, pcounts, _ = TK.tron_walk_plain(tbp, planes, et)
+    assert torch.equal(counts, pcounts)
+    for b in range(tbp.B):
+        assert torch.equal(recs[b, :int(counts[b])],
+                           precs[b, :int(counts[b])])
+    assert torch.equal(tst.cpu(), TK.tron_walk_stats(tbp, planes[0], et,
+                                                     recs, counts))
+    torch.cuda.synchronize()
+
+
 def test_run_bucket_on_card_equals_cpu(cuda, setup):
     cfg, prm, tables = setup
     qs, gs, ss = _problems(cfg, tables, 5, 150, 200, seed=9)
@@ -673,7 +728,8 @@ def test_knockout_none_build_equals_production(cuda):
 # (registers a thread, spill stores, spill loads) of every instance of the
 # production spliced_dp.cu, from nvcc 12.8's -Xptxas -v on the card
 # before the knock-out define (SLAB_ABLATE) was added: slab_kernel<MODE,
-# DAGP, MULTI, MAXT, P>
+# DAGP, MULTI, MAXT, P>; tb_walk_kernel's as the warp-a-walk band walk
+# has them
 SLAB_PTXAS = {
     "slab_kernel<2,0,0,1024,2>": (64, 88, 116),
     "slab_kernel<2,0,1,1024,2>": (64, 100, 124),
@@ -699,18 +755,16 @@ SLAB_PTXAS = {
     "slab_kernel<0,0,1,896,2>": (72, 108, 164),
     "slab_kernel<0,0,0,896,1>": (70, 0, 0),
     "slab_kernel<0,0,1,896,1>": (68, 0, 0),
-    "tb_walk_kernel": (32, 0, 0),
+    "tb_walk_kernel": (50, 0, 0),
     "last_ends_kernel": (25, 0, 0),
 }
 
 
-def test_production_registers_unchanged(cuda):
-    """Every instance of the production spliced_dp.cu keeps the registers
-    and spills nvcc -Xptxas -v gave it before the knock-out define was
-    added (the define is off there: the same code)."""
+def _ptxas_pins(log: str) -> dict:
+    """kernel instance -> [registers, spill stores, spill loads] from an
+    nvcc -Xptxas -v log."""
     import re
     import chip_smoke
-    _, _, log = K.build_library()
     got, name = {}, None
     for line in chip_smoke._ptxas_report(log):
         if not line.startswith("  "):
@@ -722,7 +776,24 @@ def test_production_registers_unchanged(cuda):
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
             got[name][1:] = [int(m[1]), int(m[2])]
-    assert {k: tuple(v) for k, v in got.items()} == SLAB_PTXAS
+    return {k: tuple(v) for k, v in got.items()}
+
+
+def test_tron_walk_registers_pinned(cuda):
+    """K8's walk kernel (a warp a problem on bands staged in shared
+    memory) keeps the registers and no spills nvcc -Xptxas -v gave it on
+    the card."""
+    from spaln_tpu_torch.ops import dp_tron_cuda as TK
+    _, _, log = TK.build_library(TK.SOURCE)
+    assert _ptxas_pins(log)["tron_walk_kernel"] == (64, 0, 0)
+
+
+def test_production_registers_unchanged(cuda):
+    """Every instance of the production spliced_dp.cu keeps the registers
+    and spills nvcc -Xptxas -v gave it before the knock-out define was
+    added (the define is off there: the same code)."""
+    _, _, log = K.build_library()
+    assert _ptxas_pins(log) == SLAB_PTXAS
 
 
 # ------------------------------------------- skeletons, pieces, the bench
