@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of the map, align, search and pair paths from
-spaln_tpu_torch/csrc/spliced_dp.cu (ten C entries), of the protein
+spaln_tpu_torch/csrc/spliced_dp.cu (eleven C entries), of the protein
 path from spaln_tpu_torch/csrc/tron_dp.cu (three), the step probes
 from spaln_tpu_torch/csrc/probes.cu (six) and the step skeletons from
 spaln_tpu_torch/csrc/mosaic_repro.cu (one entry, 30 instances), one nvcc
@@ -15,7 +15,11 @@ per source, started together, then:
    K4 (links), K1's retrace of slab 1 from K4's snapshot (against the
    full K1 planes of slab 1) and K3's strip mode (spliced_tb_strips)
    included; the walks' steps and tile loads (their kernels' stats)
-   equal to the CPU model's (walk_stats) on the same records.  Then the
+   equal to the CPU model's (walk_stats) on the same records.  K2e at
+   both widths (a warp and a CTA a problem) and the plane path's fused
+   entry (spliced_ends_tb_walk: K2e then K3 in one launch) against
+   their plain versions and walk_stats, on K1's rows and on tie-heavy
+   rows (tie_rows), here and on the tetrapod-width bucket below.  Then the
    same for the double-affine (-yl3) entries on a bucket of the same
    shape whose genes also carry 30-90 nt in-exon indels (some path cell
    must be won by a long-gap state), and the score-only entry on that
@@ -77,8 +81,9 @@ per source, started together, then:
    aa) and 200 queries copied from random entries with 5-30%
    substitutions and 0-2 indels, `search -a db.fa --max-hits 10
    --align-top 1 -O0,1`: >= 95% of queries with their source as the top
-   hit, every score pass on the score-only entry and every traced hit on
-   K1, K2e and K3; then `pair` on the 200 (query, source) pairs;
+   hit, every score pass on the score-only entry and K2e, every traced
+   hit on K1 and the fused K2e + K3; then `pair` on the 200 (query,
+   source) pairs;
 8. protein map: a synthetic 32 Mb genome (4 chromosomes, GC ~41%) with
    100 planted protein-coding genes (proteins of median 375 aa, 3-10
    exons, introns log-uniform over 0.1-10 kb at all three codon phases,
@@ -128,7 +133,10 @@ the package under DIR (an unpacked checkout of another commit; its
 tables from $ALN_TAB), and print one JSON line: two commits timed in
 turns on one card.  --walk-timing times the two traceback walks alone
 (walk_timing: K3 and its strips on phase 1's buckets, K3 at tetrapod
-width, K8 on phase 1's tron batch and phase 8's launches).
+width, K8 on phase 1's tron batch and phase 8's launches), and K2e,
+the fused K2e + K3 beside K2e then K3, and the launch
+floor (probe_k0) at phase 1's bucket, tetrapod width, a traced search
+hit and a search score batch (ends_timing).
 --probe-timing builds the probes, the skeletons,
 the production slab library and its knock-out builds (-DSLAB_ABLATE
 0-17, nvcc all at once), holds every probe body against its plain
@@ -175,6 +183,7 @@ REPLACES = {
     "spliced_last_ends": "spaln_tpu/ops/dp_spliced_pallas.py:1122",
     "spliced_tb_walk": "spaln_tpu/ops/dp_spliced_scan.py:1127",
     "spliced_tb_strips": "spaln_tpu/ops/dp_spliced_scan.py:1235",
+    "spliced_ends_tb_walk": "spaln_tpu/ops/dp_spliced_pallas.py:1075",
     "tron_forward": "spaln_tpu/ops/dp_tron_scan.py:116",
     "tron_forward_dagp": "spaln_tpu/ops/dp_tron_scan.py:116",
     "tron_walk": "spaln_tpu/ops/dp_tron_scan.py:1113",
@@ -361,25 +370,23 @@ def _reset_counts(K) -> None:
 
 @contextlib.contextmanager
 def plain_on_card(K):
-    """Test hook: route run_bucket's three kernel calls to the plain
+    """Test hook: route run_bucket's two kernel calls to the plain
     PyTorch versions, on the same CUDA tensors."""
-    saved = (K.spliced_slab_trace, K.spliced_last_ends, K.spliced_tb_walk)
+    saved = (K.spliced_slab_trace, K.spliced_ends_tb_walk)
 
-    def walk(bp, fl, spj, ends, out=None, stats=None):
-        recs = K.tb_walk_plain(bp, fl, spj, ends)
+    def ends_walk(bp, prm, fl, spj, row, rc, ends=None, out=None,
+                  stats=None):
+        se, recs = K.ends_tb_walk_plain(bp, prm, fl, spj, row, rc)
         if stats is not None:
             stats.copy_(K.walk_stats(recs, fl, bp.lws_t))
-        return recs
+        return se, recs
 
     K.spliced_slab_trace = lambda bp, prm: K.slab_trace_plain(bp, prm)
-    K.spliced_last_ends = (lambda bp, prm, row, rc, out=None:
-                           K.last_ends_plain(bp, prm, row, rc))
-    K.spliced_tb_walk = walk
+    K.spliced_ends_tb_walk = ends_walk
     try:
         yield
     finally:
-        (K.spliced_slab_trace, K.spliced_last_ends,
-         K.spliced_tb_walk) = saved
+        K.spliced_slab_trace, K.spliced_ends_tb_walk = saved
 
 
 # --------------------------------------------------------------- phase 1
@@ -409,13 +416,13 @@ def _walk_check(K, label: str, recs, stats, *model) -> dict:
 
 
 def _launch_ms(M, fn, reps: int) -> float:
-    """Device ms a launch of the one C entry that fn reaches through the
-    wrapper module M, from a cold L2 (as after the forward's gigabytes of
-    planes): the entry's arguments caught on a first call (and every
-    tensor they point into kept), then reps times a 128 MB buffer
-    zeroed (the L2 is 50 MB) and the entry called between CUDA events,
-    queued while the card still zeroes, so that no host work lies
-    between the events."""
+    """Device ms of the C entries that fn reaches through the wrapper
+    module M (one launch, or several in order), from a cold L2 (as after
+    the forward's gigabytes of planes): the entries' arguments caught on
+    a first call (and every tensor they point into kept), then reps
+    times a 128 MB buffer zeroed (the L2 is 50 MB) and the entries
+    called between CUDA events, queued while the card still zeroes, so
+    that no host work lies between the events."""
     import ctypes
     seen, keep = [], []
     launch, ptr = M._launch, M._ptr
@@ -432,8 +439,7 @@ def _launch_ms(M, fn, reps: int) -> float:
         fn()
     finally:
         M._launch, M._ptr = launch, ptr
-    (name, args), = seen
-    entry = getattr(M._library(), name)
+    calls = [(getattr(M._library(), name), args) for name, args in seen]
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     flush = torch.empty(32 << 20, dtype=torch.int32, device="cuda")
     events = []
@@ -442,7 +448,8 @@ def _launch_ms(M, fn, reps: int) -> float:
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
-        entry(*args, stream)
+        for entry, args in calls:
+            entry(*args, stream)
         t1.record()
         events.append((t0, t1))
     torch.cuda.synchronize()
@@ -465,6 +472,151 @@ def _walk_log(name: str, r: dict) -> str:
             f"a wrapper call), {r['steps']} serial steps = "
             f"{r['ns_per_step']:.1f} ns a step, {r['tile_loads']:.2f} tile "
             f"loads a walk (most {r['tile_loads_max']})")
+
+
+def _ends_checks(K, bp, prm, k1, label: str, walk_kinds,
+                 timed: bool = True) -> dict:
+    """K2e on K1's (row, rc) and on every tie kind, and the fused K2e + K3
+    (spliced_ends_tb_walk) on K1's rows and on the tie kinds
+    ``walk_kinds``, against their plain versions, the fused one's walk
+    stats against walk_stats: all exact.  With ``timed``, returns the
+    fused entry's row on K1's rows: device ms a launch (_launch_ms), ms a
+    wrapper call (call_ms), plain ms and the walk's keys."""
+    flags, spj, row, rc = k1
+    for kind in ("K1", *TIE_KINDS):
+        r, c = ((row, rc) if kind == "K1"
+                else tie_rows(kind, bp, row, rc, SEED))
+        want = K.last_ends_plain(bp, prm, r, c)
+        _equal(f"spliced_last_ends ({label}, {kind})",
+               [K.spliced_last_ends(bp, prm, r, c)], [want])
+        if kind != "K1" and kind not in walk_kinds:
+            continue
+        st = torch.empty((bp.B, 2), dtype=torch.int32, device="cuda")
+        se, recs = K.spliced_ends_tb_walk(bp, prm, flags, spj, r, c,
+                                          stats=st)
+        _equal(f"spliced_ends_tb_walk ({label}, {kind})", [se, recs],
+               [want, K.tb_walk_plain(bp, flags, spj, want)])
+        keys = _walk_check(K, f"spliced_ends_tb_walk ({label}, {kind})",
+                           recs, st, flags, bp.lws_t)
+        if kind == "K1":
+            walk_keys = keys
+    log(f"{label} (B={bp.B} Nmax={bp.Nmax} Mpad={bp.Mpad}): K2e exact on "
+        f"K1's rows and {len(TIE_KINDS)} tie kinds, the fused K2e + K3 on "
+        f"K1's rows and {len(walk_kinds)} tie kinds (walk stats as the "
+        f"model's)")
+    if not timed:
+        return {}
+    fused = _timed_walk(dict(
+        max_abs_err=0,
+        plain_ms=_timed(lambda: K.ends_tb_walk_plain(bp, prm, flags, spj,
+                                                     row, rc), 2),
+        **walk_keys),
+        lambda: K.spliced_ends_tb_walk(bp, prm, flags, spj, row, rc), 20, K)
+    log(_walk_log(f"{label}: spliced_ends_tb_walk", fused))
+    return {"spliced_ends_tb_walk": fused}
+
+
+def _score_ends(K, dp) -> dict:
+    """K2e's row at the shape that launches it on the main path: a score
+    batch of phase 7's search at its largest (B=64, _protein_batch), its
+    (row, rc) from K5 and on every tie kind, against the plain version;
+    device ms a launch (_launch_ms), ms a wrapper call, plain ms, and
+    the bound from the cells this batch's segments hold."""
+    bp, prm = _protein_batch(dp)
+    row, rc = K.spliced_slab_score(bp, prm)
+    for kind in ("K5", *TIE_KINDS):
+        r, c = ((row, rc) if kind == "K5"
+                else tie_rows(kind, bp, row, rc, SEED))
+        _equal(f"spliced_last_ends (score batch, {kind})",
+               [K.spliced_last_ends(bp, prm, r, c)],
+               [K.last_ends_plain(bp, prm, r, c)])
+    fn = lambda: K.spliced_last_ends(bp, prm, row, rc)
+    _launch_ms(K, fn, 20)         # a shape's first timing reads 1-3 us high
+    cells = _ends_cells(bp)
+    r = dict(max_abs_err=0, ms=_launch_ms(K, fn, 20), call_ms=_timed(fn, 20),
+             plain_ms=_timed(lambda: K.last_ends_plain(bp, prm, row, rc), 5),
+             work=(4 * cells + 24 * bp.B, 2 * cells))
+    r["bound_ms"], r["bound_by"] = _bound(*r["work"])
+    log(f"kernel spliced_last_ends: exact (max_abs_err 0) on a score batch "
+        f"(B={bp.B} Nmax={bp.Nmax} Mpad={bp.Mpad}) and {len(TIE_KINDS)} tie "
+        f"kinds; {r['ms']:.4f} ms on the card, {r['call_ms']:.4f} ms a "
+        f"wrapper call, plain {r['plain_ms']:.3f} ms, bound "
+        f"{r['bound_ms']:.7f} ms by {r['bound_by']} ({r['work'][0]} bytes, "
+        f"{r['work'][1]} int32 ops: {cells} cells of row and rc read)")
+    return r
+
+
+def _ends_cells(bp) -> int:
+    """The row and rc cells K2e reads in the bucket ``bp``: each problem's
+    final-row segment (under a_exgr), right-column segment (under
+    b_exgr) and H(M, N)."""
+    fl = bp.flags
+    return sum(fl.a_exgr * max(rh - rl, 0) + fl.b_exgr * max(ch - cl, 0) + 1
+               for (rl, rh), (cl, ch) in _segments(bp))
+
+
+# K2e's tie-heavy inputs: each problem's final-row segment [max(M + lw,
+# 0, 1), N) and right-column segment [max(N - up, 1), M) filled so that
+# the first maximum, the groups' order and the empty segment decide
+TIE_KINDS = ("flat", "repeat", "at_lo", "at_hi", "across_warps", "nev",
+             "row_col_tie")
+NEV = -939524096
+
+
+def _segments(bp) -> list:
+    """Per problem ((row lo, hi), (rc lo, hi)) of K2e's two segments."""
+    out = []
+    for M, N, lw in zip(bp.Ms, bp.Ns, bp.lws):
+        up = lw + bp.W - 1
+        out.append(((max(M + lw, 0, 1), N), (max(N - up, 1), M)))
+    return out
+
+
+def tie_rows(kind: str, bp, row: torch.Tensor, rc: torch.Tensor,
+             seed: int = 0) -> tuple:
+    """(row, rc) of the bucket ``bp`` with tie-heavy values, on their
+    device: ``flat`` every value 5 and H(M, N) 0 (the row segment's first
+    index wins, the column ties it and loses); ``repeat`` values 0-2 and
+    H(M, N) -1 (the maximum repeated in every warp's share); ``at_lo``
+    flat with a row maximum at the segment's first index and a greater
+    column one there; ``at_hi`` both at the last index, the row's
+    greater; ``across_warps`` values 0-2 with a maximum three times, 131
+    cells apart, in both segments (a tie the row wins); ``nev`` NEV
+    everywhere; ``row_col_tie`` values 0-100 with 200 at a random index
+    of each segment."""
+    rng = np.random.default_rng(seed)
+    r = row.cpu().numpy().copy()
+    c = rc.cpu().numpy().copy()
+    if kind == "flat":
+        r[:], c[:] = 5, 5
+    elif kind in ("repeat", "across_warps"):
+        r[:] = rng.integers(0, 3, r.shape)
+        c[:] = rng.integers(0, 3, c.shape)
+    elif kind in ("at_lo", "at_hi"):
+        r[:], c[:] = 5, 5
+    elif kind == "nev":
+        r[:], c[:] = NEV, NEV
+    elif kind == "row_col_tie":
+        r[:] = rng.integers(0, 101, r.shape)
+        c[:] = rng.integers(0, 101, c.shape)
+    else:
+        raise ValueError(f"tie kind {kind!r}")
+    for b, ((rlo, rhi), (clo, chi)) in enumerate(_segments(bp)):
+        if kind in ("flat", "repeat"):
+            r[b, bp.Ns[b]] = 0 if kind == "flat" else -1
+        for a, lo, hi, top in ((r, rlo, rhi, 10), (c, clo, chi, 9)):
+            if hi <= lo:
+                continue
+            if kind == "at_lo":
+                a[b, lo] = 19 - top
+            elif kind == "at_hi":
+                a[b, hi - 1] = top
+            elif kind == "across_warps":
+                a[b, lo + 7:hi:131] = 50
+            elif kind == "row_col_tie":
+                a[b, int(rng.integers(lo, hi))] = 200
+    return (torch.from_numpy(r).to(row.device),
+            torch.from_numpy(c).to(rc.device))
 
 
 def _phase1_bucket(dp, ctx):
@@ -517,15 +669,9 @@ def check_kernels(K, dp, ctx):
         max_abs_err=err, plain_ms=plain1,
         ms=_timed(lambda: K.spliced_slab_trace(bp, prm), 5))
     flags, spj, row, rc = k1
+    out.update(_ends_checks(K, bp, prm, k1, "phase 1", TIE_KINDS))
+    out["spliced_last_ends"] = _score_ends(K, dp)
     e_k = K.spliced_last_ends(bp, prm, row, rc)
-    e_p = K.last_ends_plain(bp, prm, row, rc)
-    err = _max_abs_err(e_k, e_p)
-    if err:
-        raise AssertionError(f"spliced_last_ends differs from plain: {err}")
-    out["spliced_last_ends"] = dict(
-        max_abs_err=err,
-        ms=_timed(lambda: K.spliced_last_ends(bp, prm, row, rc), 20),
-        plain_ms=_timed(lambda: K.last_ends_plain(bp, prm, row, rc), 5))
     st = torch.empty((bp.B, 2), dtype=torch.int32, device="cuda")
     r_k = K.spliced_tb_walk(bp, flags, spj, e_k, stats=st)
     r_p = K.tb_walk_plain(bp, flags, spj, e_k)
@@ -609,6 +755,7 @@ def check_kernels(K, dp, ctx):
     cells, acc, don = _dp_cells(bp, range(S))
     ops_dp = cells * OPS_CELL + acc * OPS_ACC + don * OPS_DON
     rowrc = 4 * B * (Np + bp.Mpad + 1)
+    ends_cells = _ends_cells(bp)
     c1, a1, d1 = _dp_cells(bp, [1])
     steps = int((r_k[:, :, 1] != 0).sum())
     steps_s = int((rs_k[:, :, 1] != 0).sum())
@@ -622,14 +769,17 @@ def check_kernels(K, dp, ctx):
                                           + 2 * (T + 2)) + 13 * c1,
                                  c1 * OPS_CELL + a1 * OPS_ACC
                                  + d1 * OPS_DON),
-        "spliced_last_ends": (rowrc + 24 * B, 2 * B * (Np + bp.Mpad)),
         "spliced_tb_walk": (25 * steps, OPS_WALK * steps),
+        "spliced_ends_tb_walk": (4 * ends_cells + 24 * B + 25 * steps,
+                                 2 * ends_cells + OPS_WALK * steps),
         "spliced_tb_strips": (25 * steps_s, OPS_WALK * steps_s),
     }
     for name, (nb, no) in work.items():
         out[name]["bound_ms"], out[name]["bound_by"] = _bound(nb, no)
         out[name]["work"] = (nb, no)
     for name, r in out.items():
+        if name == "spliced_last_ends":
+            continue                            # logged at its own shape
         log(f"kernel {name}: exact (max_abs_err {r['max_abs_err']}); "
             f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms, bound "
             f"{r['bound_ms']:.7f} ms by {r['bound_by']} ({r['work'][0]} "
@@ -637,7 +787,8 @@ def check_kernels(K, dp, ctx):
             f"(B=8 L=128 W=1152 S=2 T={T}: {cells} band cells of "
             f"{S * T * B * L} lane-steps, {acc} acceptor and {don} donor "
             f"cells; slab 1: {c1} band cells)")
-    for name in ("spliced_tb_walk", "spliced_tb_strips"):
+    for name in ("spliced_tb_walk", "spliced_tb_strips",
+                 "spliced_ends_tb_walk"):
         log(_walk_log(f"kernel {name}", out[name]))
     return out
 
@@ -709,11 +860,12 @@ def _protein(rng, n: int) -> str:
     return "".join(np.array(list(AMINO))[rng.choice(20, n, p=AA_FREQ)])
 
 
-def _protein_batch(dp):
+def _protein_batch(dp, traced: bool = False):
     """A candidate batch of the search's score pass at its largest: one
     query against 64 DB entries, full band (lw = -Mmax, up = Nmax),
     L = 128, the protein matrix's alphabet and the parameters
-    search_protein_db builds."""
+    search_protein_db builds; with ``traced``, the traced hit: the
+    query against its source alone (B = 1)."""
     from spaln_tpu_torch.config import Config, PvsP, resolve
     from spaln_tpu_torch.ops.params import DpFlags, DpParams
     from spaln_tpu_torch.score.simmtx import Simmtx
@@ -723,10 +875,13 @@ def _protein_batch(dp):
     lens = _protein_lengths(rng, 64)
     db = [_protein(rng, int(n)) for n in lens]
     # the query: a copy of the entry nearest the median length
-    query = _mutate_protein(rng, db[int(np.argmin(abs(lens - 375)))], 0.2)
+    src = int(np.argmin(abs(lens - 375)))
+    query = _mutate_protein(rng, db[src], 0.2)
     prm = DpParams.build(resolve(Config(), PvsP),
                          Simmtx.protein(find_table_dir(), slot=0), PvsP)
-    bp = dp.prepare_spliced_batch([encode_protein(query)] * 64,
+    if traced:
+        db = [db[src]]
+    bp = dp.prepare_spliced_batch([encode_protein(query)] * len(db),
                                   [encode_protein(s) for s in db], prm,
                                   flags=DpFlags(), L=128, device="cuda")
     return bp, prm
@@ -872,6 +1027,7 @@ def check_k5_kernels(K, dp, ctx3):
     ops_dp = (cells * OPS_CELL_DAGP + acc * OPS_ACC_DAGP
               + don * OPS_DON_DAGP)
     rowrc = 4 * B * (Np + bp.Mpad + 1)
+    ends_cells = _ends_cells(bp)
     c1, a1, d1 = _dp_cells(bp, [1])
     pcells, _, _ = _dp_cells(pbp, range(pbp.S))
     prowrc = 4 * pbp.B * (pbp.Nmax + 1 + pbp.Mpad + 1)
@@ -893,6 +1049,8 @@ def check_k5_kernels(K, dp, ctx3):
         out[name]["bound_ms"], out[name]["bound_by"] = _bound(nb, no)
         out[name]["work"] = (nb, no)
     for name, r in out.items():
+        if name == "spliced_last_ends":
+            continue                            # logged at its own shape
         log(f"kernel {name}: exact (max_abs_err {r['max_abs_err']}); "
             f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms, bound "
             f"{r['bound_ms']:.7f} ms by {r['bound_by']} ({r['work'][0]} "
@@ -1187,6 +1345,9 @@ def _slab_timing(K, bp, prm, tag):
                           _with_k(K, k, lambda: K.spliced_slab_retrace(
                               bp, prm, s0, nslab, snap, sel)))
     out = {} if tag else _k3_timing(K, bp, prm, k1, "tetrapod width")
+    if not tag and hasattr(K, "spliced_ends_tb_walk"):
+        _ends_checks(K, bp, prm, k1, "tetrapod width",
+                     ("across_warps", "row_col_tie"), timed=False)
     del k1
     for name, (mode, nslab, kf, fn) in runs.items():
         if mode == "retrace":
@@ -1719,6 +1880,73 @@ def tron_timing(TK, TD) -> dict:
     return out
 
 
+def ends_timing(K, dp, PC, probe, ctx, tctx) -> dict:
+    """K2e alone and with K3, of the package under test, at four shapes:
+    phase 1's bucket (B=8, W=1,152), the tetrapod-width bucket (B=32,
+    W=16,384, S=12), a traced search hit (B=1) and a search score batch
+    (B=64; K2e alone, as the score pass runs it).  Device ms (_launch_ms:
+    every launch of the call between one pair of events, from a cold L2)
+    and ms a wrapper call (call_ms) of K2e; of K2e then K3 (two launches) on
+    the traced shapes; of the fused entry where the package has it; and
+    the launch floor, probe_k0 (PC its module, probe its wrapper's).
+    Every output held against its plain version."""
+    fused = hasattr(K, "spliced_ends_tb_walk")
+    x = torch.zeros((8, 128), dtype=torch.int32, device="cuda")
+    _equal("probe_k0", [probe.k0(x)], [probe.k0_plain(x)])
+    out = {"launch floor": dict(ms=_launch_ms(PC, lambda: probe.k0(x), 50),
+                                call_ms=_timed(lambda: probe.k0(x), 50))}
+    log(f"launch floor (probe_k0): {out['launch floor']['ms']:.4f} ms on the "
+        f"card, {out['launch floor']['call_ms']:.4f} ms a wrapper call")
+    sbp, sprm = _protein_batch(dp)
+    hbp, hprm = _protein_batch(dp, traced=True)
+    shapes = (("phase 1", _phase1_bucket(dp, ctx), ctx.prm),
+              ("tetrapod width", _tetrapod_width_bucket(dp, tctx), tctx.prm),
+              ("search hit", hbp, hprm), ("score batch", sbp, sprm))
+    for label, bp, prm in shapes:
+        if label == "score batch":
+            flags = spj = None
+            row, rc = K.spliced_slab_score(bp, prm)
+        else:
+            flags, spj, row, rc = K.spliced_slab_trace(bp, prm)
+        want = K.last_ends_plain(bp, prm, row, rc)
+        _equal(f"spliced_last_ends ({label})",
+               [K.spliced_last_ends(bp, prm, row, rc)], [want])
+        e = lambda: K.spliced_last_ends(bp, prm, row, rc)
+        _launch_ms(K, e, 20)      # a shape's first timing reads 1-3 us high
+        r = dict(B=bp.B, Nmax=bp.Nmax, Mpad=bp.Mpad, ms=_launch_ms(K, e, 20),
+                 call_ms=_timed(e, 20))
+        out[f"spliced_last_ends {label}"] = r
+        msg = (f"{label} (B={bp.B} Nmax={bp.Nmax} Mpad={bp.Mpad}): K2e "
+               f"{r['ms']:.4f} ms on the card, {r['call_ms']:.4f} ms a "
+               f"call")
+        if flags is not None:
+            recs_want = K.tb_walk_plain(bp, flags, spj, want)
+
+            def pair():
+                return K.spliced_tb_walk(bp, flags, spj,
+                                         K.spliced_last_ends(bp, prm, row,
+                                                             rc))
+            _equal(f"K2e then K3 ({label})", [pair()], [recs_want])
+            w2 = dict(ms=_launch_ms(K, pair, 20), call_ms=_timed(pair, 20))
+            out[f"K2e then K3 {label}"] = w2
+            msg += (f"; K2e then K3 {w2['ms']:.4f} ms on the card, "
+                    f"{w2['call_ms']:.4f} ms a call")
+            if fused:
+                fn = lambda: K.spliced_ends_tb_walk(bp, prm, flags, spj,
+                                                    row, rc)
+                _equal(f"spliced_ends_tb_walk ({label})", list(fn()),
+                       [want, recs_want])
+                w1 = dict(ms=_launch_ms(K, fn, 20), call_ms=_timed(fn, 20))
+                out[f"spliced_ends_tb_walk {label}"] = w1
+                msg += (f"; fused {w1['ms']:.4f} ms on the card, "
+                        f"{w1['call_ms']:.4f} ms a call")
+        log(msg)
+        del flags, spj, row, rc
+    del shapes
+    torch.cuda.empty_cache()
+    return out
+
+
 def walk_timing(K, dp, TK, TD) -> dict:
     """K3 and K8 alone, of the package under test: K3 on phase 1's bucket
     (3 and 5 states) and its slab-1 strips, and on the tetrapod-width
@@ -1732,11 +1960,15 @@ def walk_timing(K, dp, TK, TD) -> dict:
     from spaln_tpu_torch.align.driver import AlignerContext
     from spaln_tpu_torch.align.protein_driver import ProteinAlignerContext
     from spaln_tpu_torch.score.tables import TableDir, find_table_dir
+    from spaln_tpu_torch.probes import _cuda as PC, pallas_probe
     out = {}
     clock = hasattr(K, "walk_stats")     # a package with the band kernels
     dict_tables = TableDir(find_table_dir(), species="Dictyost")
     ctx = AlignerContext.create(dict_tables, "cuda")
     ctx3 = AlignerContext.create(dict_tables, "cuda", y_args=["-yl3"])
+    tctx = AlignerContext.create(TableDir(find_table_dir(),
+                                          species="Tetrapod"), "cuda")
+    out.update(ends_timing(K, dp, PC, pallas_probe, ctx, tctx))
     for label, c, bp in (("phase 1", ctx, _phase1_bucket(dp, ctx)),
                          ("phase 1 dagp", ctx3, _indel_bucket(dp, ctx3))):
         k1 = K.spliced_slab_trace(bp, c.prm)
@@ -1764,8 +1996,6 @@ def walk_timing(K, dp, TK, TD) -> dict:
             f"{r['ms']:.4f} ms, {r['steps']} serial steps = "
             f"{r['ns_per_step']:.1f} ns a step")
         del k1, r1
-    tctx = AlignerContext.create(TableDir(find_table_dir(),
-                                          species="Tetrapod"), "cuda")
     bp = _tetrapod_width_bucket(dp, tctx)
     out.update(_k3_timing(K, bp, tctx.prm, K.spliced_slab_trace(
         bp, tctx.prm), "tetrapod width", clock))
@@ -1822,8 +2052,16 @@ def _clocked_source(K) -> str:
     synchronizes and copies the array out."""
     sp = (K.CSRC / "spliced_dp.cu").read_text()
     tr = (K.CSRC / "tron_dp.cu").read_text()
-    k3 = sp[sp.index("constexpr int TB_CELLS"):
-            sp.index("// One launch of the slab kernel")]
+    # K3 alone: the walk body, tb_walk_kernel and its launch (without the
+    # fused entry, in a checkout that has one)
+    end = sp.index("// One launch of the slab kernel")
+    fused = sp.find("// spliced_ends_tb_walk: K2e as the prologue")
+    k3 = sp[sp.index("constexpr int TB_CELLS"):end]
+    if fused >= 0:
+        k3 = (sp[sp.index("constexpr int TB_CELLS"):fused]
+              + sp[sp.index("int tb_walk_entry(", fused):end])
+    k3_head = ("const int lane = threadIdx.x;" if fused >= 0
+               else "const int w = blockIdx.x, lane = threadIdx.x;")
     k8 = tr[tr.index("constexpr int TW_CELLS"):
             tr.index("// One launch of K7")]
     a = tr.index("constexpr int DEAD = 0")
@@ -1842,8 +2080,7 @@ def _clocked_source(K) -> str:
         return k
     return ("#include <cuda_runtime.h>\n#include <stdint.h>\n"
             "__device__ long long g_clk[1 << 16];\nnamespace {\n" + consts
-            + "\n" + clocked(k3, "w", "const int w = blockIdx.x, lane = "
-                             "threadIdx.x;", "  if (stats && lane == 0) {")
+            + "\n" + clocked(k3, "w", k3_head, "  if (stats && lane == 0) {")
             + "\n" + clocked(k8, "b", "const int b = blockIdx.x, lane = "
                              "threadIdx.x;", "  if (lane == 0) {\n"
                              "    counts[b] = cnt;")
@@ -2361,8 +2598,12 @@ def full_map(K, cli, metrics):
     wall = time.perf_counter() - t0
     launches = dict(K.launches)
     buckets = metrics.counters.get("device_buckets", 0)
-    if buckets < 1 or any(launches[k] != buckets for k in K.PLANE_PATH):
-        raise AssertionError(f"launches {launches} != buckets {buckets}")
+    if (buckets < 1 or any(launches[k] != buckets for k in K.PLANE_PATH)
+            or launches["spliced_last_ends"] or launches["spliced_tb_walk"]):
+        raise AssertionError(f"launches {launches}: expected K1 and the "
+                             f"fused K2e + K3 once a bucket ({buckets})")
+    log(f"full map: {buckets} plane buckets, two launches each: "
+        f"{ {k: launches[k] for k in K.PLANE_PATH} }")
     if any(K.plain_calls.values()):
         raise AssertionError(f"plain versions ran: {K.plain_calls}")
     _check_no_skips(metrics, "full map")
@@ -2514,16 +2755,24 @@ def _check_no_skips(metrics, label: str) -> None:
 
 
 def _check_udh_kernels(K, metrics, label: str) -> None:
-    """Every UDH bucket ran on K4, K1 retrace and K3 strip; no plain
+    """Every UDH bucket ran on K4, K2e, K1 retrace and K3 strip, every
+    plane bucket (or align window) on K1 and the fused K2e + K3; no plain
     version ran; no query was skipped."""
     _check_no_skips(metrics, label)
     udh = metrics.counters.get("udh_buckets", 0)
+    planes = metrics.counters.get("device_buckets", 0)
     n = K.launches
     if udh and not (n["spliced_slab_links"] >= udh
                     and n["spliced_tb_strips"] == n["spliced_slab_retrace"]
                     >= udh):
         raise AssertionError(f"{label}: {udh} UDH buckets, launches "
                              f"{dict(n)}")
+    if (n["spliced_last_ends"] != n["spliced_slab_links"]
+            or not n["spliced_ends_tb_walk"] == n["spliced_slab_trace"]
+            >= planes or n["spliced_tb_walk"]):
+        raise AssertionError(f"{label}: {planes} plane buckets, launches "
+                             f"{dict(n)}: expected K2e once a links launch "
+                             f"and the fused K2e + K3 after each K1")
     if any(K.plain_calls.values()):
         raise AssertionError(f"{label}: plain versions ran: "
                              f"{K.plain_calls}")
@@ -2531,19 +2780,19 @@ def _check_udh_kernels(K, metrics, label: str) -> None:
 
 @contextlib.contextmanager
 def _walk_shapes(K):
-    """Each K3 launch's (IT, B, stats) while the block runs (run_bucket's
-    walks, which take stats)."""
-    seen, orig = [], K.spliced_tb_walk
+    """Each of run_bucket's walk launches' (IT, B, stats) while the block
+    runs (the fused K2e + K3)."""
+    seen, orig = [], K.spliced_ends_tb_walk
 
-    def walk(bp, flags, spj, ends, out=None, stats=None):
-        recs = orig(bp, flags, spj, ends, out=out, stats=stats)
+    def walk(bp, *args, stats=None, **kw):
+        out = orig(bp, *args, stats=stats, **kw)
         seen.append((bp.IT, bp.B, stats))
-        return recs
-    K.spliced_tb_walk = walk
+        return out
+    K.spliced_ends_tb_walk = walk
     try:
         yield seen
     finally:
-        K.spliced_tb_walk = orig
+        K.spliced_ends_tb_walk = orig
 
 
 def _copy_back_ms(seen) -> tuple[float, float, int, int]:
@@ -2742,8 +2991,9 @@ def make_indel_queries(d: Path, truth: list) -> dict:
 
 
 def _check_dagp_kernels(K, metrics, label: str) -> None:
-    """Every bucket ran on the double-affine entries (K1-dagp on planes,
-    K4-dagp, its retrace and K3 strip on UDH), none on a single-affine
+    """Every bucket ran on the double-affine entries (K1-dagp and the
+    fused K2e + K3 on planes, K4-dagp, K2e, its retrace and K3 strip on
+    UDH), none on a single-affine
     slab entry; no plain version ran; no query was skipped."""
     _check_no_skips(metrics, label)
     c, n = metrics.counters, K.launches
@@ -2751,7 +3001,9 @@ def _check_dagp_kernels(K, metrics, label: str) -> None:
     if n["spliced_slab_trace_dagp"] != planes or (udh and not (
             n["spliced_slab_links_dagp"] >= udh
             and n["spliced_tb_strips"] == n["spliced_slab_retrace_dagp"]
-            >= udh)):
+            >= udh)) or n["spliced_ends_tb_walk"] != planes or (
+            n["spliced_last_ends"] != n["spliced_slab_links_dagp"]
+            or n["spliced_tb_walk"]):
         raise AssertionError(f"{label}: {planes} plane and {udh} UDH "
                              f"buckets, launches {dict(n)}")
     single = [k for k in ("spliced_slab_trace", "spliced_slab_links",
@@ -2911,11 +3163,13 @@ def protein_search(K, cli, metrics):
         c, n = dict(metrics.counters), dict(K.launches)
         batches = c.get("search_score_batches", 0)
         traced = c.get("search_traced_hits", 0)
+        # a score batch: K5 score-only and K2e; a traced hit: K1 and the
+        # fused K2e + K3 (run_bucket)
         if (batches < len(truth) or n["spliced_slab_score"] != batches
                 or traced != len(truth)
-                or any(n[k] != traced for k in ("spliced_slab_trace",
-                                                 "spliced_tb_walk"))
-                or n["spliced_last_ends"] != batches + traced):
+                or any(n[k] != traced for k in K.PLANE_PATH)
+                or n["spliced_last_ends"] != batches
+                or n["spliced_tb_walk"]):
             raise AssertionError(f"{cmd}: {batches} score batches, {traced} "
                                  f"traced hits, launches {n}")
         hits = _hit_lines(out.read_text(), truth)
@@ -3266,10 +3520,14 @@ def timing_main(what: str, argv: list) -> int:
         from spaln_tpu_torch.ops import dp_spliced_cuda as K
         from spaln_tpu_torch.ops import dp_tron as TD
         from spaln_tpu_torch.ops import dp_tron_cuda as TK
-        with ThreadPoolExecutor(2) as pool:
-            builds = list(pool.map(K.build_library, (K.SOURCE, TK.SOURCE)))
+        from spaln_tpu_torch.probes import _cuda as PC
+        with ThreadPoolExecutor(3) as pool:
+            builds = list(pool.map(K.build_library, (K.SOURCE, TK.SOURCE,
+                                                     PC.SOURCE)))
         for so, secs, ptxas in builds:
             log(f"  {so.name}: nvcc {secs:.1f} s")
+            if so.name.startswith("libprobes"):
+                continue
             for line in _ptxas_report(ptxas):
                 log("  ptxas: " + line)
         print(json.dumps({"walk_timing": walk_timing(K, dp, TK, TD),
@@ -3392,6 +3650,11 @@ def main() -> int:
         launches[k] = yl3["udh"]["launches"][k]
     launches["spliced_slab_score"] = \
         prot["search"]["launches"]["spliced_slab_score"]
+    # K2e from phase 7's score pass, one a score batch (the plane path
+    # runs it inside the fused entry; spliced_tb_walk, K3 alone, is on no
+    # path: its walk runs in the fused entry, its kernel in the strips')
+    launches["spliced_last_ends"] = \
+        prot["search"]["launches"]["spliced_last_ends"]
     # the tron entries from phase 8's maps: K7 and K8 from the default
     # run, K7's double-affine mode from -y l3's
     launches["tron_forward"] = pmap["default"]["launches"]["tron_forward"]
@@ -3402,8 +3665,11 @@ def main() -> int:
     sources = {k: src for k in K.KERNELS}
     sources.update({k: str(TK.SOURCE.relative_to(ROOT)) for k in TK.KERNELS})
     names = K.KERNELS + TK.KERNELS
-    if not all(launches[k] > 0 for k in names):
-        raise AssertionError(f"a kernel of the path never ran: {launches}")
+    path = set(K.PLANE_PATH + K.PLANE_PATH_DAGP + K.UDH_PATH
+               + K.UDH_PATH_DAGP + K.SCORE_PATH + TK.KERNELS)
+    if not all(launches[k] > 0 for k in path) or launches["spliced_tb_walk"]:
+        raise AssertionError(f"a kernel of the path never ran, or K3 ran "
+                             f"alone: {launches}")
     rows = probe_res["rows"]
     idle = [k for k, r in rows.items() if r["launches"] == 0]
     if idle:
@@ -3420,7 +3686,10 @@ def main() -> int:
              ms=results[k]["ms"], plain_ms=results[k]["plain_ms"],
              bound_ms=results[k]["bound_ms"],
              bound_by=results[k]["bound_by"], library_ms=None,
-             **{x: results[k][x] for x in WALK_KEYS if x in results[k]})
+             **{x: results[k][x] for x in (*WALK_KEYS, "call_ms")
+                if x in results[k]},
+             **({} if k in path else {"main_path": "none: its walk runs "
+                                      "in spliced_ends_tb_walk"}))
         for k in names] + [
         dict(name=k, route="cuda", source=probe_src,
              replaces=probes.REPLACES[k.split(":")[0]],

@@ -236,7 +236,7 @@ def execute_jobs(jobs: list[AlignJob], ctx: AlignerContext,
                  ) -> list[GeneStructure | None | BaseException]:
     """Run many jobs through the device DP, bucketed by geometry (W,
     Mpad).  A bucket whose planes fit ``ctx.plane_budget`` runs as
-    batches of one run_bucket each (three kernel launches, one copy
+    batches of one run_bucket each (two kernel launches, one copy
     back); a bucket that would have to shrink its batch for them runs
     whole through the UDH path (links pass, backwalk, retrace)."""
     results: list = [None] * len(jobs)

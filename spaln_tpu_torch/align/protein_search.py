@@ -5,7 +5,8 @@ Aln2b1's seeded driver + CalcServer fan-out, fwd2b1.cc:1405,
 calcserv.h): score one query against many DB entries and align the
 best hits.  Every candidate batch is one launch of the score-only slab
 kernel (K5, spliced_slab_score) and the end extraction (K2e); each top
-hit then takes the plane path (run_bucket: K1 -> K2e -> K3).  Both run
+hit then takes the plane path (run_bucket: K1, then K2e and K3 in one
+launch).  Both run
 on ``device``: the CUDA kernels on a CUDA device, their plain versions
 on the CPU.
 """

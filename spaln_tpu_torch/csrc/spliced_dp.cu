@@ -1,6 +1,6 @@
 // Banded spliced DP of one geometry bucket on an NVIDIA Hopper GPU:
-// three kernels (the slab kernel a template over three modes and the
-// double-affine switch) behind ten entries of a plain C interface (bound
+// four kernels (the slab kernel a template over three modes and the
+// double-affine switch) behind eleven entries of a plain C interface (bound
 // with ctypes by spaln_tpu_torch/ops/dp_spliced_cuda.py, which also holds
 // their plain PyTorch versions).
 //
@@ -897,57 +897,133 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
 // (ops/dp_spliced_pallas.py:1122-1178), with the semantics of the host
 // collect_batch_results (ops/dp_spliced_scan.py:938-1006): strict >
 // between candidate groups, first maximum within a segment, empty
-// segments skipped.
+// segments skipped.  On the plane path it runs as the prologue of K3's
+// launch (spliced_ends_tb_walk, below), as _fused_call runs the
+// extraction and the walk in one program.
 //
-// Design: one CTA per problem; the threads stride over the final-row and
-// right-column segments and reduce (max, first index) through shared
-// memory.  Bound on the H100: launch latency; it reads (N + M) ints per
-// problem, a few hundred KB per bucket.
+// What bounds it on the H100: latency.  It reads (N + M) ints a problem,
+// a few hundred KB a bucket; at a CTA a problem it runs within 1 us of
+// an empty kernel's launch up to 1,024 columns (PERF.md).
+//
+// Design: bucket_ends, a CTA of 8 warps a problem, one barrier.  One
+// loop reads both segments, the final row's [max(n_first, 1), N) and
+// the right column's [max(N - up, 1), M), so their loads overlap, 16
+// bytes at a time: each segment splits into a scalar head up to its
+// first 16-byte boundary, whole int4, and a scalar tail (the row strides
+// Nmax + 1 and Mpad + 1 put the boundary anywhere; ends_partition in
+// dp_spliced_cuda.py models which thread reads which index).  Every
+// thread carries a (value, index) pair for each segment, merged by a
+// shuffle butterfly and one exchange of the warps' pairs in shared
+// memory; the segments stay two results (a row/column tie goes to the
+// row, as the groups' order has it).
 constexpr int ENDS_THREADS = 256;
+constexpr int ENDS_WARPS = ENDS_THREADS / 32;
 
-__device__ void seg_best(const int* v, int lo, int hi, int* sv, int* si,
-                         int* out_v, int* out_i) {
-  int bv = 0, bi = -1;
-  for (int k = lo + (int)threadIdx.x; k < hi; k += blockDim.x)
-    if (bi < 0 || v[k] > bv) { bv = v[k]; bi = k; }
-  sv[threadIdx.x] = bv;
-  si[threadIdx.x] = bi;
-  __syncthreads();
-  for (int w = blockDim.x / 2; w > 0; w >>= 1) {
-    if ((int)threadIdx.x < w) {
-      const int ov = sv[threadIdx.x + w], oi = si[threadIdx.x + w];
-      const int cv = sv[threadIdx.x], ci = si[threadIdx.x];
-      if (oi >= 0 && (ci < 0 || ov > cv || (ov == cv && oi < ci))) {
-        sv[threadIdx.x] = ov;
-        si[threadIdx.x] = oi;
-      }
-    }
-    __syncthreads();
+// The best of two (value, index) pairs of a segment: the other unless it
+// is empty (index -1), and only if it is greater, or equal at a smaller
+// index.  The rule is associative and commutative: any order of merging
+// gives the segment's first maximum.
+__device__ __forceinline__ void seg_take(int& v, int& i, int ov, int oi) {
+  if (oi >= 0 && (i < 0 || ov > v || (ov == v && oi < i))) {
+    v = ov;
+    i = oi;
   }
-  *out_v = sv[0];
-  *out_i = si[0];
-  __syncthreads();
 }
 
-__global__ void last_ends_kernel(const int* __restrict__ row,
-                                 const int* __restrict__ rc,
-                                 const int* __restrict__ Ms,
-                                 const int* __restrict__ Ns,
-                                 const int* __restrict__ lws, int Np,
-                                 int Mpad, int W, int gop, int gep,
-                                 int a_exgl, int a_exgr, int b_exgl,
-                                 int b_exgr, int* __restrict__ ends) {
-  __shared__ int sv[ENDS_THREADS];
-  __shared__ int si[ENDS_THREADS];
-  const int b = blockIdx.x;
-  const int M = Ms[b], N = Ns[b], lw = lws[b];
+// Segment [lo, hi) of the array at v: a scalar head [lo, a) up to the
+// first 16-byte boundary, nv whole int4 from a, a scalar tail
+// [a + 4 nv, hi).
+struct EndsSeg {
+  const int* v;
+  int lo, a, nv, hi;
+};
+
+__device__ __forceinline__ EndsSeg ends_seg(const int* v, int lo, int hi) {
+  EndsSeg s;
+  s.v = v;
+  s.lo = lo;
+  s.hi = max(hi, lo);
+  const int base = (int)((reinterpret_cast<uintptr_t>(v) >> 2) & 3);
+  s.a = min(s.hi, lo + ((4 - ((base + lo) & 3)) & 3));
+  s.nv = (s.hi - s.a) >> 2;
+  return s;
+}
+
+// thread p's scalar reads of a segment: head index lo + p, tail index
+// a + 4 nv + p (p < 3)
+__device__ __forceinline__ void ends_edges(const EndsSeg& s, int p, int& bv,
+                                           int& bi) {
+  if (p < 3) {
+    int k = s.lo + p;
+    if (k < s.a) seg_take(bv, bi, s.v[k], k);
+    k = s.a + 4 * s.nv + p;
+    if (k < s.hi) seg_take(bv, bi, s.v[k], k);
+  }
+}
+
+// int4 c of a segment's body: indices a + 4c .. a + 4c + 3
+__device__ __forceinline__ void ends_vec(const EndsSeg& s, int c, int& bv,
+                                         int& bi) {
+  const int k = s.a + 4 * c;
+  const int4 x = __ldg(reinterpret_cast<const int4*>(s.v + k));
+  seg_take(bv, bi, x.x, k);
+  seg_take(bv, bi, x.y, k + 1);
+  seg_take(bv, bi, x.z, k + 2);
+  seg_take(bv, bi, x.w, k + 3);
+}
+
+// (score, end m, end n) of problem b, by the ENDS_THREADS threads p of
+// one CTA; every one of them calls it (it holds one __syncthreads).  The
+// result is valid in warp 0, in every lane of it.  part: ENDS_WARPS x 4
+// ints of shared memory.
+__device__ __forceinline__ int3 bucket_ends(
+    const int* __restrict__ row, const int* __restrict__ rc, int b, int p,
+    int M, int N, int lw, int Np, int Mpad, int W, int gop, int gep,
+    int a_exgl, int a_exgr, int b_exgl, int b_exgr, int (*part)[4]) {
   const int up = lw + W - 1;
+  const int n_first = max(M + lw, 0);
   const int* rowb = row + (size_t)b * Np;
   const int* rcb = rc + (size_t)b * (Mpad + 1);
-  int bv = rowb[N], bm = M, bn = N;
-  int v, k;
+  const EndsSeg rs = a_exgr ? ends_seg(rowb, max(n_first, 1), N)
+                            : ends_seg(rowb, 0, 0);
+  const EndsSeg cs = b_exgr ? ends_seg(rcb, max(N - up, 1), M)
+                            : ends_seg(rcb, 0, 0);
+  int rv = 0, ri = -1, cv = 0, ci = -1;
+  ends_edges(rs, p, rv, ri);
+  ends_edges(cs, p, cv, ci);
+  const int nv = max(rs.nv, cs.nv);
+#pragma unroll 4
+  for (int c = p; c < nv; c += ENDS_THREADS) {
+    if (c < rs.nv) ends_vec(rs, c, rv, ri);
+    if (c < cs.nv) ends_vec(cs, c, cv, ci);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const int orv = __shfl_xor_sync(0xffffffffu, rv, o);
+    const int ori = __shfl_xor_sync(0xffffffffu, ri, o);
+    const int ocv = __shfl_xor_sync(0xffffffffu, cv, o);
+    const int oci = __shfl_xor_sync(0xffffffffu, ci, o);
+    seg_take(rv, ri, orv, ori);
+    seg_take(cv, ci, ocv, oci);
+  }
+  if ((p & 31) == 0) {
+    part[p >> 5][0] = rv;
+    part[p >> 5][1] = ri;
+    part[p >> 5][2] = cv;
+    part[p >> 5][3] = ci;
+  }
+  __syncthreads();
+  if (p < 32) {
+#pragma unroll
+    for (int w = 1; w < ENDS_WARPS; ++w) {
+      seg_take(rv, ri, part[w][0], part[w][1]);
+      seg_take(cv, ci, part[w][2], part[w][3]);
+    }
+  }
+  // the candidate groups in collect_batch_results' order: H(M, N), the
+  // a_exgr corner, the final row, the b_exgr corner, the right column
+  int bv = rowb[N], bm = M, bn = N, v;
   if (a_exgr) {
-    const int n_first = max(M + lw, 0);
     // stale band-edge / column-0 corner candidates come first
     if (lw >= -M) {
       v = colinit(-lw, b_exgl, gop, gep);
@@ -956,21 +1032,35 @@ __global__ void last_ends_kernel(const int* __restrict__ row,
       v = colinit(M, b_exgl, gop, gep);
       if (v > bv) { bv = v; bm = M; bn = 0; }
     }
-    seg_best(rowb, max(n_first, 1), N, sv, si, &v, &k);
-    if (k >= 0 && v > bv) { bv = v; bm = M; bn = k; }
+    if (ri >= 0 && rv > bv) { bv = rv; bm = M; bn = ri; }
   }
   if (b_exgr) {
     if (max(N - up, 0) == 0) {
       v = a_exgl ? 0 : gop + gep * N;
       if (v > bv) { bv = v; bm = 0; bn = N; }
     }
-    seg_best(rcb, max(N - up, 1), M, sv, si, &v, &k);
-    if (k >= 0 && v > bv) { bv = v; bm = k; bn = N; }
+    if (ci >= 0 && cv > bv) { bv = cv; bm = ci; bn = N; }
   }
-  if (threadIdx.x == 0) {
-    ends[b * 3] = bv;
-    ends[b * 3 + 1] = bm;
-    ends[b * 3 + 2] = bn;
+  return make_int3(bv, bm, bn);
+}
+
+// K2e alone: a CTA a problem
+__global__ void __launch_bounds__(ENDS_THREADS)
+last_ends_kernel(const int* __restrict__ row, const int* __restrict__ rc,
+                 const int* __restrict__ Ms, const int* __restrict__ Ns,
+                 const int* __restrict__ lws, int Np, int Mpad, int W,
+                 int gop, int gep, int a_exgl, int a_exgr, int b_exgl,
+                 int b_exgr, int* __restrict__ ends) {
+  __shared__ int part[ENDS_WARPS][4];
+  const int b = blockIdx.x;
+  const int p = threadIdx.x;
+  const int3 e = bucket_ends(row, rc, b, p, Ms[b], Ns[b], lws[b], Np, Mpad,
+                             W, gop, gep, a_exgl, a_exgr, b_exgl, b_exgr,
+                             part);
+  if (p == 0) {
+    ends[b * 3] = e.x;
+    ends[b * 3 + 1] = e.y;
+    ends[b * 3 + 2] = e.z;
   }
 }
 
@@ -1015,23 +1105,17 @@ __global__ void last_ends_kernel(const int* __restrict__ row,
 constexpr int TB_CELLS = 32;                     // cells of a staged band
 constexpr int TB_STEP_T = 2;                     // rows a diagonal step
 
-__global__ void __launch_bounds__(32)
-tb_walk_kernel(const unsigned char* __restrict__ flags,
-               const int* __restrict__ spj, const int* __restrict__ ends,
-               const int* __restrict__ starts, const int* __restrict__ lws,
-               int nw, int B, int L, int S, int T, int IT, int NS, int s0,
-               int* __restrict__ recs, int* __restrict__ stats) {
-  __shared__ int band[1 + 5][TB_CELLS];     // flags, then junction planes
-  const int w = blockIdx.x, lane = threadIdx.x;
-  int b, m, n, st, m_stop;
-  if (starts) {             // (m, n, state, m_stop, problem column)
-    const int* x = starts + (size_t)w * 5;
-    m = x[0]; n = x[1]; st = x[2]; m_stop = x[3]; b = x[4];
-  } else {
-    b = w;
-    m = ends[b * 3 + 1]; n = ends[b * 3 + 2]; st = 0; m_stop = 0;
-  }
-  const int lw = lws[b];
+// The walk w of nw by the 32 lanes of one warp (lane = threadIdx.x < 32;
+// the warp syncs with __syncwarp alone): from cell (m, n) in state st
+// down to row m_stop (exclusive) through the planes of problem column b,
+// whose band starts at lw; band: the warp's staged band, (1 + 5) x
+// TB_CELLS ints of shared memory (flags, then junction planes).
+__device__ __forceinline__ void tb_walk_body(
+    const unsigned char* __restrict__ flags, const int* __restrict__ spj,
+    int w, int nw, int b, int m, int n, int st, int m_stop, int lw, int B,
+    int L, int S, int T, int IT, int NS, int s0, int* __restrict__ recs,
+    int* __restrict__ stats, int (*band)[TB_CELLS]) {
+  const int lane = threadIdx.x;
   const size_t BL = (size_t)B * L, TBL = (size_t)T * BL;
   bool done = m <= m_stop || n < 1;
   // the walk's slab (relative to s0) and lane of row m, m >= 1 while it
@@ -1140,6 +1224,68 @@ tb_walk_kernel(const unsigned char* __restrict__ flags,
     stats[w * 2] = it;
     stats[w * 2 + 1] = loads;
   }
+}
+
+__global__ void __launch_bounds__(32)
+tb_walk_kernel(const unsigned char* __restrict__ flags,
+               const int* __restrict__ spj, const int* __restrict__ ends,
+               const int* __restrict__ starts, const int* __restrict__ lws,
+               int nw, int B, int L, int S, int T, int IT, int NS, int s0,
+               int* __restrict__ recs, int* __restrict__ stats) {
+  __shared__ int band[1 + 5][TB_CELLS];     // flags, then junction planes
+  const int w = blockIdx.x;
+  int b, m, n, st, m_stop;
+  if (starts) {             // (m, n, state, m_stop, problem column)
+    const int* x = starts + (size_t)w * 5;
+    m = x[0]; n = x[1]; st = x[2]; m_stop = x[3]; b = x[4];
+  } else {
+    b = w;
+    m = ends[b * 3 + 1]; n = ends[b * 3 + 2]; st = 0; m_stop = 0;
+  }
+  tb_walk_body(flags, spj, w, nw, b, m, n, st, m_stop, lws[b], B, L, S, T,
+               IT, NS, s0, recs, stats, band);
+}
+
+// spliced_ends_tb_walk: K2e as the prologue of K3's launch on the plane
+// path (the reference's own fusion, _fused_call).  A CTA of ENDS_THREADS
+// a problem: its 8 warps find the ends (bucket_ends, one barrier),
+// thread 0 writes them to ends and to shared memory, warps 1-7 return
+// and warp 0 walks from them with K3's body.  No __syncthreads may
+// follow the ends' barrier: the walk syncs with __syncwarp alone.
+__global__ void __launch_bounds__(ENDS_THREADS)
+ends_tb_walk_kernel(const unsigned char* __restrict__ flags,
+                    const int* __restrict__ spj, const int* __restrict__ row,
+                    const int* __restrict__ rc, const int* __restrict__ Ms,
+                    const int* __restrict__ Ns, const int* __restrict__ lws,
+                    int B, int L, int S, int T, int IT, int NS, int Np,
+                    int Mpad, int W, int gop, int gep, int a_exgl,
+                    int a_exgr, int b_exgl, int b_exgr,
+                    int* __restrict__ ends, int* __restrict__ recs,
+                    int* __restrict__ stats) {
+  __shared__ int band[1 + 5][TB_CELLS];     // flags, then junction planes
+  __shared__ int part[ENDS_WARPS][4];       // the warps' (row, rc) pairs
+  __shared__ int start[2];                  // the walk's (m, n)
+  const int b = blockIdx.x;
+  const int lw = lws[b];
+  const int3 e = bucket_ends(row, rc, b, threadIdx.x, Ms[b], Ns[b], lw, Np,
+                             Mpad, W, gop, gep, a_exgl, a_exgr, b_exgl,
+                             b_exgr, part);
+  if (threadIdx.x >= 32) return;
+  if (threadIdx.x == 0) {
+    ends[b * 3] = e.x;
+    ends[b * 3 + 1] = e.y;
+    ends[b * 3 + 2] = e.z;
+    start[0] = e.y;
+    start[1] = e.z;
+  }
+  // the walk starts from the ends read back from shared memory, not
+  // from the shuffled registers: values loaded from one address are
+  // warp-uniform to the compiler, so the walk's state and branches stay
+  // uniform as in tb_walk_kernel (from the registers it ran 25-30% slower)
+  __syncwarp();
+  const int m0 = start[0], n0 = start[1];
+  tb_walk_body(flags, spj, b, B, b, m0, n0, 0, 0, lw, B, L, S, T, IT, NS,
+               0, recs, stats, band);
 }
 
 int tb_walk_entry(const unsigned char* flags, const int* spj,
@@ -1325,9 +1471,27 @@ int spliced_last_ends(const int* row, const int* rc, const int* Ms,
                       int Mpad, int W, int gop, int gep, int a_exgl,
                       int a_exgr, int b_exgl, int b_exgr, int* ends,
                       cudaStream_t stream) {
+  if (B <= 0) return 0;
   last_ends_kernel<<<B, ENDS_THREADS, 0, stream>>>(
       row, rc, Ms, Ns, lws, Np, Mpad, W, gop, gep, a_exgl, a_exgr, b_exgl,
       b_exgr, ends);
+  return (int)cudaGetLastError();
+}
+
+// K2e + K3 in one launch (the plane path): ends (B, 3) and the walks'
+// records and stats as spliced_last_ends and spliced_tb_walk give them
+int spliced_ends_tb_walk(const unsigned char* flags, const int* spj,
+                         const int* row, const int* rc, const int* Ms,
+                         const int* Ns, const int* lws, int B, int L, int S,
+                         int T, int IT, int NS, int Np, int Mpad, int W,
+                         int gop, int gep, int a_exgl, int a_exgr,
+                         int b_exgl, int b_exgr, int* ends, int* recs,
+                         int* stats, cudaStream_t stream) {
+  if (B <= 0) return 0;
+  if (NS != 3 && NS != 5) return (int)cudaErrorInvalidValue;
+  ends_tb_walk_kernel<<<B, ENDS_THREADS, 0, stream>>>(
+      flags, spj, row, rc, Ms, Ns, lws, B, L, S, T, IT, NS, Np, Mpad, W, gop,
+      gep, a_exgl, a_exgr, b_exgl, b_exgr, ends, recs, stats);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-"""The device DP of one geometry bucket: ten C entries over the CUDA
+"""The device DP of one geometry bucket: eleven C entries over the CUDA
 kernels of csrc/spliced_dp.cu, their plain PyTorch versions, and
 run_bucket.
 
@@ -28,13 +28,17 @@ run_bucket.
   spliced_last_ends     K2e: the lastS end extraction
                         (dp_spliced_pallas.py:1122-1178, with the
                         collect_batch_results semantics of
-                        dp_spliced_scan.py:938-1006)
+                        dp_spliced_scan.py:938-1006), a CTA a problem
   spliced_tb_walk       K3: the traceback walk over 3 or 5 states
                         (_tb_walker, dp_spliced_scan.py:1127-1196)
   spliced_tb_strips     K3, strip mode: the walks of every (slab, problem)
                         strip of one retrace launch's planes, each from
                         its start down to its slab's upper boundary
                         (traceback_spliced_strip, dp_spliced_scan.py:1235)
+  spliced_ends_tb_walk  K2e as the prologue of K3's launch, the plane
+                        path's (the fusion of _fused_call,
+                        dp_spliced_pallas.py:1075-1178): the ends of a
+                        problem by a CTA, then its walk by one warp
 
 Each wrapper runs the plain version for tensors on the CPU, and for
 tensors on a CUDA device launches its kernel on the current stream or
@@ -83,12 +87,13 @@ KERNELS = ("spliced_slab_trace", "spliced_slab_trace_dagp",
            "spliced_slab_retrace", "spliced_slab_retrace_dagp",
            "spliced_slab_links", "spliced_slab_links_dagp",
            "spliced_slab_score", "spliced_last_ends", "spliced_tb_walk",
-           "spliced_tb_strips")
+           "spliced_tb_strips", "spliced_ends_tb_walk")
 # the C entries each path launches once per batch (the UDH path launches
-# the retrace and strip entries once per sub-batch of slab runs)
-PLANE_PATH = ("spliced_slab_trace", "spliced_last_ends", "spliced_tb_walk")
-PLANE_PATH_DAGP = ("spliced_slab_trace_dagp", "spliced_last_ends",
-                   "spliced_tb_walk")
+# the retrace and strip entries once per sub-batch of slab runs);
+# spliced_tb_walk, K3 alone, is on no path: the tests and the timing
+# call it
+PLANE_PATH = ("spliced_slab_trace", "spliced_ends_tb_walk")
+PLANE_PATH_DAGP = ("spliced_slab_trace_dagp", "spliced_ends_tb_walk")
 UDH_PATH = ("spliced_slab_links", "spliced_last_ends",
             "spliced_slab_retrace", "spliced_tb_strips")
 UDH_PATH_DAGP = ("spliced_slab_links_dagp", "spliced_last_ends",
@@ -166,6 +171,7 @@ def _library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
         getattr(lib, name).argtypes = slab + [P] * 5 + [P]
     lib.spliced_slab_score.argtypes = slab + [I] + [P] * 3 + [P]
     lib.spliced_last_ends.argtypes = [P] * 5 + [I] * 10 + [P, P]
+    lib.spliced_ends_tb_walk.argtypes = [P] * 7 + [I] * 15 + [P] * 3 + [P]
     lib.spliced_tb_walk.argtypes = [P] * 4 + [I] * 6 + [P, P, P]
     lib.spliced_tb_strips.argtypes = [P] * 4 + [I] * 8 + [P, P, P]
     for name in KERNELS:
@@ -900,6 +906,55 @@ def _slab_plain(bp: BatchProblem, prm: DpParams, mode: str = "trace",
 
 
 # ------------------------------------------------------------------ K2e
+# K2e's geometry, as csrc/spliced_dp.cu has it: a CTA of ENDS_THREADS
+# (8 warps) a problem.  On the H100 it runs within 1 us of an empty
+# kernel's launch up to 1,024 columns; a warp a problem was slower from
+# 256 columns and within the noise at 128, shorter than any path's rows
+# (PERF.md: PR 12).
+ENDS_THREADS = 256
+
+
+def ends_partition(base: int, lo: int, hi: int) -> list:
+    """Which thread of K2e's CTA reads which index of a segment [lo, hi)
+    of an int32 array whose element 0 lies ``base`` elements past a
+    16-byte boundary (its address / 4 mod 4): the scalar head [lo, a) up
+    to the first boundary, thread j index lo + j; whole int4 from a,
+    int4 c by thread c mod ENDS_THREADS; the scalar tail after the last
+    whole int4, thread j its j-th index.  Returns a list per thread of
+    the indices it reads (the kernel's loop bounds, bucket_ends).
+
+    The card's tests hold the kernel itself on strides of every residue
+    mod 4, but they run only where there is a card and show a wrong split
+    only as a wrong end; this model is checked on every CPU run and names
+    the index that a wrong split skips or reads twice."""
+    reads = [[] for _ in range(ENDS_THREADS)]
+    hi = max(hi, lo)
+    a = min(hi, lo + (4 - (base + lo) % 4) % 4)
+    nv = (hi - a) // 4
+    for j, k in enumerate(range(lo, a)):
+        reads[j].append(k)
+    for c in range(nv):
+        reads[c % ENDS_THREADS].extend(range(a + 4 * c, a + 4 * c + 4))
+    for j, k in enumerate(range(a + 4 * nv, hi)):
+        reads[j].append(k)
+    return reads
+
+
+def _ends_args(bp: BatchProblem, prm: DpParams, row: torch.Tensor,
+               rc: torch.Tensor) -> tuple:
+    """K2e's operands checked, and its arguments after (row, rc): Ms, Ns,
+    lws and the ints of both C entries' order."""
+    dev = bp.device
+    _check("row", row, I32, (bp.B, bp.Nmax + 1), dev)
+    _check("rc", rc, I32, (bp.B, bp.Mpad + 1), dev)
+    for nm in ("Ms_t", "Ns_t", "lws_t"):
+        _check(nm, getattr(bp, nm), I32, (bp.B,), dev)
+    fl = bp.flags
+    return ((_ptr(bp.Ms_t), _ptr(bp.Ns_t), _ptr(bp.lws_t)),
+            (bp.Nmax + 1, bp.Mpad, bp.W, prm.gop, prm.gep, int(fl.a_exgl),
+             int(fl.a_exgr), int(fl.b_exgl), int(fl.b_exgr)))
+
+
 def spliced_last_ends(bp: BatchProblem, prm: DpParams, row: torch.Tensor,
                       rc: torch.Tensor, out: torch.Tensor | None = None):
     """K2e: per problem (score, end_m, end_n) as a (B, 3) int32 tensor —
@@ -909,19 +964,12 @@ def spliced_last_ends(bp: BatchProblem, prm: DpParams, row: torch.Tensor,
     if bp.device.type == "cpu":
         return last_ends_plain(bp, prm, row, rc)
     dev = bp.device
-    _check("row", row, I32, (bp.B, bp.Nmax + 1), dev)
-    _check("rc", rc, I32, (bp.B, bp.Mpad + 1), dev)
-    for nm in ("Ms_t", "Ns_t", "lws_t"):
-        _check(nm, getattr(bp, nm), I32, (bp.B,), dev)
+    ptrs, ints = _ends_args(bp, prm, row, rc)
     if out is None:
         out = torch.empty((bp.B, 3), dtype=I32, device=dev)
     _check("out", out, I32, (bp.B, 3), dev)
-    fl = bp.flags
-    _launch("spliced_last_ends", dev,
-            _ptr(row), _ptr(rc), _ptr(bp.Ms_t), _ptr(bp.Ns_t),
-            _ptr(bp.lws_t), bp.B, bp.Nmax + 1, bp.Mpad, bp.W, prm.gop,
-            prm.gep, int(fl.a_exgl), int(fl.a_exgr), int(fl.b_exgl),
-            int(fl.b_exgr), _ptr(out))
+    _launch("spliced_last_ends", dev, _ptr(row), _ptr(rc), *ptrs, bp.B,
+            *ints, _ptr(out))
     return out
 
 
@@ -1057,6 +1105,48 @@ def spliced_tb_strips(flags: torch.Tensor, spj: torch.Tensor,
                 _ptr(starts), _ptr(lws), nw, B, L, S, T, IT, NS, s0,
                 _ptr(out), None if stats is None else _ptr(stats))
     return out
+
+
+def spliced_ends_tb_walk(bp: BatchProblem, prm: DpParams,
+                         flags: torch.Tensor, spj: torch.Tensor,
+                         row: torch.Tensor, rc: torch.Tensor,
+                         ends: torch.Tensor | None = None,
+                         out: torch.Tensor | None = None,
+                         stats: torch.Tensor | None = None):
+    """K2e and K3 in one launch, the plane path's: each problem's ends
+    from K1's ``row`` and ``rc``, then its walk from them through the
+    planes.  Returns (ends (B, 3), records (IT, B, 4)) as
+    spliced_last_ends and spliced_tb_walk give them; ``ends``, ``out``
+    and ``stats`` (B, 2), if given, receive them."""
+    if bp.device.type == "cpu":
+        se, recs = ends_tb_walk_plain(bp, prm, flags, spj, row, rc)
+        if stats is not None:
+            stats.copy_(walk_stats(recs, flags, bp.lws_t))
+        return se, recs
+    dev = bp.device
+    S, T, B, L = bp.S, bp.T, bp.B, bp.L
+    NS = _walk_states(spj)
+    _check("flags", flags, torch.uint8, (S, T, B, L), dev)
+    _check("spj", spj, I32, (S, NS, T, B, L), dev)
+    ptrs, ints = _ends_args(bp, prm, row, rc)
+    if ends is None:
+        ends = torch.empty((B, 3), dtype=I32, device=dev)
+    _check("ends", ends, I32, (B, 3), dev)
+    out = _walk_out("out", out, (bp.IT, B, 4), dev)
+    if stats is not None:
+        _check("stats", stats, I32, (B, 2), dev)
+    _launch("spliced_ends_tb_walk", dev, _ptr(flags), _ptr(spj), _ptr(row),
+            _ptr(rc), *ptrs, B, L, S, T, bp.IT, NS, *ints, _ptr(ends),
+            _ptr(out), None if stats is None else _ptr(stats))
+    return ends, out
+
+
+def ends_tb_walk_plain(bp: BatchProblem, prm: DpParams, flags, spj, row,
+                       rc):
+    """Plain version of spliced_ends_tb_walk: K2e's, then K3's."""
+    plain_calls["spliced_ends_tb_walk"] += 1
+    se = last_ends_plain(bp, prm, row, rc)
+    return se, tb_walk_plain(bp, flags, spj, se)
 
 
 def tb_walk_tiles(recs, flags, lw, s0: int = 0, st0=None, col=None
@@ -1266,21 +1356,22 @@ def slab_retrace_plain(bp: BatchProblem, prm: DpParams, s0: int,
 # ----------------------------------------------------------- one bucket
 def run_bucket(bp: BatchProblem, prm: DpParams):
     """One geometry bucket on the device: K1 (its double-affine mode under
-    prm.dagp) -> K2e -> K3 on one stream, then two device-to-host copies:
-    the scores, ends and walk stats, then the records' first rows, as
-    many as the longest walk wrote.  Returns (scores (B,) int64, ends
-    [(m, n)], ops_all) with the contract of spaln_tpu's
-    run_bucket_fused (dp_spliced_pallas.py:1190-1261)."""
+    prm.dagp) -> K2e + K3 in one launch (spliced_ends_tb_walk) on one
+    stream, then two device-to-host copies: the scores, ends and walk
+    stats, then the records' first rows, as many as the longest walk
+    wrote.  Returns (scores (B,) int64, ends [(m, n)], ops_all) with the
+    contract of spaln_tpu's run_bucket_fused
+    (dp_spliced_pallas.py:1190-1261)."""
     B, IT = bp.B, bp.IT
     flags, spj, row, rc = spliced_slab_trace(bp, prm)
     nrec = IT * B * 4
     # records (IT, B, 4) | ends (B, 3) | walk stats (B, 2)
     packed = torch.zeros(nrec + 5 * B, dtype=I32, device=bp.device)
-    se = spliced_last_ends(bp, prm, row, rc,
-                           out=packed[nrec:nrec + 3 * B].view(B, 3))
-    recs = spliced_tb_walk(bp, flags, spj, se,
-                           out=packed[:nrec].view(IT, B, 4),
-                           stats=packed[nrec + 3 * B:].view(B, 2))
+    se, recs = spliced_ends_tb_walk(
+        bp, prm, flags, spj, row, rc,
+        ends=packed[nrec:nrec + 3 * B].view(B, 3),
+        out=packed[:nrec].view(IT, B, 4),
+        stats=packed[nrec + 3 * B:].view(B, 2))
     if recs.data_ptr() != packed.data_ptr():     # plain versions
         packed[:nrec] = recs.reshape(-1)
         packed[nrec:nrec + 3 * B] = se.reshape(-1)

@@ -154,6 +154,120 @@ def test_walk_steps_and_tile_loads_equal_model_on_card(cuda, setup, dagp):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("B,M,ilen,L,lws", GEOMS)
+def test_ends_kernels_equal_plain_on_card(cuda, setup, B, M, ilen, L, lws):
+    """K2e and the fused K2e + K3 (spliced_ends_tb_walk) against their
+    plain versions, the fused
+    entry's walk stats against walk_stats, on K1's rows and on every
+    tie kind of chip_smoke.tie_rows."""
+    import chip_smoke
+    cfg, prm, tables = setup
+    qs, gs, ss = _problems(cfg, tables, B, M, ilen, seed=B + L)
+    band = dict(lws=lws, W=256) if lws else {}
+    bp = dp.prepare_spliced_batch(qs, gs, prm, sigs=ss, L=L, device=cuda,
+                                  **band)
+    fl, spj, row, rc = K.spliced_slab_trace(bp, prm)
+    for kind in ("K1", *chip_smoke.TIE_KINDS):
+        r, c = ((row, rc) if kind == "K1"
+                else chip_smoke.tie_rows(kind, bp, row, rc, seed=B))
+        want = K.last_ends_plain(bp, prm, r, c)
+        assert torch.equal(K.spliced_last_ends(bp, prm, r, c), want), kind
+        st = torch.empty((bp.B, 2), dtype=torch.int32, device=cuda)
+        se, recs = K.spliced_ends_tb_walk(bp, prm, fl, spj, r, c, stats=st)
+        assert torch.equal(se, want), kind
+        assert torch.equal(recs, K.tb_walk_plain(bp, fl, spj, want)), kind
+        assert torch.equal(st.cpu(), K.walk_stats(recs, fl, bp.lws_t)), kind
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("Nmax,Mpad", [(1000, 256), (1001, 257),
+                                       (1002, 258), (1003, 259),
+                                       (5003, 1537)])
+def test_ends_on_odd_strides_on_card(cuda, setup, Nmax, Mpad):
+    """K2e on rows of every stride mod 4 (so the segments' 16-byte
+    boundaries fall anywhere), with bands that leave either segment
+    empty, on random and tie-heavy rows under each end-gap rule: equal to
+    the plain version."""
+    import chip_smoke
+    from spaln_tpu_torch.ops.params import DpFlags
+    cfg, prm, tables = setup
+    qs, gs, ss = _problems(cfg, tables, 2, 40, 60, seed=1)
+    base = dp.prepare_spliced_batch(qs, gs, prm, sigs=ss, L=16, device=cuda)
+    rng = np.random.default_rng(Nmax)
+    B, W = 11, 300
+    Ms = rng.integers(1, Mpad + 1, B)
+    Ns = rng.integers(1, Nmax + 1, B)
+    lws = Ns - Ms + rng.integers(-W - 5, 10, B)
+    lws[0], lws[1] = Ns[0] - Ms[0] + 2, Ns[1] - Ms[1] - W     # empty row, rc
+    t = lambda x: torch.tensor(x, dtype=torch.int32, device=cuda)
+    bp = dataclasses.replace(
+        base, B=B, W=W, Nmax=Nmax, Mpad=Mpad, Ms=Ms.tolist(),
+        Ns=Ns.tolist(), lws=lws.tolist(), Ms_t=t(Ms), Ns_t=t(Ns),
+        lws_t=t(lws))
+    row = t(rng.integers(-50_000, 50_000, (B, Nmax + 1)))
+    rc = t(rng.integers(-50_000, 50_000, (B, Mpad + 1)))
+    for ar, br in ((1, 1), (1, 0), (0, 1)):
+        for al, bl in ((1, 1), (0, 0)):
+            b = dataclasses.replace(bp, flags=DpFlags(
+                a_exgl=bool(al), a_exgr=bool(ar), b_exgl=bool(bl),
+                b_exgr=bool(br)))
+            for kind in ("random", *chip_smoke.TIE_KINDS):
+                r, c = ((row, rc) if kind == "random"
+                        else chip_smoke.tie_rows(kind, b, row, rc, seed=7))
+                want = K.last_ends_plain(b, prm, r, c)
+                assert torch.equal(K.spliced_last_ends(b, prm, r, c),
+                                   want), (kind, ar, br, al)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("offset", range(4))
+@pytest.mark.parametrize("Nmax,Mpad", [(200, 140), (201, 141), (202, 142),
+                                       (203, 143)])
+def test_ends_on_every_segment_length_on_card(cuda, setup, Nmax, Mpad,
+                                              offset):
+    """K2e where problem b's final-row segment holds b cells (0-130) and
+    its right-column segment 130 - b, with row and rc starting
+    ``offset`` ints past a 16-byte boundary: every head, int4 body and
+    tail split of ends_partition, read by the kernel itself, on random
+    and tie-heavy rows: equal to the plain version."""
+    import chip_smoke
+    from spaln_tpu_torch.ops.params import DpFlags
+    cfg, prm, tables = setup
+    qs, gs, ss = _problems(cfg, tables, 2, 40, 60, seed=1)
+    base = dp.prepare_spliced_batch(qs, gs, prm, sigs=ss, L=16, device=cuda)
+    B, W = 131, 131
+    n = np.arange(B)
+    Ns, Ms = Nmax - n % 7, Mpad - n % 5
+    lws = Ns - Ms - n                     # row [N - b, N), rc [M + b - 130, M)
+    t = lambda x: torch.tensor(x, dtype=torch.int32, device=cuda)
+    bp = dataclasses.replace(
+        base, B=B, W=W, Nmax=Nmax, Mpad=Mpad, Ms=Ms.tolist(),
+        Ns=Ns.tolist(), lws=lws.tolist(), Ms_t=t(Ms), Ns_t=t(Ns),
+        lws_t=t(lws), flags=DpFlags(a_exgl=True, a_exgr=True, b_exgl=True,
+                                    b_exgr=True))
+    segs = chip_smoke._segments(bp)
+    assert [h - lo for (lo, h), _ in segs] == list(range(B))
+    assert [h - lo for _, (lo, h) in segs] == list(range(B - 1, -1, -1))
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + 4, dtype=x.dtype, device=x.device)
+        v = buf[offset:offset + x.numel()].view(x.shape)
+        v.copy_(x)
+        assert v.data_ptr() // 4 % 4 == offset
+        return v
+
+    rng = np.random.default_rng(Nmax + offset)
+    row = t(rng.integers(-50_000, 50_000, (B, Nmax + 1)))
+    rc = t(rng.integers(-50_000, 50_000, (B, Mpad + 1)))
+    for kind in ("random", *chip_smoke.TIE_KINDS):
+        r, c = ((row, rc) if kind == "random"
+                else chip_smoke.tie_rows(kind, bp, row, rc, seed=offset))
+        want = K.last_ends_plain(bp, prm, r, c)
+        assert torch.equal(K.spliced_last_ends(bp, prm, shifted(r),
+                                               shifted(c)), want), kind
+    torch.cuda.synchronize()
+
+
 def test_run_bucket_on_card_equals_cpu(cuda, setup):
     cfg, prm, tables = setup
     qs, gs, ss = _problems(cfg, tables, 5, 150, 200, seed=9)
@@ -179,6 +293,9 @@ def test_wrapper_checks_raise(cuda, setup):
     with pytest.raises(ValueError, match="contiguous"):
         K.spliced_tb_walk(bp, fl, spj, torch.zeros(
             3, bp.B, dtype=torch.int32, device=cuda).t())
+    with pytest.raises(ValueError, match="shape"):
+        K.spliced_ends_tb_walk(bp, prm, fl, spj, row[:, :-1].contiguous(),
+                               rc)
 
 
 @pytest.mark.parametrize("B,M,ilen,L,lws", GEOMS)
@@ -729,7 +846,9 @@ def test_knockout_none_build_equals_production(cuda):
 # production spliced_dp.cu, from nvcc 12.8's -Xptxas -v on the card
 # before the knock-out define (SLAB_ABLATE) was added: slab_kernel<MODE,
 # DAGP, MULTI, MAXT, P>; tb_walk_kernel's as the warp-a-walk band walk
-# has them
+# has them (unchanged by the walk body's move into a function both walk
+# kernels call); K2e's last_ends_kernel and the fused ends_tb_walk_kernel
+# as the warp-shuffle end reduction has them
 SLAB_PTXAS = {
     "slab_kernel<2,0,0,1024,2>": (64, 88, 116),
     "slab_kernel<2,0,1,1024,2>": (64, 100, 124),
@@ -756,7 +875,8 @@ SLAB_PTXAS = {
     "slab_kernel<0,0,0,896,1>": (70, 0, 0),
     "slab_kernel<0,0,1,896,1>": (68, 0, 0),
     "tb_walk_kernel": (50, 0, 0),
-    "last_ends_kernel": (25, 0, 0),
+    "last_ends_kernel": (39, 0, 0),
+    "ends_tb_walk_kernel": (48, 0, 0),
 }
 
 
