@@ -28,7 +28,11 @@ per source, started together, then:
    lengths), where the slab kernel's rounds of k slabs in flight wrap
    twice and end part-full: every slab entry, single and double affine,
    exactly equal to its plain version (run on CPU copies in parallel
-   processes), the retrace of slabs 2..16 equal to K1's planes, and the
+   processes, beside K6's modes at main-path shapes: K1, K1-dagp, K4
+   and K4-dagp local with a -yJ bonus on half of phase 1's bucket, and
+   K1 with the local emission on a batch of search_protein_local, B=64,
+   L=64; each timed beside the entry with K6 off on the same shape),
+   the retrace of slabs 2..16 equal to K1's planes, and the
    UDH path on that bucket as it runs (every path's slab run in one
    retrace launch, every strip in one spliced_tb_strips launch, exact
    against its plain version) with the same op streams as the one-slab
@@ -112,8 +116,24 @@ per source, started together, then:
    bench's workload (B=256, M=512, W=4,096): GCUPS with the spread, its
    scores equal to the plain version's, and the score launch's bound.
 
-Phases 3-8 also fail if per-query isolation skipped a query or a text's
-md5 differs from the one the phase has given since it was added.  Prints
+11. (after phase 6) K6 on phase 4's genome and index: `map -L S` (the
+   size rule, then -A 3 -y l3) and `map` of its 48 cDNAs rewritten with
+   junction records (;B/;b) at their planted junctions (-y l3 under the
+   size rule, then -A 3): every bucket on the kernels in K6's modes
+   with no plain call, >= 90% at the planted locus and strand; then
+   phase 2's corpus with `-L S -A 3` and with junction records,
+   byte-identical with the DP forced through the plain versions on the
+   card;
+12. (after phase 7) local protein search: 3 queries (two blocks of
+   30-40 aa around 150 aa of background) against phase 7's 20,000-entry
+   DB with copies of their blocks planted in three known entries at 15%
+   substitutions (search_protein_local: K1 local with the emission a
+   batch of 64): every planted island reported.
+
+Phase 8's corpus and protein index are built in a process of their own
+beside the kernels' builds and phase 1.  Phases 3-8 and 11 also fail if
+per-query isolation skipped a query or a text's md5 differs from the
+one the phase has given since it was added.  Prints
 the card, per-kernel times, map throughput and stage seconds, a
 {"kernels": [...]} line, and last {"ok": true, "device": {...}}.  Exits
 non-zero, with no result, on any failure or without a CUDA device.
@@ -240,7 +260,10 @@ def _md5(path: Path) -> str:
 TEXT_MD5 = {"dictdisc map": "0ea2caf5ae1dcc3a7ddbe77efb9bf55c",
             "tetrapod map": "2ff07584", "map -yl3": "d1d7735f",
             "search": "efc6189b", "pair": "5c28654d",
-            "protein map": "7e5cc997", "protein map -yl3": "80341a27"}
+            "protein map": "7e5cc997", "protein map -yl3": "80341a27",
+            "map -L S": "c9a8ba0a", "map -L S -A 3 -y l3": "76dd3237",
+            "map junctions -y l3": "bdf579cb",
+            "map junctions -A 3": "bdf579cb"}
 
 
 def _check_md5(label: str, path: Path) -> str:
@@ -370,23 +393,44 @@ def _reset_counts(K) -> None:
 
 @contextlib.contextmanager
 def plain_on_card(K):
-    """Test hook: route run_bucket's two kernel calls to the plain
-    PyTorch versions, on the same CUDA tensors."""
-    saved = (K.spliced_slab_trace, K.spliced_ends_tb_walk)
+    """Test hook: route the kernel calls of run_bucket (the plane path)
+    and of the UDH path to the plain PyTorch versions, on the same CUDA
+    tensors."""
+    from spaln_tpu_torch.ops import dp_spliced_udh as U
 
-    def ends_walk(bp, prm, fl, spj, row, rc, ends=None, out=None,
-                  stats=None):
+    def spliced_slab_trace(bp, prm):
+        return K.slab_trace_plain(bp, prm)
+
+    def spliced_ends_tb_walk(bp, prm, fl, spj, row, rc, ends=None,
+                             out=None, stats=None):
         se, recs = K.ends_tb_walk_plain(bp, prm, fl, spj, row, rc)
         if stats is not None:
             stats.copy_(K.walk_stats(recs, fl, bp.lws_t))
         return se, recs
 
-    K.spliced_slab_trace = lambda bp, prm: K.slab_trace_plain(bp, prm)
-    K.spliced_ends_tb_walk = ends_walk
+    def spliced_slab_links(bp, prm):
+        return K.slab_links_plain(bp, prm)
+
+    def spliced_last_ends(bp, prm, row, rc):
+        return K.last_ends_plain(bp, prm, row, rc)
+
+    def spliced_slab_retrace(bp, prm, s0, nslab, snap, sel):
+        return K.slab_retrace_plain(bp, prm, s0, nslab, snap, sel)
+
+    def spliced_tb_strips(fl, spj, starts, lws, s0, IT):
+        return K.tb_strips_plain(fl, spj, starts, lws, s0, IT)
+
+    hooks = [(K, spliced_slab_trace), (K, spliced_ends_tb_walk),
+             (U, spliced_slab_links), (U, spliced_last_ends),
+             (U, spliced_slab_retrace), (U, spliced_tb_strips)]
+    saved = [(m, fn.__name__, getattr(m, fn.__name__)) for m, fn in hooks]
+    for m, fn in hooks:
+        setattr(m, fn.__name__, fn)
     try:
         yield
     finally:
-        K.spliced_slab_trace, K.spliced_ends_tb_walk = saved
+        for m, name, fn in saved:
+            setattr(m, name, fn)
 
 
 # --------------------------------------------------------------- phase 1
@@ -860,12 +904,14 @@ def _protein(rng, n: int) -> str:
     return "".join(np.array(list(AMINO))[rng.choice(20, n, p=AA_FREQ)])
 
 
-def _protein_batch(dp, traced: bool = False):
+def _protein_batch(dp, traced: bool = False, local: bool = False,
+                   L: int = 128):
     """A candidate batch of the search's score pass at its largest: one
     query against 64 DB entries, full band (lw = -Mmax, up = Nmax),
     L = 128, the protein matrix's alphabet and the parameters
     search_protein_db builds; with ``traced``, the traced hit: the
-    query against its source alone (B = 1)."""
+    query against its source alone (B = 1); with ``local`` and L = 64,
+    a batch of search_protein_local (K1 in local mode, K6)."""
     from spaln_tpu_torch.config import Config, PvsP, resolve
     from spaln_tpu_torch.ops.params import DpFlags, DpParams
     from spaln_tpu_torch.score.simmtx import Simmtx
@@ -883,7 +929,8 @@ def _protein_batch(dp, traced: bool = False):
         db = [db[src]]
     bp = dp.prepare_spliced_batch([encode_protein(query)] * len(db),
                                   [encode_protein(s) for s in db], prm,
-                                  flags=DpFlags(), L=128, device="cuda")
+                                  flags=DpFlags(local=local), L=L,
+                                  device="cuda")
     return bp, prm
 
 
@@ -1083,6 +1130,8 @@ def _plain_job(job):
     t0 = time.perf_counter()
     if mode == "retrace":
         out = K.slab_retrace_plain(bp, prm, *extra)
+    elif mode == "trace_local":           # K1 with K6's step emission
+        out = K._slab_plain(bp, prm, emit_local=True)
     else:
         out = K._slab_plain(bp, prm, mode=mode)
     return out, (time.perf_counter() - t0) * 1e3
@@ -1114,13 +1163,14 @@ def _tall_bucket(dp, ctx):
     return bp
 
 
-def check_tall_kernels(K, dp, ctx, ctx3):
+def check_tall_kernels(K, dp, ctx, ctx3, k6: dict):
     """Every slab entry against its plain version on a bucket of S=17
     slabs (S >= 2k+1 for every entry), single and double affine: K1, K4
     (links and snapshots at every position), the score entry and the
     retrace of slabs 2..16 (more than k) from K4's snapshot, which also
-    equals K1's planes.  The plain versions run on CPU copies of the
-    operands, in parallel worker processes."""
+    equals K1's planes; and K6's modes at main-path shapes (``k6``, of
+    k6_jobs).  The plain versions run on CPU copies of the operands, in
+    parallel worker processes.  Returns (k per entry, K6's rows)."""
     from concurrent.futures import ProcessPoolExecutor
     import multiprocessing
     bp = _tall_bucket(dp, ctx)
@@ -1141,6 +1191,10 @@ def check_tall_kernels(K, dp, ctx, ctx3):
             jobs[mode + d] = (mode, cpu, prm, ())
         jobs["retrace" + d] = ("retrace", cpu, prm,
                                (s0, nslab, snap.cpu(), sel.cpu()))
+    tall = list(jobs)
+    for name, job in k6.items():
+        got[name] = job[3]()
+        jobs[name] = job[5]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with ProcessPoolExecutor(max_workers=len(jobs),
@@ -1151,7 +1205,8 @@ def check_tall_kernels(K, dp, ctx, ctx3):
         plain = {name: f.result() for name, f in futs.items()}
     wall = time.perf_counter() - t0
     idx = sel.long()
-    for name, (want, ms) in plain.items():
+    for name in tall:
+        want, ms = plain[name]
         have = [x.cpu() for x in got[name]]
         _equal(f"tall bucket: {name}", have, want)
         if name.startswith("retrace"):
@@ -1170,7 +1225,7 @@ def check_tall_kernels(K, dp, ctx, ctx3):
                                                            "trace"),
                                 name.endswith("dagp"), bp.L, A,
                                 nslab if name.startswith("retrace")
-                                else bp.S)[0] for name in jobs}
+                                else bp.S)[0] for name in tall}
     log(f"tall bucket (B={bp.B} L={bp.L} W={bp.W} S={bp.S} T={bp.T}, "
         f"queries of {bp.Ms}): every slab entry exact against its plain "
         f"version, the retrace of slabs {s0}..{bp.S - 1} equal to K1's "
@@ -1182,7 +1237,7 @@ def check_tall_kernels(K, dp, ctx, ctx3):
             f"spliced_tb_strips launch, exact against its plain version; "
             f"op streams equal to the one-slab path's ({n_one} retrace "
             f"launches of one problem-slab) and to run_bucket's")
-    return ks
+    return ks, k6_finish(K, k6, got, plain)
 
 
 def _udh_both_ways(K, dp, bp, prm):
@@ -1225,6 +1280,110 @@ def _udh_both_ways(K, dp, bp, prm):
     if not all(any(o[0] == "I" for o in ops) for ops in multi[2]):
         raise AssertionError(f"{label}: a planted intron was not recovered")
     return n_one, int(args[2].shape[0])
+
+
+# ---------------------------------------------------- phase 1, K6 modes
+# int32 operations K6 adds, counted from csrc/spliced_dp.cu: per band
+# cell the local mode's floor (a compare and a select; its flag bit rides
+# in the flag byte's or), per acceptor cell the -yJ bonus (one add), and
+# for the step emission per lane-step a shared-memory read and a
+# compare-select, per warp and step the shuffle tree (5 rounds of 2
+# shuffles and 3 compare-selects) and the store
+OPS_LOCAL_CELL, OPS_CIP_ACC, OPS_EMIT_LANE, OPS_EMIT_WARP = 2, 1, 2, 27
+
+
+def _k6_bucket(bp):
+    """bp in K6's modes as phase 1 holds them: local, with a -yJ bonus
+    on every other problem (300-700 at the rows 3 mod 7)."""
+    c = torch.zeros((bp.B, bp.Mpad + bp.L), dtype=torch.int32)
+    c[::2, 2::7] = 300 + 100 * (torch.arange(c[:, 2::7].shape[1]) % 5)
+    return dataclasses.replace(
+        bp, flags=dataclasses.replace(bp.flags, local=True),
+        cip=c.to(bp.device))
+
+
+def k6_jobs(K, dp, ctx, ctx3):
+    """K6's modes at main-path shapes: phase 1's bucket (B=8, L=128,
+    W=1,152, 2 slabs) local with the bonus on half the problems through
+    K1, K1-dagp, K4 and K4-dagp, and a batch of search_protein_local
+    (B=64 entries, L=64, full band) through K1 with the emission.
+    Returns name -> (entry, bucket, prm, its kernel call, the same entry
+    with K6 off on the same shape, the plain job for the CPU pool)."""
+    out = {}
+    for c in (ctx, ctx3):
+        bp = _phase1_bucket(dp, c)
+        b6 = _k6_bucket(bp)
+        cpu = _cpu_bucket(b6)
+        d = "_dagp" if c.prm.dagp else ""
+        out[f"spliced_slab_trace{d}[local,-yJ]"] = (
+            "spliced_slab_trace" + d, b6, c.prm,
+            functools.partial(K.spliced_slab_trace, b6, c.prm),
+            functools.partial(K.spliced_slab_trace, bp, c.prm),
+            ("trace", cpu, c.prm, ()))
+        out[f"spliced_slab_links{d}[local,-yJ]"] = (
+            "spliced_slab_links" + d, b6, c.prm,
+            functools.partial(K.spliced_slab_links, b6, c.prm),
+            functools.partial(K.spliced_slab_links, bp, c.prm),
+            ("links", cpu, c.prm, ()))
+    pb, pprm = _protein_batch(dp, local=True, L=64)
+    off = dataclasses.replace(pb, flags=dataclasses.replace(pb.flags,
+                                                            local=False))
+    out["spliced_slab_trace[local,emission]"] = (
+        "spliced_slab_trace", pb, pprm,
+        functools.partial(K.spliced_slab_trace, pb, pprm, emit_local=True),
+        functools.partial(K.spliced_slab_trace, off, pprm),
+        ("trace_local", _cpu_bucket(pb), pprm, ()))
+    return out
+
+
+def k6_finish(K, jobs, got, plain) -> dict:
+    """Each K6 mode's kernel outputs against its plain version's (run in
+    the CPU pool), then its time beside the same entry with K6 off on
+    the same shape, in turns, and its bound from this run's inputs."""
+    rows = {}
+    for name, (entry, bp, prm, call, off, _) in jobs.items():
+        want, plain_ms = plain[name]
+        err = _equal(f"K6 {name}", [x.cpu() for x in got[name]], want)
+        fl = got[name][0]
+        if "trace" in entry and not ((fl >= 128) & (fl != 255)).any():
+            raise AssertionError(f"K6 {name}: no cell restarted at 0")
+        ms = [_timed(call, 5), _timed(off, 5), _timed(call, 5),
+              _timed(off, 5)]
+        B, S, T, L = bp.B, bp.S, bp.T, bp.L
+        cells, acc, don = _dp_cells(bp, range(S))
+        dagp = prm.dagp
+        ops = (cells * (OPS_CELL_DAGP if dagp else OPS_CELL)
+               + acc * (OPS_ACC_DAGP if dagp else OPS_ACC)
+               + don * (OPS_DON_DAGP if dagp else OPS_DON)
+               + cells * OPS_LOCAL_CELL)
+        nbytes = (_operand_bytes(bp) + 4 * B * (bp.Nmax + 1 + bp.Mpad + 1))
+        if bp.cip is not None:
+            ops += acc * OPS_CIP_ACC
+            nbytes += 4 * B * (bp.Mpad + L)
+        if "links" in entry:
+            nb = 3 if dagp else 2
+            nbytes += 4 * S * B * ((5 if dagp else 4) * T + nb * (T + 2))
+            ops += cells * (OPS_LINKS + (OPS_LINKS_DAGP if dagp else 0))
+        else:
+            nbytes += (21 if dagp else 13) * cells
+        if "emission" in name:
+            nbytes += 8 * S * T * B
+            ops += S * T * B * (L * OPS_EMIT_LANE
+                                + -(-L // 32) * OPS_EMIT_WARP)
+        bound_ms, bound_by = _bound(nbytes, ops)
+        rows[name] = dict(entry=entry, max_abs_err=err, plain_ms=plain_ms,
+                          ms=min(ms[0], ms[2]), off_ms=min(ms[1], ms[3]),
+                          turns_ms=[round(x, 4) for x in ms],
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          work=(nbytes, ops))
+        log(f"K6 {name}: exact against its plain version (CPU pool, "
+            f"{plain_ms:.0f} ms); {rows[name]['ms']:.3f} ms, K6 off on the "
+            f"same shape {rows[name]['off_ms']:.3f} ms (turns on, off, on, "
+            f"off: {rows[name]['turns_ms']}); bound {bound_ms:.7f} ms by "
+            f"{bound_by} ({nbytes} bytes, {ops} int32 ops) (B={B} L={L} "
+            f"W={bp.W} S={S} T={T}: {cells} band cells, {acc} acceptor "
+            f"cells)")
+    return rows
 
 
 def _tetrapod_width_bucket(dp, ctx, B=32, W=16384, min_len=1000):
@@ -1301,8 +1460,21 @@ def slab_timing(K, dp, ctx):
     slabs) in the same ways.  Every retrace's planes must equal K1's.
     Returns name -> ms per launch, k, CTAs per problem, serial steps per
     launch (the critical path, slab_serial_steps) and us per global
-    step."""
+    step.  First K1 and K4 (single and double affine) on phase 1's
+    bucket, 20 launches each, the main path's modes (K6 off)."""
     out = {}
+    bp1 = _phase1_bucket(dp, ctx)
+    prm3 = dataclasses.replace(ctx.prm, dagp=True, lgop=ctx.prm.gop * 2,
+                               lgep=ctx.prm.gep // 2)
+    for prm in (ctx.prm, prm3):
+        for name in ("spliced_slab_trace", "spliced_slab_links"):
+            fn = getattr(K, name)
+            ms = _timed(lambda: fn(bp1, prm), 20)
+            key = f"{K.entry(name, prm)} phase 1"
+            out[key] = dict(ms=ms)
+            log(f"phase 1's bucket (B={bp1.B} L={bp1.L} W={bp1.W} "
+                f"S={bp1.S}): {key}: {ms:.4f} ms per launch")
+    del bp1
     for tag, bp in (("", _tetrapod_width_bucket(dp, ctx)),
                     (" window", _tetrapod_width_bucket(
                         dp, ctx, B=1, W=65536, min_len=1409))):
@@ -2483,7 +2655,7 @@ def small_map(K, cli):
     """4 planted genes: kernels vs plain versions, byte for byte."""
     rng = np.random.default_rng(SEED + 1)
     contig = _seq(rng, 36000, 0.3)
-    recs, pos = [], 3000
+    recs, recs_j, pos = [], [], 3000
     for i in range(4):
         ex = [_seq(rng, int(rng.integers(90, 160)), 0.35)
               for _ in range(2 + i % 2)]
@@ -2495,11 +2667,18 @@ def small_map(K, cli):
             g = _revcomp(g)
         contig = contig[:pos] + g + contig[pos + len(g):]
         recs.append(f">q{i}\n{''.join(ex)}\n")
+        # the same cDNA with junction records (phase 11): at its exon-exon
+        # junctions, one of them off by one
+        junc = np.cumsum([len(e) for e in ex[:-1]]) + (i == 1)
+        recs_j.append(f">q{i}\n;B {len(junc)} {len(junc)}\n;b "
+                      + " ".join(f"{p} {1 + i % 3}" for p in junc)
+                      + f"\n{''.join(ex)}\n")
         pos += len(g) + 2500
     d = WORK / "small"
     d.mkdir(parents=True)
     (d / "g.fa").write_text(">c1\n" + contig + "\n")
     (d / "q.fa").write_text("".join(recs))
+    (d / "q_j.fa").write_text("".join(recs_j))
     cli.main(["index", str(d / "g.fa"), "-p", str(d / "g")])
     texts = {}
     for mode in ("kernels", "plain"):
@@ -3085,6 +3264,228 @@ def tetrapod_yl3_map(K, cli, metrics, truth):
     return runs
 
 
+# -------------------------------------------------------------- phase 11
+@contextlib.contextmanager
+def k6_modes(K):
+    """Count the K1 and K4 calls of the block by (entry, K6 mode): the
+    local mode, the -yJ bonus, the emission (the map's plane path calls
+    K1 through dp_spliced_cuda, its UDH links pass K4 through
+    dp_spliced_udh, the local search K1 through protein_search)."""
+    from spaln_tpu_torch.align import protein_search as PS
+    from spaln_tpu_torch.ops import dp_spliced_udh as U
+    seen: dict = {}
+
+    def wrap(fn):
+        def spy(bp, prm, *a, **kw):
+            name = K.entry(fn.__name__, prm)
+            key = (name, bool(bp.flags.local), bp.cip is not None,
+                   bool(kw.get("emit_local")))
+            seen[key] = seen.get(key, 0) + 1
+            return fn(bp, prm, *a, **kw)
+        return spy
+
+    saved = [(m, n, getattr(m, n)) for m, n in (
+        (K, "spliced_slab_trace"), (U, "spliced_slab_links"),
+        (PS, "spliced_slab_trace"))]
+    for m, n, fn in saved:
+        setattr(m, n, wrap(fn))
+    try:
+        yield seen
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+def write_junction_queries(src: Path, dst: Path, truth: list) -> int:
+    """The cDNAs of ``src`` with junction records (";B n n" and ";b pos
+    num ...") at their planted exon-exon junctions, num 1-3 in turn.
+    Returns the junctions written."""
+    by_name = {t["q"]: t for t in truth}
+    recs, n = [], 0
+    for name, q in _read_fasta(src):
+        t = by_name[name]
+        lens = [b - a + 1 for a, b in sorted(t["exons"])]
+        if t["strand"] == "-":
+            lens = lens[::-1]              # cDNA order
+        junc = np.cumsum(lens[:-1]).tolist()
+        n += len(junc)
+        recs.append(f">{name}\n;B {len(junc)} {len(junc)}\n;b "
+                    + " ".join(f"{p} {1 + k % 3}" for k, p in
+                               enumerate(junc)) + f"\n{q}\n")
+    dst.write_text("".join(recs))
+    return n
+
+
+# the K6 runs of phase 11: (label, queries, extra arguments)
+K6_RUNS = (("map -L S", "cdna.fa", ["-L", "S"]),
+           ("map -L S -A 3 -y l3", "cdna.fa", ["-L", "S", "-A", "3", "-y",
+                                               "l3"]),
+           ("map junctions -y l3", "cdna_j.fa", ["-y", "l3"]),
+           ("map junctions -A 3", "cdna_j.fa", ["-A", "3"]))
+
+
+def _k6_small(K, cli) -> None:
+    """Phase 2's corpus, `map -L S -A 3` and `map` on its cDNAs with
+    junction records: the kernels' -O0,4 text byte-identical with the DP
+    forced through the plain versions on the card."""
+    d = WORK / "small"
+    for label, q, extra in (("-L S -A 3", "q.fa", ["-L", "S", "-A", "3"]),
+                            ("junctions", "q_j.fa", [])):
+        texts = {}
+        for mode in ("kernels", "plain"):
+            ctxm = (plain_on_card(K) if mode == "plain"
+                    else contextlib.nullcontext())
+            with ctxm, k6_modes(K) as seen:
+                o = OUT / f"small_k6.{label.split()[0]}.{mode}.O0_4"
+                cli.main(["map", str(d / q), "-d", str(d / "g"), "-O",
+                          "0,4", "-o", str(o), "--device", "cuda", *extra])
+            texts[mode] = o.read_bytes()
+            if not seen or not all(k[1] or k[2] for k in seen):
+                raise AssertionError(f"small map {label} ({mode}): K6 off "
+                                     f"in {seen}")
+        if texts["kernels"] != texts["plain"]:
+            raise AssertionError(f"small map {label}: kernels and plain "
+                                 f"versions differ")
+        if texts["kernels"].count(b"\tgene\t") != 4:
+            raise AssertionError(f"small map {label}: not 4 genes")
+        log(f"small map {label}: -O0,4 byte-identical, kernels vs plain "
+            f"on the card ({len(texts['kernels'])} bytes)")
+
+
+def tetrapod_k6_map(K, cli, metrics, truth) -> dict:
+    """K6 on phase 4's genome and index: map -L S (the size rule, then
+    -A 3 -y l3) and map of the cDNAs with junction records at their
+    planted junctions (-y l3 under the size rule, then -A 3); every
+    bucket on the kernels in K6's modes with no plain call, >= 90% of
+    queries at their planted locus and strand; then phase 2's corpus
+    against the plain versions on the card (_k6_small)."""
+    d = WORK / "tetra"
+    nj = write_junction_queries(d / "cdna.fa", d / "cdna_j.fa", truth)
+    runs = {}
+    for label, q, extra in K6_RUNS:
+        metrics.reset()
+        _reset_counts(K)
+        out = OUT / f"tetra_k6.{'_'.join(label.split()[1:])}.O0_4"
+        with kernel_clock(K) as kms, k6_modes(K) as seen:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cli.main(["map", str(d / q), "-d", str(d / "genome"), "-T",
+                      "Tetrapod", "-O", "0,4", "-o", str(out), "--device",
+                      "cuda", *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if "l3" in extra:
+            _check_dagp_kernels(K, metrics, label)
+        else:
+            _check_udh_kernels(K, metrics, label)
+        local, cip = "-L" in extra, q == "cdna_j.fa"
+        if not seen or any(k[1:3] != (local, cip) for k in seen):
+            raise AssertionError(f"{label}: K1/K4 calls by mode {seen}")
+        c = dict(metrics.counters)
+        udh = "-A" in extra
+        if bool(c.get("udh_buckets")) != udh or (
+                not udh and not c.get("device_buckets")):
+            raise AssertionError(f"{label}: buckets {c}")
+        text = out.read_text()
+        hit, rec, prec, missed = _score_text(text, truth)
+        secs = {k: round(v, 3) for k, v in metrics.timings.items()}
+        busy = sum(kms.values()) / 1e3
+        runs[label] = dict(launches=dict(K.launches), counters=c, ms=kms,
+                           wall=wall, modes={"|".join(map(str, k)): v
+                                             for k, v in seen.items()})
+        log(f"{label}: {len(truth)} queries in {wall:.2f} s = "
+            f"{len(truth) / wall:.3f} queries/s; udh_buckets "
+            f"{c.get('udh_buckets', 0)}, plane buckets "
+            f"{c.get('device_buckets', 0)}; K6 calls {runs[label]['modes']}"
+            f"; stage seconds {json.dumps(secs, sort_keys=True)}")
+        log(f"{label}: kernel ms, launches {_ms_launches(K, kms)}; kernels "
+            f"busy {busy:.3f} s = {100 * busy / wall:.2f}% of the wall; "
+            f"{hit}/{len(truth)} = {100 * hit / len(truth):.1f}% at the "
+            f"planted locus and strand; exon recall {rec:.4f}, precision "
+            f"{prec:.4f}; missed {missed}; text md5 "
+            f"{_check_md5(label, out)}")
+        if hit < 0.9 * len(truth):
+            raise AssertionError(f"{label}: only {hit} of {len(truth)} at "
+                                 f"their planted locus")
+    log(f"phase 11: {nj} junction records at the planted junctions")
+    t0 = time.perf_counter()
+    _k6_small(K, cli)
+    log(f"phase 11: small maps took {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+# -------------------------------------------------------------- phase 12
+N_LOCAL_QUERIES = 3
+
+
+def local_protein_search(K, metrics) -> dict:
+    """search_protein_local against phase 7's 20,000-entry DB: each of
+    N_LOCAL_QUERIES queries is two blocks of 30-40 aa joined by 150 aa of
+    background, and copies of its blocks (15% substitutions) are planted
+    in three known entries (both blocks in one, one block each in two
+    others).  Every planted island must be reported, on the DB entry and
+    the span where it was planted; every batch runs K1 in local mode
+    with the emission, with no plain call."""
+    from spaln_tpu_torch.align.protein_search import search_protein_local
+    from spaln_tpu_torch.score.tables import find_table_dir
+    from spaln_tpu_torch.seq.codec import encode_protein
+    rng = np.random.default_rng(SEED + 12)
+    db = [(n, s) for n, s in _read_fasta(WORK / "protein" / "db.fa")]
+    runs, found, n_isl = [], 0, 0
+    for j in range(N_LOCAL_QUERIES):
+        blk = [_protein(rng, int(rng.integers(30, 41))) for _ in range(2)]
+        query = blk[0] + _protein(rng, 150) + blk[1]
+        entries = rng.choice(len(db), 3, replace=False)
+        local_db, planted = list(db), []
+        for e, which in zip(entries, ((0, 1), (0,), (1,))):
+            name, s = local_db[e]
+            at = int(rng.integers(0, max(len(s) // 3, 1)))
+            for w in which:
+                isl = _mutate_protein(rng, blk[w], 0.15)
+                s = s[:at] + isl + s[at + len(isl):]
+                planted.append((name, at, at + len(isl)))
+                at += len(isl) + int(rng.integers(40, 120))
+            local_db[e] = (name, s)
+        enc = [(n, encode_protein(s)) for n, s in local_db]
+        metrics.reset()
+        _reset_counts(K)
+        with kernel_clock(K) as kms, k6_modes(K) as seen:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hits = search_protein_local(encode_protein(query), enc,
+                                        table_dir=find_table_dir(),
+                                        device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if any(K.plain_calls.values()):
+            raise AssertionError(f"local search: plain versions ran: "
+                                 f"{K.plain_calls}")
+        batches = metrics.counters.get("local_search_batches", 0)
+        key = ("spliced_slab_trace", True, False, True)
+        if seen != {key: batches} or K.launches["spliced_slab_trace"] != \
+                batches or batches < -(-len(db) // 64):
+            raise AssertionError(f"local search: {batches} batches, calls "
+                                 f"{seen}, launches {dict(K.launches)}")
+        ok = [any(h.name == n and h.s_span[0] < b and h.s_span[1] > a
+                  for h in hits) for n, a, b in planted]
+        found += sum(ok)
+        n_isl += len(planted)
+        secs = {k: round(v, 3) for k, v in metrics.timings.items()}
+        busy = sum(kms.values()) / 1e3
+        runs.append(dict(wall=wall, batches=batches, hits=len(hits),
+                         launches=batches, ms=kms))
+        log(f"local search {j}: {len(db)} entries in {wall:.2f} s, "
+            f"{batches} batches (K1 local with the emission), {len(hits)} "
+            f"hits; planted islands reported {sum(ok)}/{len(planted)} "
+            f"{planted}; kernels busy {busy:.3f} s = "
+            f"{100 * busy / wall:.2f}% of the wall; stage seconds "
+            f"{json.dumps(secs, sort_keys=True)}")
+    if found != n_isl:
+        raise AssertionError(f"local search: {found} of {n_isl} planted "
+                             f"islands reported")
+    return dict(runs=runs, launches=sum(r["launches"] for r in runs))
+
+
 # --------------------------------------------------------------- phase 7
 N_DB, N_PROT_QUERIES = 20_000, 200
 
@@ -3353,21 +3754,33 @@ def _recheck_tron_walks(TK, TD, kept: dict, label: str) -> float:
     return time.perf_counter() - t0
 
 
-def protein_map(TK, TD, cli, metrics):
-    """index -K P, then map of the protein queries: the default (SW
-    local, 3 states) and -y l3 (5 states) on K7 and K8; each launch of
-    K7 and K8 timed beside its bound."""
-    d = WORK / "protmap"
+def _protmap_prep(d: str) -> tuple:
+    """Phase 8's corpus and `index -K P`, in a worker process: (truth,
+    seconds of the corpus, seconds of the index)."""
+    from spaln_tpu_torch import cli
+    d = Path(d)
     d.mkdir(parents=True)
     t0 = time.perf_counter()
     truth = make_protein_gene_corpus(d)
-    log(f"protein map: corpus built in {time.perf_counter() - t0:.1f} s "
-        f"({sum(PROT_CHROMS) / 1e6:.1f} Mb, {len(truth)} planted genes)")
-    t0 = time.perf_counter()
+    t1 = time.perf_counter()
     cli.main(["index", str(d / "genome.fa"), "-p", str(d / "genome"),
               "-K", "P"])
-    log(f"protein map: index -K P built in {time.perf_counter() - t0:.1f} "
-        f"s")
+    return truth, t1 - t0, time.perf_counter() - t1
+
+
+def protein_map(TK, TD, cli, metrics, prep):
+    """index -K P (``prep``, the pending result of _protmap_prep, started
+    with the script), then map of the protein queries: the default (SW local,
+    3 states) and -y l3 (5 states) on K7 and K8; each launch of K7 and
+    K8 timed beside its bound."""
+    d = WORK / "protmap"
+    t0 = time.perf_counter()
+    truth, t_corpus, t_index = prep.get()
+    log(f"protein map: corpus built in {t_corpus:.1f} s "
+        f"({sum(PROT_CHROMS) / 1e6:.1f} Mb, {len(truth)} planted genes) "
+        f"and index -K P built in {t_index:.1f} s in a process of their "
+        f"own beside the builds and phase 1 "
+        f"({time.perf_counter() - t0:.1f} s of waiting)")
     runs = {}
     for mode, extra in (("default", []), ("yl3", ["-y", "l3"])):
         metrics.reset()
@@ -3585,6 +3998,12 @@ def main() -> int:
     OUT.mkdir(parents=True, exist_ok=True)
     stack = contextlib.ExitStack()
     try:
+        # phase 8's corpus and protein index, built in a process of their
+        # own beside the builds and phase 1 (before the K7 plain versions
+        # take six cores)
+        protmap_prep = stack.enter_context(
+            multiprocessing.get_context("spawn").Pool(1)).apply_async(
+                _protmap_prep, (str(WORK / "protmap"),))
         # one nvcc per source, started together
         t0 = time.perf_counter()
         with ThreadPoolExecutor(4) as pool:
@@ -3606,7 +4025,8 @@ def main() -> int:
             TableDir(find_table_dir(), species="Dictyost"), "cuda",
             y_args=["-yl3"])
         results.update(check_k5_kernels(K, dp, ctx3))
-        check_tall_kernels(K, dp, ctx, ctx3)
+        _, k6_rows = check_tall_kernels(K, dp, ctx, ctx3,
+                                        k6_jobs(K, dp, ctx, ctx3))
         # K7's plain versions step on CPU copies in 6 processes while
         # phases 2-8 run (the pool's workers end with the block)
         tron_pool = stack.enter_context(
@@ -3619,8 +4039,10 @@ def main() -> int:
         tetra, truth = tetrapod_map(K, cli, metrics)
         segment_align(K, cli, metrics)
         yl3 = tetrapod_yl3_map(K, cli, metrics, truth)
+        k6map = tetrapod_k6_map(K, cli, metrics, truth)
         prot = protein_search(K, cli, metrics)
-        pmap = protein_map(TK, TD, cli, metrics)
+        lsearch = local_protein_search(K, metrics)
+        pmap = protein_map(TK, TD, cli, metrics, protmap_prep)
         # the step probes, while K7's plain versions finish
         mods = probes.modules()
         probe_res = probe_phase(PC, mods, check_probes(PC, mods, (128, 1024)),
@@ -3662,6 +4084,18 @@ def main() -> int:
     launches["tron_forward_dagp"] = \
         pmap["yl3"]["launches"]["tron_forward_dagp"]
     results.update(tron)
+    # K6's modes: K1 and K4 in the local and -yJ modes from phase 11's
+    # maps, K1 with the emission from phase 12's local search
+    k6_launches = {name: 0 for name in k6_rows}
+    for run in k6map.values():
+        for key, n in run["modes"].items():
+            entry, local, cip, emit = key.split("|")
+            mode = "[local,emission]" if emit == "True" else "[local,-yJ]"
+            if local == "True" or cip == "True":
+                k6_launches[entry + mode] += n
+    k6_launches["spliced_slab_trace[local,emission]"] = lsearch["launches"]
+    if not all(k6_launches.values()):
+        raise AssertionError(f"a K6 mode never ran: {k6_launches}")
     sources = {k: src for k in K.KERNELS}
     sources.update({k: str(TK.SOURCE.relative_to(ROOT)) for k in TK.KERNELS})
     names = K.KERNELS + TK.KERNELS
@@ -3691,6 +4125,12 @@ def main() -> int:
              **({} if k in path else {"main_path": "none: its walk runs "
                                       "in spliced_ends_tb_walk"}))
         for k in names] + [
+        dict(name=k, route="cuda", source=src,
+             replaces="spaln_tpu/ops/dp_spliced_scan.py:223",
+             launches=k6_launches[k], max_abs_err=r["max_abs_err"],
+             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+             bound_by=r["bound_by"], library_ms=None, off_ms=r["off_ms"])
+        for k, r in k6_rows.items()] + [
         dict(name=k, route="cuda", source=probe_src,
              replaces=probes.REPLACES[k.split(":")[0]],
              launches=r["launches"], max_abs_err=r["max_abs_err"],

@@ -65,7 +65,11 @@ class AlignerContext:
                cfg: Config | None = None, dvsp: int = CvsG,
                y_args: list | None = None,
                plane_budget: int = PLANE_BYTES_BUDGET,
-               force_udh: bool = False) -> "AlignerContext":
+               force_udh: bool = False,
+               local: bool = False) -> "AlignerContext":
+        """``local`` (-L S) makes the map path's DP Smith-Waterman local
+        (K6); the align windows stay semi-global, as in the reference
+        (forward_spliced)."""
         cfg = cfg or Config()
         # species AlnParam file re-fed as -y args (readargs role)
         cfg = apply_y_args(cfg, tables.alnparam_args())
@@ -77,7 +81,7 @@ class AlignerContext:
                         mismatch=cfg.aln.smn_mismatch)
         prm = DpParams.build(cfg, sm, dvsp, ipen=ipen)
         return cls(cfg=cfg, tables=tables, prm=prm, ipen=ipen,
-                   flags=DpFlags(), device=torch.device(device),
+                   flags=DpFlags(local=local), device=torch.device(device),
                    plane_budget=plane_budget, force_udh=force_udh)
 
     def use_udh(self, n_slabs: int, planes_too_big: bool) -> bool:
@@ -101,12 +105,14 @@ class AlignJob:
     g_total: int = 0             # caller-window length (minus-view flip)
     q_name: str = ""
     g_name: str = ""
+    cip: dict | None = None      # -yJ query junction bonus {m: value}
 
 
 def prepare_job(q: np.ndarray, g: np.ndarray, ctx: AlignerContext,
                 chain: Chain | None, sh: int = 100, margin: int = 2000,
                 q_name: str = "", g_name: str = "",
-                strand: str = "+") -> AlignJob | None:
+                strand: str = "+", cip: dict | None = None
+                ) -> AlignJob | None:
     """Window restriction + band geometry for one problem (stripe role,
     aln2.cc:156-199)."""
     M = len(q)
@@ -153,7 +159,8 @@ def prepare_job(q: np.ndarray, g: np.ndarray, ctx: AlignerContext,
     up = min(lw + Wb - 1, N)
     lw = max(up - Wb + 1, -M)
     return AlignJob(q=q, gw=gw, sig=sig, lw=lw, up=up, strand=strand,
-                    lo=lo, g_total=len(g), q_name=q_name, g_name=g_name)
+                    lo=lo, g_total=len(g), q_name=q_name, g_name=g_name,
+                    cip=cip)
 
 
 def _to_minus_view(gs: GeneStructure, M: int, N: int) -> GeneStructure:
@@ -260,10 +267,13 @@ def execute_jobs(jobs: list[AlignJob], ctx: AlignerContext,
             part = idxs[c0:c0 + mb]
             js = [jobs[i] for i in part]
             with stage("prep"):
+                cips = ([j.cip for j in js] if any(j.cip for j in js)
+                        else None)
                 bp = prepare_spliced_batch(
                     [j.q for j in js], [j.gw for j in js], ctx.prm,
                     sigs=[j.sig for j in js], lws=[j.lw for j in js],
-                    W=W, L=lanes, flags=ctx.flags, device=ctx.device)
+                    W=W, L=lanes, flags=ctx.flags, cips=cips,
+                    device=ctx.device)
             cells = bp.B * bp.S * bp.L * bp.W
             with stage("device_dp"):
                 if udh:
@@ -297,7 +307,12 @@ def forward_spliced(q: np.ndarray, g: np.ndarray, ctx: AlignerContext,
     (run_bucket), or with ``udh`` the linear-space path: (score, end_m,
     end_n, ops), the counterpart of spaln_tpu's forward_spliced_scan +
     traceback_spliced_scan and forward_spliced_udh.  Any failure of the
-    DP is raised as DeviceDPError, which per-query isolation passes on."""
+    DP is raised as DeviceDPError, which per-query isolation passes on.
+    The DP is semi-global with no -yJ bonus whatever ``ctx`` says: the
+    reference's align windows call its DP without flags or cips
+    (spaln_tpu/align/driver.py:326-328, 766-775), so `align -L S` and
+    `align -y J...` print plain align's text there (ROADMAP.md Queue
+    3)."""
     M, N = len(q), len(g)
     if lw is None:
         lw, up = -M, N
@@ -305,7 +320,7 @@ def forward_spliced(q: np.ndarray, g: np.ndarray, ctx: AlignerContext,
         bp = prepare_spliced_batch(
             [np.asarray(q)], [np.asarray(g)], ctx.prm,
             sigs=[sig] if sig is not None else None, lws=[lw],
-            W=up - lw + 1, L=L, flags=ctx.flags, device=ctx.device)
+            W=up - lw + 1, L=L, flags=DpFlags(), device=ctx.device)
         if udh:
             scores, ends, ops_all = run_spliced_batch_udh(
                 bp, ctx.prm, ctx.plane_budget)

@@ -50,6 +50,7 @@ def _map_queries_batched(self, queries: list, q_names: list | None = None,
                          strand: str = "auto", ncand: int = 10,
                          max_out: int = 1, min_coverage: float = 0.3,
                          lanes: int = 128, max_batch: int = 32,
+                         cips: list | None = None,
                          trim_polya: bool = True,
                          triage: dict | None = None
                          ) -> list[list[GeneStructure]]:
@@ -57,7 +58,8 @@ def _map_queries_batched(self, queries: list, q_names: list | None = None,
     replacement of the reference's master-worker ThQueue
     (spaln.cc:1220-1468).  Per round: locate candidates + seed on host,
     run all DP problems as batched device launches, widen windows
-    that clipped a gene (ExtBlock) and re-queue for the next round."""
+    that clipped a gene (ExtBlock) and re-queue for the next round.
+    ``cips`` gives each query its -yJ bonuses {m: bonus} (or None)."""
     from ..utils.metrics import metrics, stage
     q_names = q_names or [""] * len(queries)
     maxgene = self.index.maxgene
@@ -267,7 +269,8 @@ def _map_queries_batched(self, queries: list, q_names: list | None = None,
                 g_use = comrev(window) if st == "-" else window
                 job = prepare_job(q, g_use, self.ctx, chain,
                                   q_name=q_names[qi],
-                                  g_name=self.store.names[ci], strand=st)
+                                  g_name=self.store.names[ci], strand=st,
+                                  cip=cips[qi] if cips else None)
             except (KeyboardInterrupt, SystemExit):
                 raise
             except BaseException as exc:

@@ -21,7 +21,11 @@ Same options and output as spaln_tpu.cli for these paths, plus --device
 the size rule stays), -V sets the plane budget, -G the segment length of
 align; -y l3 selects double-affine gaps (the K5 modes of the kernels,
 K7's for protein queries).  Protein queries run Smith-Waterman local by
-default (-L S), as in the reference.
+default (-L S), as in the reference; `map -L S` makes the cDNA DP local
+too, and cDNA queries with junction records (;B/;b) get the conserved
+intron-position bonus (-yJ, default 20) in `map` (the K6 modes of the
+slab kernel).  `align` runs its cDNA windows semi-global and without the
+bonus whatever -L and -yJ say, as the reference does.
 Output formats -O#[,#2,..]: 0 GFF3 gene, 1 alignment text, 2 GFF3
 match, 3 BED12, 4 exon table, 5 intron table, 6 recovered cDNA,
 7 translated protein, 10 SAM, 12 binary shard (.grd.npz), 15 unique
@@ -161,19 +165,12 @@ def _plane_budget(args) -> int:
 
 
 def _dna_options(args) -> dict:
-    """The cDNA queries' options: the unported modes raise, -A/-V become
-    the context's engine overrides.  Returns AlignerContext.create's
-    keyword arguments."""
-    if _lcl_local(args):
-        raise NotImplementedError(
-            "local alignment (-L S) is not ported yet: ROADMAP.md Queue 1, "
-            "item 9 (local mode, K6)")
-    if any(a.startswith("J") for a in args.y_args):
-        raise NotImplementedError(
-            "the -yJ conserved intron-position bonus is not ported yet: "
-            "ROADMAP.md Queue 1, item 9 (cip mode, K6)")
+    """The cDNA queries' options: -L S (Smith-Waterman local, read by the
+    map path only, as in the reference), -A/-V as the context's engine
+    overrides.  Returns AlignerContext.create's keyword arguments."""
     return dict(y_args=["-y" + a for a in args.y_args],
-                force_udh=args.engine == 3, plane_budget=_plane_budget(args))
+                force_udh=args.engine == 3, plane_budget=_plane_budget(args),
+                local=_lcl_local(args))
 
 
 def _protein_options(args) -> dict:
@@ -256,18 +253,18 @@ def cmd_map(args) -> int:
             mapper = GenomeMapper(
                 store, BlockIndex.load(args.genome_db),
                 AlignerContext.create(tables, device, **opts))
-        # queries carrying SigII junction records (;B/;b) would get the
+        # queries carrying SigII junction records (;B/;b) get the
         # conserved-intron-position bonus SpbFact*num at those rows
-        if mapper.ctx.cfg.aln2.spb > 0 and any("sig_pos" in r.meta
-                                                for r in nt_batch):
-            raise NotImplementedError(
-                "queries with junction records (the -yJ conserved intron-"
-                "position bonus) are not ported yet: ROADMAP.md Queue 1, "
-                "item 9 (cip mode, K6)")
+        # (spaln_tpu/cli.py:282-292; -yJ sets SpbFact, default 20)
+        spb = mapper.ctx.cfg.aln2.spb * mapper.ctx.cfg.aln.scale
+        cips = [({p: int(spb * c) for p, c in r.meta["sig_pos"]}
+                 if spb > 0 and "sig_pos" in r.meta else None)
+                for r in nt_batch]
         res = mapper.map_queries([r.codes for r in nt_batch],
                                  q_names=[r.name for r in nt_batch],
                                  strand=args.strand, lanes=args.lanes,
-                                 max_out=args.max_out, max_batch=bs)
+                                 max_out=args.max_out, max_batch=bs,
+                                 cips=cips if any(cips) else None)
         for rec, gs_list in zip(nt_batch, res):
             sink.emit(gs_list, len(rec.codes))
         nt_batch.clear()

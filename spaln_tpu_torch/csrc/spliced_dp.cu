@@ -27,9 +27,9 @@
 //   sel   (nb,)               operand problem of each CTA (retrace), or
 //                             null for CTA b = problem b
 //   flags (S', T, nb, L) u8   winner state | E open << 3 | F open << 4
-//                             | E2 open << 5 | F2 open << 6, 255 =
-//                             inactive cell (S' slabs run); bit 7 stays
-//                             free for the local mode's restart flag
+//                             | E2 open << 5 | F2 open << 6 | local
+//                             restart << 7, 255 = inactive cell (S'
+//                             slabs run)
 //   spj   (S', NS, T, nb, L)  1 + donor boundary of an intron closed into
 //                             state k at the cell, 0 = none
 //   row   (B, Np)             H(M, n);  rc (B, Mpad + 1) H(m, N)
@@ -44,6 +44,11 @@
 //   snaps (S, NB, B, T + 2)   the slab's entry boundary rows over the
 //                             columns lane 0 reads, n = m0 + lw + k
 //   snap  (NB, nb, T + 2)     a retrace's entry boundary (from snaps)
+//   cip   (B, Mpad + L)       -yJ bonus of query row m at m - 1, added to
+//                             every acceptor close of the row; or null
+//   loc_v, loc_i (S, T, B)    local mode's emission: each slab's best H
+//                             at each step over its lanes, and the first
+//                             lane that holds it; or null
 //   ends  (B, 3)              (score, end m, end n)
 //   starts (nw, 5)            strip walk start (m, n, state, m_stop,
 //                             problem column b of the planes)
@@ -275,6 +280,34 @@ __device__ __forceinline__ int colinit(int k, int b_exgl, int gop,
 // (21 B under DAGP), are its only large traffic; K4 writes 16-20 B per
 // step and problem instead, and the score mode nothing but the final
 // row and column.
+//
+// K6, the local (Smith-Waterman-Gotoh) and -yJ modes of K1 and K4: the
+// counterpart of _make_step(local=True, cip=True)
+// (ops/dp_spliced_scan.py:223, run by _scan_slab 592), which spaln_tpu
+// runs on its scan engine only.  They are compiled into the K6 = true
+// instances of the trace and links modes only; there the local mode,
+// the bonus and the emission are runtime switches, uniform across the
+// launch.  The main path (no local mode, no bonus) runs the K6 = false
+// instances, the code it ran before K6 (as runtime switches they cost
+// K4 5.5% at phase 1's bucket: PERF.md, PR 13); the score mode, which
+// no path runs in them, has no K6 instance:
+//   cip    a lane's bonus is constant over its slab: loaded into a
+//          register at the round's start and added to the acceptor base
+//          once per closing cell (the same sum at every candidate);
+//   local  an active cell whose H is <= 0 commits 0 and sets flag bit 7
+//          (the walks stop there); the donor push and the E/F states
+//          read the value before the floor, as the reference does;
+//   loc_v  (trace mode, only asked for by the local protein search)
+//          each slab's best committed H at each step and its first lane.
+//          Lane v's H of step t sits in the H ring until step t+3
+//          overwrites it, so at step t+1, after the barrier that ends
+//          step t, warp w reduces sub-slab w (w + nwarp, ...) from the
+//          ring: each lane the best of its strided lanes (the first on
+//          ties), then the warp's maximum and the lowest lane that holds
+//          it by two warp reductions (__reduce_max_sync,
+//          __reduce_min_sync).  A step that does not emit takes no extra
+//          barrier; the round's last step is reduced after the loop,
+//          before the barrier that starts the next round.
 // One lane's registers: its place in the CTA's round (set at the round's
 // start) and the DP state it carries from one step to the next.
 struct Lane {
@@ -285,6 +318,7 @@ struct Lane {
   int* lk_out;
   int* sn_out;
   int h1, e1, e2, psp, lkh1, lke, lke2;
+  int cipv;                     // -yJ bonus of the lane's row (K6)
   int cv[NCAND], cj[NCAND], cd[NCAND], c5[NCAND], lkc[NCAND];
 };
 
@@ -304,7 +338,7 @@ __device__ __forceinline__ void seed_live(Lane& x, int gop, int ns) {
 }
 #endif
 
-template <int MODE, bool DAGP, bool MULTI, int MAXT, int P>
+template <int MODE, bool DAGP, bool MULTI, int MAXT, int P, bool K6>
 __global__ void __launch_bounds__(MAXT)
 slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
             const int* __restrict__ joint, const int* __restrict__ ipen,
@@ -317,7 +351,8 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
             unsigned char* __restrict__ flags, int* __restrict__ spj,
             int* __restrict__ row, int* __restrict__ rc,
             int* __restrict__ links, int* __restrict__ snaps, int ncta_arg,
-            int* prog) {
+            int* prog, const int* __restrict__ cip, int local,
+            int* __restrict__ loc_v, int* __restrict__ loc_i) {
   constexpr bool LINKS = MODE == MODE_LINKS;
   constexpr bool TRACE = MODE == MODE_TRACE;
   constexpr int NS = DAGP ? 5 : 3;        // states with a junction plane
@@ -497,6 +532,8 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
       x.col_m = colinit(x.m, b_exgl, gop, gep);
       x.col_m1 = colinit(x.m - 1, b_exgl, gop, gep);
       x.internal = !a_exgr || x.m < M;
+      x.cipv = K6 && cip && x.live ? cip[(size_t)b * (Mpad + L) + x.m - 1]
+                                    : 0;
       x.li = min(max(M - x.m0, 0), L - 1);    // lane of row M
       x.fl_out = nullptr;
       x.spj_out = nullptr;
@@ -745,10 +782,11 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
           }
 #else
           if (closes) {
+            const int acc = K6 ? accb + x.cipv : accb;   // -yJ bonus
             int xc[NCAND];
 #pragma unroll
             for (int l = 0; l < NCAND; ++l)
-              xc[l] = ok[l] ? x.cv[l] + pen[l] + accb + jr[slot * 16 + x.c5[l]]
+              xc[l] = ok[l] ? x.cv[l] + pen[l] + acc + jr[slot * 16 + x.c5[l]]
                             : NEV;
 #pragma unroll
             for (int k = 0; k < NS; ++k) {
@@ -806,8 +844,10 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
               }
             }
           }
-          // ---- masked commit and emissions
-          const int h_out = active ? mx : NEV;
+          // ---- masked commit and emissions; local mode restarts an
+          // active cell at the zero floor
+          const bool reset = K6 && local && active && mx <= 0;
+          const int h_out = !active ? NEV : reset ? 0 : mx;
           const int f_out = active ? sv[2] : NEV;
           int f2_out = NEV;
           if (active) x.e1 = sv[1];
@@ -844,7 +884,8 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
           } else if constexpr (TRACE) {
             x.fl_out[(size_t)t * tstride] =
                 active ? (unsigned char)(mk | (e_open << 3) | (f_open << 4)
-                                         | (e2_open << 5) | (f2_open << 6))
+                                         | (e2_open << 5) | (f2_open << 6)
+                                         | (reset << 7))
                        : (unsigned char)255;
 #pragma unroll
             for (int k = 0; k < NS; ++k)
@@ -872,8 +913,35 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
       if (++x.slot == R) x.slot = 0;
     };
 
+    // local mode's emission of global step tau (K6): the best H of each
+    // sub-slab there and its first lane, from ring slot h3 = tau mod 3
+    auto emit_best = [&](const int tau, const int h3) {
+      const int warp = g >> 5, wl = g & 31;
+      const int nwarp = (nthr + 31) >> 5;
+      const int cnt = min(32, nthr - (warp << 5));   // threads of the warp
+      const unsigned mask = cnt == 32 ? 0xffffffffu : (1u << cnt) - 1;
+      for (int j = warp; j < ksub; j += nwarp) {
+        const int ls = r * ksub + j;
+        const int t = tau - 2 * j * L;
+        if (ls >= nslab || t < 0 || t >= T) continue;   // the warp's own
+        const int* h = Hs + h3 * KL + j * L;
+        int bv = -2147483647 - 1, bi = L;
+        for (int c = wl; c < L; c += 32)
+          if (h[c] > bv) { bv = h[c]; bi = c; }
+        const int best = __reduce_max_sync(mask, bv);
+        const int first = __reduce_min_sync(mask, bv == best ? bi : L);
+        if (wl == 0) {
+          const size_t o = ((size_t)ls * T + t) * nb + ob;
+          loc_v[o] = best;
+          loc_i[o] = first;
+        }
+      }
+    };
+    const bool emit = K6 && TRACE && loc_v != nullptr;
+
     int p3 = 0;                              // tau mod 3
     for (int tau = 0; tau < nstep; ++tau) {
+      if (emit && tau > 0) emit_best(tau - 1, p3 == 0 ? 2 : p3 - 1);
 #pragma unroll
       for (int p = 0; p < P; ++p) lane_step(ln[p], g + p * nthr, tau, p3);
       if (++p3 == 3) p3 = 0;
@@ -888,6 +956,7 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
       if (chunk) sync_rounds(tau + 1);
     }
     __pipeline_wait_prior(0);     // nothing lands in the next round's ring
+    if (emit) emit_best(nstep - 1, (nstep - 1) % 3);
     sync_rounds(nstep);
   }
 }
@@ -1304,11 +1373,19 @@ int tb_walk_entry(const unsigned char* flags, const int* spj,
 // bytes of dynamic shared memory, as slab_geometry chose them.  A launch
 // the instance cannot take is refused with cudaErrorInvalidValue;
 // nothing is launched with other numbers.
-template <int MODE, bool DAGP, int P>
+template <int MODE, bool DAGP, int P, bool K6>
 auto slab_instance(int ncta) {
   constexpr int MAXT = max_threads(MODE, DAGP);
-  return ncta > 1 ? slab_kernel<MODE, DAGP, true, MAXT, P>
-                  : slab_kernel<MODE, DAGP, false, MAXT, P>;
+  return ncta > 1 ? slab_kernel<MODE, DAGP, true, MAXT, P, K6>
+                  : slab_kernel<MODE, DAGP, false, MAXT, P, K6>;
+}
+
+// The instance of a launch: P lanes a thread, K6's modes or not (never
+// for the score mode)
+template <int MODE, bool DAGP, bool K6>
+auto slab_pick(int P, int ncta) {
+  return P == 1 ? slab_instance<MODE, DAGP, 1, K6>(ncta)
+                : slab_instance<MODE, DAGP, 2, K6>(ncta);
 }
 
 template <int MODE, bool DAGP>
@@ -1320,6 +1397,7 @@ int launch_slab(const int* qprof, const int* gops, const int* joint,
                 int lgep, int llmt, int a_exgl, int a_exgr, int b_exgl,
                 const int* snap, int* bnd, unsigned char* flags, int* spj,
                 int* row, int* rc, int* links, int* snaps,
+                const int* cip, int local, int* loc_v, int* loc_i,
                 cudaStream_t stream) {
 #if SLAB_ABLATE
   // a knock-out build times the score mode alone: no other mode's kernel
@@ -1335,8 +1413,13 @@ int launch_slab(const int* qprof, const int* gops, const int* joint,
       || ncta < 1 || ncta > CLUSTER_MAX
       || smem < 4 * slab_smem_ints(KL, A, MODE, DAGP))
     return (int)cudaErrorInvalidValue;
-  auto kernel = P == 1 ? slab_instance<MODE, DAGP, 1>(ncta)
-                       : slab_instance<MODE, DAGP, 2>(ncta);
+  const bool k6 = cip || local || loc_v;
+  auto kernel = slab_pick<MODE, DAGP, false>(P, ncta);
+  if constexpr (MODE == MODE_SCORE) {
+    if (k6) return (int)cudaErrorInvalidValue;
+  } else if (k6) {
+    kernel = slab_pick<MODE, DAGP, true>(P, ncta);
+  }
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1359,7 +1442,8 @@ int launch_slab(const int* qprof, const int* gops, const int* joint,
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, kernel, qprof, gops, joint, ipen, Ms, Ns, lws, sel, A, L, s0,
       nslab, W, T, Mpad, Np, gop, gep, lgop, lgep, llmt, a_exgl, a_exgr,
-      b_exgl, snap, bnd, flags, spj, row, rc, links, snaps, ncta, prog);
+      b_exgl, snap, bnd, flags, spj, row, rc, links, snaps, ncta, prog, cip,
+      local, loc_v, loc_i);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 #if SLAB_ABLATE
   }
@@ -1386,6 +1470,10 @@ int launch_slab(const int* qprof, const int* gops, const int* joint,
 #define GEOM_ARGS int k, int smem, int ncta, int* prog
 #define PASS_SCORE                                                        \
   W, T, Mpad, Np, gop, gep, lgop, lgep, llmt, a_exgl, a_exgr, b_exgl
+// K6's modes of K1 and K4 (after their outputs): the -yJ bonus (B, Mpad
+// + L), or null, and the local switch; K1 then takes the local mode's
+// emission (loc_v, loc_i), or nulls
+#define MODE_ARGS const int *cip, int local
 
 extern "C" {
 
@@ -1395,21 +1483,23 @@ const char* spliced_error_string(int code) {
 
 int spliced_slab_trace(SLAB_ARGS, int B, int L, int A, int S, GEOM_ARGS,
                        SCORE_ARGS, int* bnd, unsigned char* flags, int* spj,
-                       int* row, int* rc, cudaStream_t stream) {
+                       int* row, int* rc, MODE_ARGS, int* loc_v, int* loc_i,
+                       cudaStream_t stream) {
   return launch_slab<MODE_TRACE, false>(
       qprof, gops, joint, ipen, Ms, Ns, lws, nullptr, B, L, A, 0, S, k, smem,
       ncta, prog, PASS_SCORE, nullptr, bnd, flags, spj, row, rc, nullptr,
-      nullptr, stream);
+      nullptr, cip, local, loc_v, loc_i, stream);
 }
 
 int spliced_slab_trace_dagp(SLAB_ARGS, int B, int L, int A, int S,
                             GEOM_ARGS, SCORE_ARGS, int* bnd,
                             unsigned char* flags, int* spj, int* row,
-                            int* rc, cudaStream_t stream) {
+                            int* rc, MODE_ARGS, int* loc_v, int* loc_i,
+                            cudaStream_t stream) {
   return launch_slab<MODE_TRACE, true>(
       qprof, gops, joint, ipen, Ms, Ns, lws, nullptr, B, L, A, 0, S, k, smem,
       ncta, prog, PASS_SCORE, nullptr, bnd, flags, spj, row, rc, nullptr,
-      nullptr, stream);
+      nullptr, cip, local, loc_v, loc_i, stream);
 }
 
 int spliced_slab_retrace(SLAB_ARGS, const int* sel, int nb, int L, int A,
@@ -1419,7 +1509,7 @@ int spliced_slab_retrace(SLAB_ARGS, const int* sel, int nb, int L, int A,
   return launch_slab<MODE_TRACE, false>(
       qprof, gops, joint, ipen, Ms, Ns, lws, sel, nb, L, A, s0, nslab, k, smem,
       ncta, prog, PASS_SCORE, snap, bnd, flags, spj, nullptr, nullptr, nullptr,
-      nullptr, stream);
+      nullptr, nullptr, 0, nullptr, nullptr, stream);
 }
 
 int spliced_slab_retrace_dagp(SLAB_ARGS, const int* sel, int nb, int L,
@@ -1430,26 +1520,26 @@ int spliced_slab_retrace_dagp(SLAB_ARGS, const int* sel, int nb, int L,
   return launch_slab<MODE_TRACE, true>(
       qprof, gops, joint, ipen, Ms, Ns, lws, sel, nb, L, A, s0, nslab, k, smem,
       ncta, prog, PASS_SCORE, snap, bnd, flags, spj, nullptr, nullptr, nullptr,
-      nullptr, stream);
+      nullptr, nullptr, 0, nullptr, nullptr, stream);
 }
 
 int spliced_slab_links(SLAB_ARGS, int B, int L, int A, int S, GEOM_ARGS,
                        SCORE_ARGS, int* bnd, int* row, int* rc, int* links,
-                       int* snaps, cudaStream_t stream) {
+                       int* snaps, MODE_ARGS, cudaStream_t stream) {
   return launch_slab<MODE_LINKS, false>(
       qprof, gops, joint, ipen, Ms, Ns, lws, nullptr, B, L, A, 0, S, k, smem,
       ncta, prog, PASS_SCORE, nullptr, bnd, nullptr, nullptr, row, rc, links,
-      snaps, stream);
+      snaps, cip, local, nullptr, nullptr, stream);
 }
 
 int spliced_slab_links_dagp(SLAB_ARGS, int B, int L, int A, int S,
                             GEOM_ARGS, SCORE_ARGS, int* bnd, int* row,
-                            int* rc, int* links, int* snaps,
+                            int* rc, int* links, int* snaps, MODE_ARGS,
                             cudaStream_t stream) {
   return launch_slab<MODE_LINKS, true>(
       qprof, gops, joint, ipen, Ms, Ns, lws, nullptr, B, L, A, 0, S, k, smem,
       ncta, prog, PASS_SCORE, nullptr, bnd, nullptr, nullptr, row, rc, links,
-      snaps, stream);
+      snaps, cip, local, nullptr, nullptr, stream);
 }
 
 int spliced_slab_score(SLAB_ARGS, int B, int L, int A, int S, GEOM_ARGS,
@@ -1459,11 +1549,11 @@ int spliced_slab_score(SLAB_ARGS, int B, int L, int A, int S, GEOM_ARGS,
     return launch_slab<MODE_SCORE, true>(
         qprof, gops, joint, ipen, Ms, Ns, lws, nullptr, B, L, A, 0, S, k, smem,
         ncta, prog, PASS_SCORE, nullptr, bnd, nullptr, nullptr, row, rc,
-        nullptr, nullptr, stream);
+        nullptr, nullptr, nullptr, 0, nullptr, nullptr, stream);
   return launch_slab<MODE_SCORE, false>(
       qprof, gops, joint, ipen, Ms, Ns, lws, nullptr, B, L, A, 0, S, k, smem,
       ncta, prog, PASS_SCORE, nullptr, bnd, nullptr, nullptr, row, rc, nullptr,
-      nullptr, stream);
+      nullptr, nullptr, 0, nullptr, nullptr, stream);
 }
 
 int spliced_last_ends(const int* row, const int* rc, const int* Ms,

@@ -83,7 +83,9 @@ def batch_from_reference(bp, device: torch.device | str = "cpu"
         lws_t=up(np.asarray(bp.lws, np.int32)),
         Ms=list(bp.Ms), Ns=list(bp.Ns), lws=list(bp.lws), B=B, L=L, W=W,
         T=bp.T, S=S, Mpad=bp.Mpad, Nmax=Nmax, IT=walk_bound(S, L, W),
-        flags=DpFlags(**vars(bp.flags)))
+        flags=DpFlags(**vars(bp.flags)),
+        cip=(None if bp.cip_all is None
+             else up(np.asarray(bp.cip_all, np.int32))))
 
 
 def tron_params_from_reference(prm) -> TronDpParams:

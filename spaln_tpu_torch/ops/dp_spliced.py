@@ -103,6 +103,10 @@ class BatchProblem:
                                  dinucleotide code dinc5
       joint (B, Nmax+1, 16) int32 acceptor term acc_joint[n, dinc5]
       ipen  (Nmax+1,) int32      exact intron penalty by length
+      cip   (B, Mpad+L) int32    -yJ conserved intron-position bonus of
+                                 query row m at [b, m-1], added to every
+                                 acceptor close in that row; None
+                                 without bonuses
     """
     qprof: torch.Tensor
     gops: torch.Tensor
@@ -123,6 +127,7 @@ class BatchProblem:
     Nmax: int
     IT: int                      # traceback walk step bound
     flags: DpFlags
+    cip: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
@@ -187,12 +192,15 @@ def prepare_spliced_batch(queries: list, genomes: list, prm: DpParams,
                           L: int = 128,
                           lws: list | None = None,
                           W: int | None = None,
+                          cips: list | None = None,
                           device: torch.device | str = "cpu"
                           ) -> BatchProblem:
     """Host stage: build B problems' operands and move them to ``device``.
 
     Either one (lw, up) band for the whole batch, or per-problem band
-    placements ``lws`` with a common width ``W``."""
+    placements ``lws`` with a common width ``W``.  ``cips`` gives each
+    query its -yJ bonuses {m (1-based): bonus} (or None), as
+    spaln_tpu/ops/dp_spliced_scan.py:854-866 builds them."""
     flags = flags or DpFlags()
     B = len(queries)
     Ms = [len(q) for q in queries]
@@ -220,6 +228,17 @@ def prepare_spliced_batch(queries: list, genomes: list, prm: DpParams,
     def up_(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
+    cip = None
+    if cips is not None and any(c is not None and len(c) for c in cips):
+        ca = np.zeros((B, Mpad + L), dtype=np.int32)
+        for i, c in enumerate(cips):
+            if not c:
+                continue
+            for mpos, bonus in (c.items() if hasattr(c, "items")
+                                else enumerate(c)):
+                if 1 <= mpos <= Mpad:
+                    ca[i, mpos - 1] = bonus
+        cip = up_(ca)
     return BatchProblem(
         qprof=up_(np.stack([p[0] for p in parts])),
         gops=up_(np.stack([p[1] for p in parts])),
@@ -229,7 +248,8 @@ def prepare_spliced_batch(queries: list, genomes: list, prm: DpParams,
         Ns_t=up_(np.asarray(Ns, np.int32)),
         lws_t=up_(np.asarray(lws, np.int32)),
         Ms=Ms, Ns=Ns, lws=list(lws), B=B, L=L, W=W, T=W + 2 * (L - 1),
-        S=S, Mpad=Mpad, Nmax=Nmax, IT=walk_bound(S, L, W), flags=flags)
+        S=S, Mpad=Mpad, Nmax=Nmax, IT=walk_bound(S, L, W), flags=flags,
+        cip=cip)
 
 
 def collect_batch_results(bp: BatchProblem, prm: DpParams, row, rc,
@@ -272,6 +292,57 @@ def forward_spliced_batch(queries: list, genomes: list, prm: DpParams,
         return collect_batch_results(bp, prm, row, rc)
     fl, spj, row, rc = spliced_slab_trace(bp, prm)
     return collect_batch_results(bp, prm, row, rc, planes=(fl, spj))
+
+
+def collect_local_ends(bp: BatchProblem, traces, vthr: int,
+                       max_out: int = 16) -> list:
+    """SWG colony ends (collect_local_ends, spaln_tpu/ops/
+    dp_spliced_scan.py:1007-1033): from each step's best (value, lane)
+    per problem, the cells whose value is >= vthr, per problem a list of
+    (val, m, n), best first and, among equal values, in (slab, step)
+    order.  ``traces`` holds per slab a tuple whose last two entries are
+    the (T, B) values and lanes (K1's local emission (S, T, B) as
+    ``zip(loc_v, loc_i)``)."""
+    lv = np.stack([np.asarray(ys[-2]) for ys in traces])     # (S, T, B)
+    li = np.stack([np.asarray(ys[-1]) for ys in traces])
+    out = []
+    for i in range(bp.B):
+        s, t = np.nonzero(lv[:, :, i] >= vthr)
+        lane = li[s, t, i].astype(np.int64)
+        m = s * bp.L + 1 + lane
+        n = s * bp.L + 1 + bp.lws[i] + 1 + t - lane
+        ok = (m >= 1) & (m <= bp.Ms[i]) & (n >= 1) & (n <= bp.Ns[i])
+        v = lv[s, t, i].astype(np.int64)[ok]
+        order = np.argsort(-v, kind="stable")
+        out.append([(int(v[k]), int(m[ok][k]), int(n[ok][k]))
+                    for k in order])
+    return out
+
+
+def pick_colonies(cands: list, trace_fn, max_out: int = 16,
+                  gep: int = -20, vthr: int = 350) -> list:
+    """Greedy colony selection (pick_colonies, spaln_tpu/ops/
+    dp_spliced_scan.py:1036-1063, the Colonies::detectoverlap role): take
+    the best remaining end, trace it with trace_fn(m, n) -> (m0, n0, ops)
+    (or None).  An end inside an accepted colony's box is skipped
+    untraced, and a traced candidate whose start lies inside one is that
+    colony's ridge tail and is dropped."""
+    picked = []
+    remaining = list(cands)
+    while remaining and len(picked) < max_out:
+        v, m, n = remaining.pop(0)
+        if any(pm0 - 1 <= m <= pm and pn0 - 1 <= n <= pn
+               for _, pm, pn, (pm0, pn0, *_x) in picked):
+            continue
+        traced = trace_fn(m, n)
+        if traced is None:
+            continue
+        m0, n0 = traced[0], traced[1]
+        if any(pm0 - 1 <= m0 <= pm and pn0 - 1 <= n0 <= pn
+               for _, pm, pn, (pm0, pn0, *_x) in picked):
+            continue
+        picked.append((v, m, n, traced))
+    return picked
 
 
 def ops_from_records(recs: np.ndarray, B: int) -> list:

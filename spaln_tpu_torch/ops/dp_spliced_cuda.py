@@ -40,6 +40,14 @@ run_bucket.
                         dp_spliced_pallas.py:1075-1178): the ends of a
                         problem by a CTA, then its walk by one warp
 
+K6 is two modes of K1 and K4 (and of their double-affine entries), set
+by the bucket: Smith-Waterman local (bp.flags.local: the zero floor,
+flag bit 7, and on request K1's per-step emission of each slab's best
+(H, lane)) and the -yJ bonus (bp.cip), the scan engine's
+_make_step(local=True, cip=True) (dp_spliced_scan.py:223), which
+spaln_tpu runs only there.  The score-only and retrace entries refuse
+both: no path of the reference runs them so.
+
 Each wrapper runs the plain version for tensors on the CPU, and for
 tensors on a CUDA device launches its kernel on the current stream or
 raises: nothing falls back.  ``launches`` counts kernel launches per C
@@ -162,13 +170,15 @@ def _library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     # operands (7), then B, L, A, S, k, smem, ncta, prog and the 12 of
     # _dp_ints
     slab = [P] * 7 + [I] * 7 + [P] + [I] * 12
+    # the local and -yJ modes: (cip, local, loc_v, loc_i) after the
+    # outputs of K1, (cip, local) after K4's
     for name in ("spliced_slab_trace", "spliced_slab_trace_dagp"):
-        getattr(lib, name).argtypes = slab + [P] * 5 + [P]
+        getattr(lib, name).argtypes = slab + [P] * 5 + [P, I, P, P] + [P]
     for name in ("spliced_slab_retrace", "spliced_slab_retrace_dagp"):
         getattr(lib, name).argtypes = ([P] * 8 + [I] * 8 + [P] + [I] * 12
                                        + [P] * 4 + [P])
     for name in ("spliced_slab_links", "spliced_slab_links_dagp"):
-        getattr(lib, name).argtypes = slab + [P] * 5 + [P]
+        getattr(lib, name).argtypes = slab + [P] * 5 + [P, I] + [P]
     lib.spliced_slab_score.argtypes = slab + [I] + [P] * 3 + [P]
     lib.spliced_last_ends.argtypes = [P] * 5 + [I] * 10 + [P, P]
     lib.spliced_ends_tb_walk.argtypes = [P] * 7 + [I] * 15 + [P] * 3 + [P]
@@ -229,6 +239,8 @@ def _operand_checks(bp: BatchProblem) -> None:
     _check("ipen", bp.ipen, I32, (Np,), dev)
     for nm in ("Ms_t", "Ns_t", "lws_t"):
         _check(nm, getattr(bp, nm), I32, (bp.B,), dev)
+    if bp.cip is not None:
+        _check("cip", bp.cip, I32, (bp.B, bp.Mpad + bp.L), dev)
 
 
 # The slab kernel's geometry, as csrc/spliced_dp.cu has it (max_threads,
@@ -347,11 +359,13 @@ def _slab_checks(bp: BatchProblem, prm: DpParams, mode: str,
                  nslab: int) -> tuple[int, int] | None:
     """What the slab kernel (every mode) does not take; for tensors on a
     CUDA device, the (k, smem) of slab_geometry for a launch over nslab
-    slabs."""
-    if bp.flags.local:
-        raise NotImplementedError(
-            "the local mode of the slab kernel is not ported yet "
-            "(ROADMAP.md Queue 1, item 9: K6)")
+    slabs.  The local and -yJ modes run in trace and links mode only:
+    no path of spaln_tpu runs them score-only or in a retrace (its UDH
+    retrace drops both, spaln_tpu/ops/dp_spliced_udh.py:159-163)."""
+    if mode == "score" and (bp.flags.local or bp.cip is not None):
+        raise ValueError("the score-only slab kernel runs neither the local "
+                         "mode nor the -yJ bonus: no path of the "
+                         "reference asks for them")
     if mode == "links" and bp.Nmax >= (1 << 28) - 2:
         raise ValueError(f"window of {bp.Nmax} columns: links are "
                          f"column * 8 + state in int32")
@@ -398,31 +412,49 @@ def _scratch(bp: BatchProblem, prm: DpParams, nb: int) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------- K1
-def spliced_slab_trace(bp: BatchProblem, prm: DpParams):
+def spliced_slab_trace(bp: BatchProblem, prm: DpParams,
+                       emit_local: bool = False):
     """K1 (K5's double-affine mode under prm.dagp): every slab of every
-    problem in the bucket.
+    problem in the bucket, Smith-Waterman local under bp.flags.local
+    and with the -yJ bonus bp.cip where it is set (K6).
 
     Returns (flags (S, T, B, L) uint8, spj (S, NS, T, B, L) int32,
     row (B, Nmax+1) int32 = H(M, n), rc (B, Mpad+1) int32 = H(m, N)),
     NS = n_states(prm).  flags: bits 0-2 winner state, bit 3 E opened,
-    bit 4 F opened, bit 5 E2 opened, bit 6 F2 opened, 255 = inactive
-    cell; spj[k]: 1 + donor boundary of the intron closed into state k
-    here, 0 if none."""
+    bit 4 F opened, bit 5 E2 opened, bit 6 F2 opened, bit 7 local
+    restart (H floored at 0), 255 = inactive cell; spj[k]: 1 + donor
+    boundary of the intron closed into state k here, 0 if none.  With
+    ``emit_local`` (local mode only) also (loc_v, loc_i) (S, T, B)
+    int32: each slab's best H at each step over its lanes and the first
+    lane that holds it, for collect_local_ends."""
+    if emit_local and not bp.flags.local:
+        raise ValueError("emit_local: the emission is the local mode's")
     geom = _slab_checks(bp, prm, "trace", bp.S)
     if bp.device.type == "cpu":
-        return slab_trace_plain(bp, prm)
+        return slab_trace_plain(bp, prm, emit_local)
     B, L, S, T = bp.B, bp.L, bp.S, bp.T
     dev, Np = bp.device, bp.Nmax + 1
     flags = torch.empty((S, T, B, L), dtype=torch.uint8, device=dev)
     spj = torch.empty((S, n_states(prm), T, B, L), dtype=I32, device=dev)
     row = torch.empty((B, Np), dtype=I32, device=dev)
     rc = torch.empty((B, bp.Mpad + 1), dtype=I32, device=dev)
+    loc = ((torch.empty((S, T, B), dtype=I32, device=dev),
+            torch.empty((S, T, B), dtype=I32, device=dev))
+           if emit_local else (None, None))
     bnd = _scratch(bp, prm, B)
     prog, gargs = _geom_args(bp, geom, B, S)
     _launch(entry("spliced_slab_trace", prm), dev, *_operand_ptrs(bp), B,
             L, bp.qprof.shape[2], S, *gargs, *_dp_ints(bp, prm), _ptr(bnd),
-            _ptr(flags), _ptr(spj), _ptr(row), _ptr(rc))
+            _ptr(flags), _ptr(spj), _ptr(row), _ptr(rc), *_mode_args(bp),
+            *(None if x is None else _ptr(x) for x in loc))
+    if emit_local:
+        return flags, spj, row, rc, *loc
     return flags, spj, row, rc
+
+
+def _mode_args(bp: BatchProblem) -> tuple:
+    """(cip pointer or null, local) of a K1 or K4 launch."""
+    return (None if bp.cip is None else _ptr(bp.cip), int(bp.flags.local))
 
 
 def spliced_slab_retrace(bp: BatchProblem, prm: DpParams, s0: int,
@@ -434,7 +466,14 @@ def spliced_slab_retrace(bp: BatchProblem, prm: DpParams, s0: int,
     boundary row at columns n = s0*L + 1 + lw + k, k = 0..T+1 (K4's
     snapshot of slab s0).  Returns (flags (nslab, T, B', L), spj (nslab,
     NS, T, B', L)), equal to K1's planes of those slabs and problems.
-    k and the CTAs per problem come from retrace_geometry."""
+    k and the CTAs per problem come from retrace_geometry.  No path of
+    spaln_tpu retraces in local mode or with the -yJ bonus (its UDH
+    retrace drops both, dp_spliced_udh.py:159-163), so neither is
+    taken."""
+    if bp.flags.local or bp.cip is not None:
+        raise ValueError("the retrace runs neither the local mode nor the "
+                         "-yJ bonus: the reference's UDH retrace drops "
+                         "both (spaln_tpu/ops/dp_spliced_udh.py:159-163)")
     _slab_checks(bp, prm, "trace", nslab)
     nb = int(sel.shape[0])
     if not 0 <= s0 < s0 + nslab <= bp.S:
@@ -461,7 +500,8 @@ def spliced_slab_retrace(bp: BatchProblem, prm: DpParams, s0: int,
 # ------------------------------------------------------------------- K4
 def spliced_slab_links(bp: BatchProblem, prm: DpParams):
     """K4 (K5's double-affine mode under prm.dagp): the UDH links forward
-    over every slab of every problem.
+    over every slab of every problem, Smith-Waterman local under
+    bp.flags.local and with the -yJ bonus bp.cip where it is set (K6).
 
     Returns (links (S, NLK, B, T) int32, snaps (S, NB, B, T+2) int32,
     row, rc as K1's), NLK = n_links(prm), NB = n_bounds(prm).
@@ -485,7 +525,7 @@ def spliced_slab_links(bp: BatchProblem, prm: DpParams):
     prog, gargs = _geom_args(bp, geom, B, S)
     _launch(entry("spliced_slab_links", prm), dev, *_operand_ptrs(bp), B,
             L, bp.qprof.shape[2], S, *gargs, *_dp_ints(bp, prm), _ptr(bnd),
-            _ptr(row), _ptr(rc), _ptr(links), _ptr(snaps))
+            _ptr(row), _ptr(rc), _ptr(links), _ptr(snaps), *_mode_args(bp))
     return links, snaps, row, rc
 
 
@@ -518,6 +558,7 @@ def _select(bp: BatchProblem, sel: torch.Tensor) -> BatchProblem:
     host = sel.tolist()
     return dataclasses.replace(
         bp, qprof=bp.qprof[idx], gops=bp.gops[idx], joint=bp.joint[idx],
+        cip=None if bp.cip is None else bp.cip[idx],
         Ms_t=bp.Ms_t[idx], Ns_t=bp.Ns_t[idx], lws_t=bp.lws_t[idx],
         Ms=[bp.Ms[i] for i in host], Ns=[bp.Ns[i] for i in host],
         lws=[bp.lws[i] for i in host], B=len(host))
@@ -567,12 +608,20 @@ def _write(dst: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
 
 def _slab_plain(bp: BatchProblem, prm: DpParams, mode: str = "trace",
                 s0: int = 0, nslab: int | None = None,
-                snap: torch.Tensor | None = None):
+                snap: torch.Tensor | None = None, emit_local: bool = False):
     """Plain version of the slab kernel in every mode: the scan engine's
     step (_make_step, dp_spliced_scan.py:223-577; trace, links or
-    score-only mode, single or double affine by prm.dagp, not local, no
-    cip) looped over slabs and steps, vectorized over (B, L), in its
-    exact operation order.
+    score-only mode, single or double affine by prm.dagp, Smith-Waterman
+    local by bp.flags.local, the -yJ bonus by bp.cip) looped over slabs
+    and steps, vectorized over (B, L), in its exact operation order.
+
+    Local mode floors the committed H of an active cell at 0 where it is
+    <= 0 and flags the cell with bit 7 (478-484, 566-567); the donor push
+    and the E/F states read the value before the floor.  ``emit_local``
+    (trace mode) also returns each step's best committed H over the
+    slab's lanes and its lane, the first on ties (529-533).  The bonus of
+    query row m is added to every acceptor close candidate of the row
+    (442-445).
 
     What depends only on the step (operands, masks) is gathered for the
     whole slab first.  So are lane 0's reads of the boundary rows: lane
@@ -583,12 +632,14 @@ def _slab_plain(bp: BatchProblem, prm: DpParams, mode: str = "trace",
 
     ``mode`` "trace" returns (flags, spj, row, rc) for slabs s0 ..
     s0+nslab-1, from row 0 or, with ``snap`` (NB, B, T+2), from that
-    entry boundary of slab s0; "links" returns (links, snaps, row, rc)
-    and "score" (row, rc) of every slab."""
+    entry boundary of slab s0, and with ``emit_local`` also (loc_v,
+    loc_i) (nslab, T, B); "links" returns (links, snaps, row, rc) and
+    "score" (row, rc) of every slab."""
     B, L, T, W = bp.B, bp.L, bp.T, bp.W
     if L < 3:
         raise ValueError(f"lanes L={L}: the slab runs 3 or more lanes")
     links, trace = mode == "links", mode == "trace"
+    local = bool(bp.flags.local)
     dagp = prm.dagp
     NS, NB = n_states(prm), n_bounds(prm)
     nslab = bp.S - s0 if nslab is None else nslab
@@ -611,6 +662,9 @@ def _slab_plain(bp: BatchProblem, prm: DpParams, mode: str = "trace",
         flags = torch.empty((nslab, T, B, L), dtype=torch.uint8,
                             device=dev)
         spj = torch.zeros((nslab, NS, T, B, L), dtype=I32, device=dev)
+        if emit_local:
+            loc_v = torch.empty((nslab, T, B), dtype=I32, device=dev)
+            loc_i = torch.empty((nslab, T, B), dtype=I32, device=dev)
     row = torch.full((B, Np), NEV, dtype=I32, device=dev)
     rc = torch.full((B, bp.Mpad + 1), NEV, dtype=I32, device=dev)
     # boundary rows H, F (, F2) of the previous slab's last row, by n
@@ -655,6 +709,9 @@ def _slab_plain(bp: BatchProblem, prm: DpParams, mode: str = "trace",
         isacc_all = (g_all[..., G_ISACC] != 0) & sig_ok
         qp = bp.qprof[:, m0 - 1:m0 - 1 + L, :]
         score_all = qp[bi3, li3, g_all[..., G_RES].long()]
+        # -yJ bonus of each lane's row, added to its close candidates
+        cip = (bp.cip[:, m0 - 1:m0 - 1 + L, None] if bp.cip is not None
+               else 0)
         n1_all = n_all == 1
         any_n1 = n1_all.flatten(1).any(1).tolist()
         any_acc = isacc_all.flatten(1).any(1).tolist()
@@ -805,7 +862,8 @@ def _slab_plain(bp: BatchProblem, prm: DpParams, mode: str = "trace",
                 cand_ok = (acc_ok[..., None] & (ilen >= llmt)
                            & (cv > NEV // 2))
                 xc = torch.where(cand_ok,
-                                 cv + pen + g[..., G_ACCB, None] + j16, nev)
+                                 cv + pen + g[..., G_ACCB, None] + j16 + cip,
+                                 nev)
                 jn = [zero] * NS
                 for k in range(NS):
                     # candidates that could close into state k (skipping
@@ -857,8 +915,11 @@ def _slab_plain(bp: BatchProblem, prm: DpParams, mode: str = "trace",
                         (c5, g[..., G_DINC5]), *extra)
                     if links:
                         lkc = rest[0]
-            # ---- masked commit
+            # ---- masked commit; local mode restarts at the zero floor
             h_out = torch.where(active, mx_val, nev)
+            if local:
+                reset = active & (mx_val <= 0)
+                h_out = torch.where(reset, 0, h_out)
             f_out = torch.where(active, state_vals[2], nev)
             e1 = torch.where(active, state_vals[1], e1)
             h2, h1, f1 = h1, h_out, f_out
@@ -885,7 +946,16 @@ def _slab_plain(bp: BatchProblem, prm: DpParams, mode: str = "trace",
                 if dagp:
                     fl8 = (fl8 | (e2_open.to(I32) << 5)
                            | (f2_open.to(I32) << 6))
+                if local:
+                    fl8 = fl8 | (reset.to(I32) << 7)
                 flags[ls, t] = torch.where(active, fl8, 255).to(torch.uint8)
+                if emit_local:
+                    # the first lane of the best value (jnp.argmax's rule,
+                    # written out: torch leaves the tie order open)
+                    best = h_out.max(dim=1).values
+                    loc_v[ls, t] = best
+                    loc_i[ls, t] = torch.where(h_out == best[:, None], lanes,
+                                               L).min(dim=1).values
         # ---- H(M, n), H(m, N) and the boundary rows for the next slab
         if links:
             lk_out[s, 3] = torch.where(rcl_ok, lk_out[s, 3], 0)
@@ -901,6 +971,8 @@ def _slab_plain(bp: BatchProblem, prm: DpParams, mode: str = "trace",
     if links:
         return lk_out, snaps, row, rc
     if trace:
+        if emit_local:
+            return flags, spj, row, rc, loc_v, loc_i
         return flags, spj, row, rc
     return row, rc
 
@@ -1325,10 +1397,11 @@ def _walk_states(spj: torch.Tensor) -> int:
     return NS
 
 
-def slab_trace_plain(bp: BatchProblem, prm: DpParams):
+def slab_trace_plain(bp: BatchProblem, prm: DpParams,
+                     emit_local: bool = False):
     """Plain version of K1 (and of its double-affine mode)."""
     plain_calls[entry("spliced_slab_trace", prm)] += 1
-    return _slab_plain(bp, prm)
+    return _slab_plain(bp, prm, emit_local=emit_local)
 
 
 def slab_links_plain(bp: BatchProblem, prm: DpParams):

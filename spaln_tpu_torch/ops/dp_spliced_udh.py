@@ -27,8 +27,16 @@ boundaries (every L-th query row) are the intermediate rows:
    crossing above down to the one below; one copy brings every strip's
    records back, and the strips, stitched, are the op stream of the
    full-plane walk.
+
+The local mode and the -yJ bonus (K6) run in the links pass only: the
+reference's retrace re-runs its slabs without them
+(spaln_tpu/ops/dp_spliced_udh.py:159-163), so its op streams can differ
+from its plane path's there, and the port's equal its own (ROADMAP.md
+Queue 3).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -162,6 +170,19 @@ def retrace_launches(runs: list, max_ps: int) -> list:
     return out
 
 
+def slab_launches(runs: list, max_ps: int) -> list:
+    """The retrace's launches over ``runs`` [(problem, first slab, end
+    slab)] one slab at a time: for each slab, the problems whose runs
+    hold it, at most ``max_ps`` a launch, each from K4's snapshot of that
+    slab."""
+    out = []
+    for s in sorted({s for _, a, b in runs for s in range(a, b + 1)}):
+        members = [i for i, a, b in runs if a <= s <= b]
+        for c in range(0, len(members), max_ps):
+            out.append((s, 1, members[c:c + max_ps]))
+    return out
+
+
 def _retrace(bp: BatchProblem, prm: DpParams, snaps: torch.Tensor,
              cr: np.ndarray, se: np.ndarray, plane_budget: int) -> list:
     """_retrace (spaln_tpu dp_spliced_udh.py:151): re-run each path's
@@ -171,6 +192,16 @@ def _retrace(bp: BatchProblem, prm: DpParams, snaps: torch.Tensor,
     the strips."""
     B, L, W, T = bp.B, bp.L, bp.W, bp.T
     dev = bp.device
+    # the reference's retrace builds its slab runner with neither local
+    # nor cip (spaln_tpu/ops/dp_spliced_udh.py:159-163), whatever the
+    # links pass ran, and re-runs each slab from its own snapshot: the
+    # port does the same (ROADMAP.md Queue 3, "the UDH retrace drops
+    # local and cip").  A run retraced from its first slab's snapshot
+    # computes the later slabs' entry rows without them, so there every
+    # slab is retraced alone.
+    alone = bp.flags.local or bp.cip is not None
+    bp = dataclasses.replace(
+        bp, flags=dataclasses.replace(bp.flags, local=False), cip=None)
     IT = strip_walk_bound(L, W)
     max_ps = max(1, plane_budget // (T * L * plane_bytes_per_cell(prm)))
     runs = []
@@ -187,7 +218,9 @@ def _retrace(bp: BatchProblem, prm: DpParams, snaps: torch.Tensor,
         runs.append((i, s0, sf))
     first = {i: s0 for i, s0, _ in runs}
     pending = []
-    for a, nslab, members in retrace_launches(runs, max_ps):
+    launches = (slab_launches(runs, max_ps) if alone
+                else retrace_launches(runs, max_ps))
+    for a, nslab, members in launches:
         sel = torch.tensor(members, dtype=I32, device=dev)
         idx = sel.long()
         snap = snaps[a].index_select(1, idx).contiguous()

@@ -5,7 +5,10 @@ rounds of k slabs in flight wrap twice and end part-full; and L = 1000
 and 1024, two lanes a thread): exact equality of every output, single
 and double affine and score-only, and run_bucket, the UDH path (its
 retrace at several plane budgets), `map --lanes 1024` and the protein
-search on the card equal to the CPU run; the tron kernels K7 and K8 at
+search on the card equal to the CPU run; K6, the local and -yJ modes of
+K1 (with the local emission) and K4, at the same sizes, on 19 slabs and
+at two lanes a thread, and the local protein search on the card equal
+to the CPU run; the tron kernels K7 and K8 at
 the rule's geometry and forced ones (1-11 slabs, 9-1,024 lanes) and the
 protein map; the step probes at 4-32 warps, the slab kernel's "none"
 knock-out build against the production one, and the production
@@ -545,7 +548,8 @@ def test_refused_slab_launch_raises_on_card(cuda, setup):
     with pytest.raises(RuntimeError, match="CUDA error"):
         K._launch("spliced_slab_trace", cuda, *K._operand_ptrs(bp), bp.B,
                   16, A, bp.S, 128, smem, 1, K._ptr(prog),
-                  *K._dp_ints(bp, prm), K._ptr(bnd), *map(K._ptr, out))
+                  *K._dp_ints(bp, prm), K._ptr(bnd), *map(K._ptr, out),
+                  None, 0, None, None)
     assert K.plain_calls == before
 
 
@@ -584,6 +588,120 @@ def test_wide_lanes_equal_plain_on_card(cuda, setup, dagp, L):
     _retrace_runs_and_strips(bp, p, k4[1], k1[:2], sel,
                              (0, 2, 4) if dagp else (0, 2))
     torch.cuda.synchronize()
+
+
+def _k6(bp, cips: bool, local: bool):
+    """bp in K6's modes: the local switch, and a -yJ bonus on every other
+    problem's rows (a few hundred, at rows 3 mod 7)."""
+    cip = None
+    if cips:
+        c = torch.zeros((bp.B, bp.Mpad + bp.L), dtype=torch.int32)
+        c[::2, 2::7] = 300 + 100 * (torch.arange(c[:, 2::7].shape[1]) % 5)
+        cip = c.to(bp.device)
+    return dataclasses.replace(bp, flags=dataclasses.replace(
+        bp.flags, local=local), cip=cip)
+
+
+def _k6_check(bp, p, local: bool) -> None:
+    """K1 (with the emission in local mode) and K4 in bp's K6 modes
+    against their plain versions: every output equal."""
+    k1 = K.spliced_slab_trace(bp, p, emit_local=local)
+    p1 = K.slab_trace_plain(bp, p, emit_local=local)
+    assert len(k1) == len(p1) == (6 if local else 4)
+    for a, b in zip(k1, p1):
+        assert torch.equal(a, b)
+    if local:
+        assert ((k1[0] >= 128) & (k1[0] != 255)).any()
+    k4 = K.spliced_slab_links(bp, p)
+    for a, b in zip(k4, K.slab_links_plain(bp, p)):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+
+
+K6_MODES = [(False, True, False), (True, False, False), (True, True, False),
+            (False, True, True), (True, True, True)]
+
+
+@pytest.mark.parametrize("local,cips,dagp", K6_MODES)
+@pytest.mark.parametrize("B,M,ilen,L,lws", GEOMS)
+def test_k6_modes_equal_plain_on_card(cuda, setup, B, M, ilen, L, lws,
+                                      local, cips, dagp):
+    """K6: K1 and K4 in the local mode (the zero floor, flag bit 7, K1's
+    step emission of each slab's best H and first lane) and with the -yJ
+    bonus, single and double affine, at test sizes: exactly their plain
+    versions'."""
+    cfg, prm, tables = setup
+    p = _dagp(prm) if dagp else prm
+    qs, gs, ss = _problems(cfg, tables, B, M, ilen, seed=B + L + 5)
+    band = dict(lws=lws, W=256) if lws else {}
+    bp = dp.prepare_spliced_batch(qs, gs, p, sigs=ss, L=L, device=cuda,
+                                  **band)
+    _k6_check(_k6(bp, cips, local), p, local)
+
+
+@pytest.mark.parametrize("dagp,B", [(False, 3), (True, 3), (False, 45)])
+def test_k6_tall_slab_rounds_equal_plain_on_card(cuda, setup, dagp, B):
+    """K6 at test_tall_slab_rounds_equal_plain_on_card's geometry (19
+    slabs of L = 16: rounds of k slabs in flight that wrap twice, on a
+    cluster of CTAs, or with B = 45 on fewer CTAs than rounds), local
+    with the bonus: K1 with the emission and K4 equal their plain
+    versions."""
+    cfg, prm, tables = setup
+    p = _dagp(prm) if dagp else prm
+    qs, gs, ss = _problems(cfg, tables, B, [300, 170, 260], 70, seed=11)
+    bp = dp.prepare_spliced_batch(qs, gs, p, sigs=ss, L=16, device=cuda,
+                                  lws=[-20, -28, -24] * (B // 3), W=128)
+    _k6_check(_k6(bp, True, True), p, True)
+
+
+@pytest.mark.parametrize("dagp,L", [(False, 1000), (True, 1024)])
+def test_k6_wide_lanes_equal_plain_on_card(cuda, setup, dagp, L):
+    """K6 at two lanes a thread (L = 1000 and 1024): K1 with the emission
+    (its reduction over a slab wider than the CTA) and K4, local with the
+    bonus, equal their plain versions."""
+    cfg, prm, tables = setup
+    p = _dagp(prm) if dagp else prm
+    qs, gs, ss = _problems(cfg, tables, 2, [L + 120, L + 60], 70, seed=L)
+    bp = dp.prepare_spliced_batch(qs, gs, p, sigs=ss, L=L, device=cuda,
+                                  lws=[-20, -24], W=48)
+    _k6_check(_k6(bp, True, True), p, True)
+
+
+def test_local_search_on_card_equals_cpu(cuda):
+    """search_protein_local on the card (K1 in local mode with the
+    emission, B = 64 and 6 entries, L = 64 and 32) gives the CPU run's
+    hits, also with its batches cut by a small plane budget."""
+    from spaln_tpu_torch.align import protein_search as PS
+    from spaln_tpu_torch.seq.codec import encode_protein
+    rng = np.random.default_rng(7)
+    aas = list("ARNDCQEGHILKMFPSTWYV")
+    blk = ["".join(rng.choice(aas, 24)), "".join(rng.choice(aas, 20))]
+    q = blk[0] + "".join(rng.choice(aas, 90)) + blk[1]
+    db = [(f"d{i}", "".join(rng.choice(aas, int(rng.integers(50, 400)))))
+          for i in range(70)]
+    for k in (3, 40, 66):
+        db[k] = (f"h{k}", db[k][1][:30] + blk[0] + db[k][1][30:90] + blk[1])
+    db = [(n, encode_protein(s)) for n, s in db]
+    qc = encode_protein(q)
+
+    def key(hits):
+        return [(h.name, h.score, h.q_span, h.s_span, h.identity)
+                for h in hits]
+
+    kw = dict(table_dir=find_table_dir())
+    for lanes in (64, 32):
+        before = K.launches["spliced_slab_trace"]
+        got = PS.search_protein_local(qc, db, lanes=lanes, device=cuda, **kw)
+        assert K.launches["spliced_slab_trace"] - before == 2
+        assert key(got) == key(PS.search_protein_local(
+            qc, db, lanes=lanes, device="cpu", **kw))
+        assert {h.name for h in got} >= {"h3", "h40", "h66"}
+        if lanes == 64:
+            before = K.launches["spliced_slab_trace"]
+            cut = PS.search_protein_local(qc, db, lanes=64, device=cuda,
+                                          plane_budget=64 << 20, **kw)
+            assert K.launches["spliced_slab_trace"] - before > 2
+            assert key(cut) == key(got)
 
 
 def test_map_wide_lanes_on_card_equals_cpu(cuda, tmp_path):
@@ -843,40 +961,58 @@ def test_knockout_none_build_equals_production(cuda):
 
 
 # (registers a thread, spill stores, spill loads) of every instance of the
-# production spliced_dp.cu, from nvcc 12.8's -Xptxas -v on the card
-# before the knock-out define (SLAB_ABLATE) was added: slab_kernel<MODE,
-# DAGP, MULTI, MAXT, P>; tb_walk_kernel's as the warp-a-walk band walk
-# has them (unchanged by the walk body's move into a function both walk
-# kernels call); K2e's last_ends_kernel and the fused ends_tb_walk_kernel
-# as the warp-shuffle end reduction has them
+# production spliced_dp.cu, from nvcc 12.8's -Xptxas -v on the card:
+# slab_kernel<MODE, DAGP, MULTI, MAXT, P, K6>, read off the card when K6's
+# instances (the local and -yJ modes, K6 = 1) were added; the K6 = 0
+# instances are the code the main path ran before them (their registers
+# as before but for 3 more in <2,1,0,512,1,0> and 1 fewer in
+# <1,0,0,512,2,0>); tb_walk_kernel's as the warp-a-walk band walk has
+# them; K2e's last_ends_kernel and the fused ends_tb_walk_kernel as the
+# warp-shuffle end reduction has them
 SLAB_PTXAS = {
-    "slab_kernel<2,0,0,1024,2>": (64, 88, 116),
-    "slab_kernel<2,0,1,1024,2>": (64, 100, 124),
-    "slab_kernel<2,0,0,1024,1>": (64, 0, 0),
-    "slab_kernel<2,0,1,1024,1>": (63, 0, 0),
-    "slab_kernel<2,1,0,512,2>": (125, 0, 0),
-    "slab_kernel<2,1,1,512,2>": (127, 0, 0),
-    "slab_kernel<2,1,0,512,1>": (100, 0, 0),
-    "slab_kernel<2,1,1,512,1>": (97, 0, 0),
-    "slab_kernel<1,1,0,512,2>": (127, 0, 0),
-    "slab_kernel<1,1,1,512,2>": (128, 0, 0),
-    "slab_kernel<1,1,0,512,1>": (122, 0, 0),
-    "slab_kernel<1,1,1,512,1>": (128, 0, 0),
-    "slab_kernel<1,0,0,512,2>": (123, 0, 0),
-    "slab_kernel<1,0,1,512,2>": (128, 0, 0),
-    "slab_kernel<1,0,0,512,1>": (108, 0, 0),
-    "slab_kernel<1,0,1,512,1>": (116, 0, 0),
-    "slab_kernel<0,1,0,640,2>": (96, 28, 36),
-    "slab_kernel<0,1,1,640,2>": (96, 48, 60),
-    "slab_kernel<0,1,0,640,1>": (88, 0, 0),
-    "slab_kernel<0,1,1,640,1>": (95, 0, 0),
-    "slab_kernel<0,0,0,896,2>": (72, 76, 128),
-    "slab_kernel<0,0,1,896,2>": (72, 108, 164),
-    "slab_kernel<0,0,0,896,1>": (70, 0, 0),
-    "slab_kernel<0,0,1,896,1>": (68, 0, 0),
+    "slab_kernel<2,0,0,1024,2,0>": (64, 88, 116),
+    "slab_kernel<2,0,1,1024,2,0>": (64, 100, 124),
+    "slab_kernel<2,0,0,1024,1,0>": (64, 0, 0),
+    "slab_kernel<2,0,1,1024,1,0>": (63, 0, 0),
+    "slab_kernel<2,1,0,512,2,0>": (125, 0, 0),
+    "slab_kernel<2,1,1,512,2,0>": (127, 0, 0),
+    "slab_kernel<2,1,0,512,1,0>": (103, 0, 0),
+    "slab_kernel<2,1,1,512,1,0>": (97, 0, 0),
+    "slab_kernel<1,1,0,512,2,1>": (128, 0, 0),
+    "slab_kernel<1,1,1,512,2,1>": (128, 12, 12),
+    "slab_kernel<1,1,0,512,1,1>": (120, 0, 0),
+    "slab_kernel<1,1,1,512,1,1>": (128, 0, 0),
+    "slab_kernel<1,1,0,512,2,0>": (127, 0, 0),
+    "slab_kernel<1,1,1,512,2,0>": (128, 0, 0),
+    "slab_kernel<1,1,0,512,1,0>": (122, 0, 0),
+    "slab_kernel<1,1,1,512,1,0>": (128, 0, 0),
+    "slab_kernel<1,0,0,512,2,1>": (118, 0, 0),
+    "slab_kernel<1,0,1,512,2,1>": (128, 0, 0),
+    "slab_kernel<1,0,0,512,1,1>": (112, 0, 0),
+    "slab_kernel<1,0,1,512,1,1>": (120, 0, 0),
+    "slab_kernel<1,0,0,512,2,0>": (122, 0, 0),
+    "slab_kernel<1,0,1,512,2,0>": (128, 0, 0),
+    "slab_kernel<1,0,0,512,1,0>": (108, 0, 0),
+    "slab_kernel<1,0,1,512,1,0>": (116, 0, 0),
+    "slab_kernel<0,1,0,640,2,1>": (96, 64, 104),
+    "slab_kernel<0,1,1,640,2,1>": (96, 76, 100),
+    "slab_kernel<0,1,0,640,1,1>": (93, 0, 0),
+    "slab_kernel<0,1,1,640,1,1>": (96, 0, 0),
+    "slab_kernel<0,1,0,640,2,0>": (96, 28, 36),
+    "slab_kernel<0,1,1,640,2,0>": (96, 48, 60),
+    "slab_kernel<0,1,0,640,1,0>": (88, 0, 0),
+    "slab_kernel<0,1,1,640,1,0>": (95, 0, 0),
+    "slab_kernel<0,0,0,896,2,1>": (72, 140, 240),
+    "slab_kernel<0,0,1,896,2,1>": (72, 120, 200),
+    "slab_kernel<0,0,0,896,1,1>": (72, 0, 0),
+    "slab_kernel<0,0,1,896,1,1>": (72, 0, 0),
+    "slab_kernel<0,0,0,896,2,0>": (72, 76, 128),
+    "slab_kernel<0,0,1,896,2,0>": (72, 108, 164),
+    "slab_kernel<0,0,0,896,1,0>": (70, 0, 0),
+    "slab_kernel<0,0,1,896,1,0>": (68, 0, 0),
+    "ends_tb_walk_kernel": (48, 0, 0),
     "tb_walk_kernel": (50, 0, 0),
     "last_ends_kernel": (39, 0, 0),
-    "ends_tb_walk_kernel": (48, 0, 0),
 }
 
 
@@ -910,8 +1046,7 @@ def test_tron_walk_registers_pinned(cuda):
 
 def test_production_registers_unchanged(cuda):
     """Every instance of the production spliced_dp.cu keeps the registers
-    and spills nvcc -Xptxas -v gave it before the knock-out define was
-    added (the define is off there: the same code)."""
+    and spills nvcc -Xptxas -v gave it on the card (SLAB_PTXAS)."""
     _, _, log = K.build_library()
     assert _ptxas_pins(log) == SLAB_PTXAS
 

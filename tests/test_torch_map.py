@@ -91,14 +91,8 @@ def test_map_device_cuda_without_gpu_is_an_error(planted, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["map", "{d}/cdna.fa", "-d", "{d}/port", "-L", "S"], "item 9"),
-    (["map", "{d}/cdna.fa", "-d", "{d}/port", "-y", "J30"], "item 9"),
     (["sortgrcd", "{d}/x.grd.npz"], "item 10"),
-    (["align", "{d}/genome.fa", "{d}/cdna.fa", "-L", "S", "--device",
-      "cpu"], "item 9"),
     (["seq", "{d}/genome.fa"], "item 10"),
-    (["align", "{d}/genome.fa", "{d}/cdna.fa", "-y", "J30", "--device",
-      "cpu"], "item 9"),
     (["ild", "fit", "{d}/x"], "item 10"),
 ])
 def test_unported_paths_name_their_roadmap_item(planted, argv, item):

@@ -161,14 +161,18 @@ def test_pair_cli_text_identical(fasta):
     assert ref.decode().count("\n") > 6
 
 
-def test_search_dp_failure_raises(fasta, monkeypatch):
+def test_search_dp_failure_raises(fasta, monkeypatch, table_dir):
     """A failed DP stops search (DeviceDPError passes per-query
-    isolation); the local search names the kernel mode it waits for."""
+    isolation), and the local search too."""
     def boom(*a, **k):
         raise RuntimeError("launch failed")
     monkeypatch.setattr(port_ps, "forward_spliced_batch", boom)
     with pytest.raises(DeviceDPError, match="launch failed"):
         port_cli.main(["search", str(fasta / "q.fa"), "-a",
                        str(fasta / "db.fa"), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="K6"):
-        port_ps.search_protein_local(None, [])
+    monkeypatch.setattr(port_ps, "spliced_slab_trace", boom)
+    with pytest.raises(DeviceDPError, match="launch failed"):
+        port_ps.search_protein_local(np.zeros(20, np.int8),
+                                     [("e", np.zeros(30, np.int8))],
+                                     table_dir=table_dir.root,
+                                     device="cpu")
