@@ -129,6 +129,17 @@ per source, started together, then:
    DB with copies of their blocks planted in three known entries at 15%
    substitutions (search_protein_local: K1 local with the emission a
    batch of 64): every planted island reported.
+13. (last, after the K7 plain versions) the data-parallel path, the
+   tools and the entry module: phase 4's queries through
+   map_queries_sharded on [cuda:0, cuda:0] (every batch in two shards
+   run at once), size rule and -A 3, each -O0,4 text's md5 phase 4's,
+   on the kernels with no plain call; sortgrcd (-O0 and -O15) over the
+   -O12 shard phase 4's default map writes beside its text; `ild fit`
+   on the card of phase 4's planted intron lengths and of a seeded
+   10,000-length Frechet mixture, each held against `--device cpu` (in
+   a process of its own) to the fit tolerance, with both walls;
+   entry()'s forward against its plain version; dryrun_multichip(1)
+   over NCCL.
 
 Phase 8's corpus and protein index are built in a process of their own
 beside the kernels' builds and phase 1.  Phases 3-8 and 11 also fail if
@@ -3004,7 +3015,8 @@ def tetrapod_map(K, cli, metrics):
     cli.main(["index", str(d / "genome.fa"), "-p", str(d / "genome")])
     log(f"tetrapod map: index built in {time.perf_counter() - t0:.1f} s")
     texts, runs = {}, {}
-    for mode, extra in (("default", []), ("udh", ["-A", "3"])):
+    for mode, extra in (("default", ["-O", "0,4,12"]),
+                        ("udh", ["-O", "0,4", "-A", "3"])):
         metrics.reset()
         _reset_counts(K)
         out = OUT / f"tetra.{mode}.O0_4"
@@ -3012,9 +3024,11 @@ def tetrapod_map(K, cli, metrics):
         with kernel_clock(K, retraces) as kms, _walk_shapes(K) as walks:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
+            # the default run also writes its -O12 shard, for phase 13's
+            # sortgrcd (OUT / "tetra.default.grd.npz")
             cli.main(["map", str(d / "cdna.fa"), "-d", str(d / "genome"),
-                      "-T", "Tetrapod", "-O", "0,4", "-o", str(out),
-                      "--device", "cuda", *extra])
+                      "-T", "Tetrapod", "-o", str(out), "--device", "cuda",
+                      *extra])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         if walks:
@@ -3484,6 +3498,178 @@ def local_protein_search(K, metrics) -> dict:
         raise AssertionError(f"local search: {found} of {n_isl} planted "
                              f"islands reported")
     return dict(runs=runs, launches=sum(r["launches"] for r in runs))
+
+
+# -------------------------------------------------------------- phase 13
+ILD_MIXTURE = dict(weights=[0.7, 0.3], mus=[30., 30.], thetas=[60., 600.],
+                   kappas=[1.2, 1.8])
+
+
+def _planted_intron_lengths(truth: list) -> list:
+    """Phase 4's planted intron lengths: the gaps between consecutive
+    exons (1-based, inclusive spans) of every gene."""
+    out = []
+    for t in truth:
+        ex = sorted(t["exons"])
+        out += [b[0] - a[1] - 1 for a, b in zip(ex, ex[1:])]
+    return out
+
+
+def _cpu_fits(paths: list) -> list:
+    """`ild fit --device cpu` of each length list, in a process of its
+    own beside the card's work, on one intra-op thread (faster than
+    many at these sizes, and it leaves the main process its cores):
+    (its output, wall s) a list."""
+    from spaln_tpu_torch import cli
+    torch.set_num_threads(1)
+    out = []
+    for p in paths:
+        t0 = time.perf_counter()
+        cli.main(["ild", "fit", p, "--device", "cpu", "-o", p + ".cpu"])
+        out.append((Path(p + ".cpu").read_text(), time.perf_counter() - t0))
+    return out
+
+
+def _fit_misses(got: dict, want: dict) -> list:
+    """Where a fit leaves the tolerance of tests/test_torch_ild.py: NLL
+    relative 1e-5, weights absolute 0.005, theta and kappa relative 1%,
+    mu within 1% of its component's theta."""
+    bad = []
+    if abs(got["nll"] - want["nll"]) > 1e-5 * abs(want["nll"]):
+        bad.append(("nll", got["nll"], want["nll"]))
+    for g, w in zip(got["weights"], want["weights"]):
+        if abs(g - w) > 0.005:
+            bad.append(("weights", g, w))
+    for key in ("thetas", "kappas"):
+        for g, w in zip(got[key], want[key]):
+            if abs(g - w) > 0.01 * abs(w):
+                bad.append((key, g, w))
+    for g, w, th in zip(got["mus"], want["mus"], want["thetas"]):
+        if abs(g - w) > 0.01 * th:
+            bad.append(("mus", g, w))
+    return bad
+
+
+def sharded_phase(K, cli, metrics, truth) -> dict:
+    """Phase 13, the modules of the last slice on the card: phase 4's
+    48 queries through map_queries_sharded on [cuda:0, cuda:0] (every
+    batch in two shards, at once), size rule and -A 3, each text's md5
+    phase 4's; sortgrcd over phase 4's -O12 shard; `ild fit` on the card
+    (its default) of phase 4's planted intron lengths and of a seeded
+    10,000-length Frechet mixture, first, each held against `--device
+    cpu` (run in a process of its own meanwhile) to the fit tolerance;
+    entry()'s
+    forward against its plain version; dryrun_multichip(1) over NCCL."""
+    from spaln_tpu_torch.align.driver import AlignerContext
+    from spaln_tpu_torch.align.mapper import GenomeMapper
+    from spaln_tpu_torch.entry import dryrun_multichip, entry
+    from spaln_tpu_torch.parallel import map_queries_sharded
+    from spaln_tpu_torch.score.tables import TableDir, find_table_dir
+    from spaln_tpu_torch.seed.blockindex import BlockIndex
+    from spaln_tpu_torch.seq.fasta import iter_seqfile
+    from spaln_tpu_torch.seq.genome import GenomeStore
+    from spaln_tpu_torch.tools.fitild import sample_frechet_mixture
+    import multiprocessing
+    t13 = time.perf_counter()
+    d = WORK / "tetra"
+    out: dict = {}
+    lens = {"tetrapod introns": _planted_intron_lengths(truth),
+            "mixture 10k": sample_frechet_mixture(
+                np.random.default_rng(SEED + 13), 10_000, **ILD_MIXTURE)}
+    paths = []
+    for i, x in enumerate(lens.values()):
+        paths.append(str(WORK / f"ild{i}.txt"))
+        Path(paths[-1]).write_text("\n".join(map(str, x)) + "\n")
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        cpu = pool.apply_async(_cpu_fits, (paths,))
+        fits = {}
+        for label, p in zip(lens, paths):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cli.main(["ild", "fit", p, "-o", p + ".cuda"])
+            torch.cuda.synchronize()
+            fits[label] = (Path(p + ".cuda").read_text(),
+                           time.perf_counter() - t0)
+        store = GenomeStore.load(str(d / "genome"))
+        index = BlockIndex.load(str(d / "genome"))
+        tables = TableDir(find_table_dir(), species="Tetrapod")
+        recs = list(iter_seqfile(str(d / "cdna.fa")))
+        devices = [torch.device("cuda", 0)] * 2
+        for mode, udh in (("default", False), ("udh", True)):
+            mapper = GenomeMapper(store, index, AlignerContext.create(
+                tables, "cuda", force_udh=udh))
+            metrics.reset()
+            _reset_counts(K)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = map_queries_sharded(mapper, [r.codes for r in recs],
+                                      q_names=[r.name for r in recs],
+                                      devices=devices)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            path = OUT / f"tetra.sharded.{mode}.O0_4"
+            with open(path, "w") as fh:
+                sink = cli.OutputSink([0, 4], fh)
+                for rec, gs in zip(recs, res):
+                    sink.emit(gs, len(rec.codes))
+                sink.close()
+            label = f"sharded map ({mode})"
+            _check_udh_kernels(K, metrics, label)
+            c = dict(metrics.counters)
+            if not c.get("sharded_batches"):
+                raise AssertionError(f"{label}: no batch was sharded: {c}")
+            md5 = _check_md5("tetrapod map", path)
+            launches = {k: n for k, n in K.launches.items() if n}
+            secs = {k: round(v, 3) for k, v in metrics.timings.items()}
+            log(f"{label}: {len(recs)} queries on 2 shards of cuda:0 in "
+                f"{wall:.2f} s; {c.get('sharded_batches')} sharded batches "
+                f"({c.get('udh_buckets', 0)} UDH, "
+                f"{c.get('device_buckets', 0)} plane), launches "
+                f"{json.dumps(launches)}; stage seconds "
+                f"{json.dumps(secs, sort_keys=True)}; -O0,4 md5 {md5} "
+                f"(phase 4's)")
+            out[label] = dict(wall=wall, launches=launches, md5=md5)
+        grd = OUT / "tetra.default.grd.npz"
+        for fmt in ("0", "15"):
+            path = OUT / f"tetra.sortgrcd.O{fmt}"
+            cli.main(["sortgrcd", str(grd), "-O", fmt, "-o", str(path)])
+            text = path.read_text()
+            n = (text.count("!\t") if fmt == "0"
+                 else len(text.splitlines()))
+            want = (0.9 * len(truth) if fmt == "0"
+                    else 0.8 * len(lens["tetrapod introns"]))
+            log(f"sortgrcd -O{fmt} over phase 4's -O12 shard: {n} "
+                f"{'loci' if fmt == '0' else 'unique introns'}, md5 "
+                f"{_md5(path)}")
+            if n < want:
+                raise AssertionError(f"sortgrcd -O{fmt}: {n} rows")
+        for (label, (text, wall)), (ctext, cwall) in zip(
+                fits.items(), cpu.get(timeout=900)):
+            got = json.loads(text.splitlines()[0])
+            want = json.loads(ctext.splitlines()[0])
+            bad = _fit_misses(got, want)
+            log(f"ild fit ({label}, n={got['n']}): cuda {wall:.2f} s, "
+                f"cpu {cwall:.2f} s; {text.splitlines()[1]} against "
+                f"{ctext.splitlines()[1]}; nll {got['nll']} against "
+                f"{want['nll']}")
+            if bad:
+                raise AssertionError(f"ild fit ({label}): cuda against cpu "
+                                     f"out of tolerance: {bad}")
+            out[f"ild fit ({label})"] = dict(wall=wall, cpu_wall=cwall)
+    fn, args = entry()
+    row = fn(*args)
+    fn_c, args_c = entry("cpu")
+    err = _max_abs_err(row.cpu(), fn_c(*args_c))
+    if err:
+        raise AssertionError(f"entry(): max_abs_err {err} against the "
+                             f"plain version")
+    t0 = time.perf_counter()
+    dryrun_multichip(1)
+    out["dryrun_multichip(1)"] = dict(wall=time.perf_counter() - t0)
+    log(f"entry() row equal to its plain version; dryrun_multichip(1) over "
+        f"NCCL in {out['dryrun_multichip(1)']['wall']:.2f} s")
+    log(f"phase 13 took {time.perf_counter() - t13:.1f} s on {_card()}")
+    return out
 
 
 # --------------------------------------------------------------- phase 7
@@ -4053,6 +4239,8 @@ def main() -> int:
         bench_row = bench_phase(K)
         log(f"phase 10 took {time.perf_counter() - t10:.1f} s")
         tron = tron_finish()
+        # phase 13, on phase 4's genome and index, with the cores free
+        sharded_phase(K, cli, metrics, truth)
     finally:
         stack.close()
         shutil.rmtree(WORK, ignore_errors=True)

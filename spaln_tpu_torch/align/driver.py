@@ -11,6 +11,7 @@ device and their plain versions on the CPU.
 """
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -238,14 +239,35 @@ def coalesce_buckets(buckets: dict, jobs: list, max_batch: int,
     return merged
 
 
+def _shards(part: list[int], devices: list) -> list[tuple[list, object]]:
+    """Contiguous shards of a batch, one per listed device (sizes within
+    one of each other; a device gets none when the batch is shorter than
+    the list)."""
+    n = len(devices)
+    cut = [len(part) * i // n for i in range(n + 1)]
+    return [(part[a:b], dev) for a, b, dev in zip(cut, cut[1:], devices)
+            if b > a]
+
+
 def execute_jobs(jobs: list[AlignJob], ctx: AlignerContext,
-                 lanes: int = 128, max_batch: int = 32
+                 lanes: int = 128, max_batch: int = 32,
+                 devices: list | None = None
                  ) -> list[GeneStructure | None | BaseException]:
     """Run many jobs through the device DP, bucketed by geometry (W,
     Mpad).  A bucket whose planes fit ``ctx.plane_budget`` runs as
     batches of one run_bucket each (two kernel launches, one copy
     back); a bucket that would have to shrink its batch for them runs
-    whole through the UDH path (links pass, backwalk, retrace)."""
+    whole through the UDH path (links pass, backwalk, retrace).
+
+    With ``devices`` (the jax mesh's counterpart,
+    spaln_tpu/align/driver.py:576-595), each batch, its route and size
+    chosen whole as without, runs as contiguous shards, one per listed
+    device, each prepared on its device; on CUDA devices the shards run
+    at once (a thread a shard), CPU shards (the plain versions, whose
+    own threads share the cores) in turn.  The results come back in job
+    order.  A problem's result does not depend on its batch, so they
+    equal the unsharded run's.  No padding: the reference pads to a
+    device multiple only to reuse XLA compilations."""
     results: list = [None] * len(jobs)
     buckets: dict[tuple, list[int]] = {}
     for i, job in enumerate(jobs):
@@ -265,39 +287,57 @@ def execute_jobs(jobs: list[AlignJob], ctx: AlignerContext,
         mb = min(max_batch, len(idxs) if udh else mb_full)
         for c0 in range(0, len(idxs), mb):
             part = idxs[c0:c0 + mb]
-            js = [jobs[i] for i in part]
+            shards = (_shards(part, devices) if devices
+                      else [(part, ctx.device)])
             with stage("prep"):
-                cips = ([j.cip for j in js] if any(j.cip for j in js)
-                        else None)
-                bp = prepare_spliced_batch(
-                    [j.q for j in js], [j.gw for j in js], ctx.prm,
-                    sigs=[j.sig for j in js], lws=[j.lw for j in js],
-                    W=W, L=lanes, flags=ctx.flags, cips=cips,
-                    device=ctx.device)
-            cells = bp.B * bp.S * bp.L * bp.W
-            with stage("device_dp"):
+                bps = [_prepare_part([jobs[i] for i in sh], ctx, W, lanes,
+                                     dev) for sh, dev in shards]
+
+            def run(bp):
                 if udh:
-                    scores, ends, ops_all = run_spliced_batch_udh(
-                        bp, ctx.prm, ctx.plane_budget)
+                    return run_spliced_batch_udh(bp, ctx.prm,
+                                                 ctx.plane_budget)
+                return run_bucket(bp, ctx.prm)
+            with stage("device_dp"):
+                if len(bps) > 1 and all(bp.device.type == "cuda"
+                                        for bp in bps):
+                    with ThreadPoolExecutor(len(bps)) as pool:
+                        outs = list(pool.map(run, bps))
                 else:
-                    scores, ends, ops_all = run_bucket(bp, ctx.prm)
+                    outs = [run(bp) for bp in bps]
+            cells = sum(bp.B * bp.S * bp.L * bp.W for bp in bps)
             if udh:
                 metrics.bump("udh_buckets")
                 metrics.bump("udh_dp_cells", cells)
             else:
                 metrics.bump("device_buckets")
                 metrics.bump("dp_cells", cells)
+            if devices:
+                metrics.bump("sharded_batches")
             with stage("traceback"):
-                for bi, ji in enumerate(part):
-                    # per-job isolation: a gene-structure failure
-                    # surfaces as an exception result, not an abort
-                    try:
-                        results[ji] = _finish_job(jobs[ji], int(scores[bi]),
-                                                  ops_all[bi], prm=ctx.prm)
-                    except Exception as exc:
-                        results[ji] = exc
+                for (sh, _), (scores, ends, ops_all) in zip(shards, outs):
+                    for bi, ji in enumerate(sh):
+                        # per-job isolation: a gene-structure failure
+                        # surfaces as an exception result, not an abort
+                        try:
+                            results[ji] = _finish_job(
+                                jobs[ji], int(scores[bi]), ops_all[bi],
+                                prm=ctx.prm)
+                        except Exception as exc:
+                            results[ji] = exc
             metrics.bump("jobs", len(part))
     return results
+
+
+def _prepare_part(js: list[AlignJob], ctx: AlignerContext, W: int,
+                  lanes: int, device):
+    """One batch of jobs at band width W, prepared on ``device``; the
+    -yJ bonuses travel with their jobs."""
+    cips = [j.cip for j in js] if any(j.cip for j in js) else None
+    return prepare_spliced_batch(
+        [j.q for j in js], [j.gw for j in js], ctx.prm,
+        sigs=[j.sig for j in js], lws=[j.lw for j in js], W=W, L=lanes,
+        flags=ctx.flags, cips=cips, device=device)
 
 
 def forward_spliced(q: np.ndarray, g: np.ndarray, ctx: AlignerContext,

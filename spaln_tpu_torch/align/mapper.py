@@ -52,14 +52,18 @@ def _map_queries_batched(self, queries: list, q_names: list | None = None,
                          lanes: int = 128, max_batch: int = 32,
                          cips: list | None = None,
                          trim_polya: bool = True,
-                         triage: dict | None = None
+                         triage: dict | None = None,
+                         devices: list | None = None
                          ) -> list[list[GeneStructure]]:
     """Map many queries in bucketed device batches — the data-parallel
     replacement of the reference's master-worker ThQueue
     (spaln.cc:1220-1468).  Per round: locate candidates + seed on host,
     run all DP problems as batched device launches, widen windows
     that clipped a gene (ExtBlock) and re-queue for the next round.
-    ``cips`` gives each query its -yJ bonuses {m: bonus} (or None)."""
+    ``cips`` gives each query its -yJ bonuses {m: bonus} (or None).
+    ``devices`` splits every device batch over the listed devices
+    (execute_jobs; parallel.map_queries_sharded), where spaln_tpu takes a
+    jax mesh."""
     from ..utils.metrics import metrics, stage
     q_names = q_names or [""] * len(queries)
     maxgene = self.index.maxgene
@@ -285,7 +289,7 @@ def _map_queries_batched(self, queries: list, q_names: list | None = None,
         if not jobs:
             break
         out = execute_jobs(jobs, self.ctx, lanes=lanes,
-                           max_batch=max_batch)
+                           max_batch=max_batch, devices=devices)
         work = []
         for gs, (qi, g0, g1, retry, ci, wlen) in zip(out, meta):
             if isinstance(gs, BaseException):

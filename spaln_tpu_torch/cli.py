@@ -13,6 +13,13 @@
         queries against a protein DB (spaln -a), the DP on --device
   python -m spaln_tpu_torch.cli pair <a.fa> [<b.fa>]          pairwise
         protein alignment over the SeqServer input modes (--mode)
+  python -m spaln_tpu_torch.cli sortgrcd <run.grd.npz> ...    merge,
+        cluster and filter -O12 run shards
+  python -m spaln_tpu_torch.cli ild fit|compare|decompose|plot <files>
+        intron-length-distribution tools; `fit` on --device
+  python -m spaln_tpu_torch.cli seq orf|polya|comp|mutate|forge|resite|
+        extcds [<in>]                                          sequence
+        toolbox (the reference's utn commands)
 
 Same options and output as spaln_tpu.cli for these paths, plus --device
 {cuda,cpu} (default cuda; asking for cuda without a GPU is an error).
@@ -29,14 +36,14 @@ bonus whatever -L and -yJ say, as the reference does.
 Output formats -O#[,#2,..]: 0 GFF3 gene, 1 alignment text, 2 GFF3
 match, 3 BED12, 4 exon table, 5 intron table, 6 recovered cDNA,
 7 translated protein, 10 SAM, 12 binary shard (.grd.npz), 15 unique
-introns.  What is not ported yet raises NotImplementedError naming the
-ROADMAP.md item that will port it.
+introns.  The subcommands are spaln_tpu.cli's eight.
 """
 from __future__ import annotations
 
 import argparse
 import sys
 
+import numpy as np
 import torch
 
 from .align.driver import AlignerContext, align_cdna
@@ -49,13 +56,6 @@ from .out.formats import (alignment_lines, bed_line, cdna_fasta,
 from .score.tables import TableDir, find_table_dir
 from .seq.fasta import iter_seqfile, parse_seq_arg
 from .seq.genome import GenomeStore
-
-UNPORTED = {
-    "sortgrcd": "ROADMAP.md Queue 1, item 10 (remaining subcommands)",
-    "ild": "ROADMAP.md Queue 1, item 10 (tools)",
-    "seq": "ROADMAP.md Queue 1, item 10 (tools)",
-}
-
 
 def _ktoi(s: str) -> int:
     """Parse a size with k/M/G suffix (the reference's ktoi/ktol)."""
@@ -487,9 +487,157 @@ def cmd_pair(args) -> int:
     return 0
 
 
-def _unported(args) -> int:
-    raise NotImplementedError(
-        f"the {args.cmd} subcommand is not ported yet: {UNPORTED[args.cmd]}")
+def cmd_sortgrcd(args) -> int:
+    """Merge, cluster and filter -O12 run shards (cmd_sortgrcd,
+    spaln_tpu/cli.py:316-349): -O15 the unique introns, else the locus
+    report under the -F preset and -C -I -H -m -u -n; -S b/c/r re-sorts
+    the kept members and re-clusters them unfiltered."""
+    from .out.sortgrcd import (FilterParams, cluster_loci, locus_report,
+                               merge_grd, sort_records, unique_introns)
+    records, q_lens = merge_grd(args.shards)
+    out = open(args.output, "w") if args.output else sys.stdout
+    filt = FilterParams.preset(args.filter)
+    for opt in ("min_coverage", "min_identity", "min_score", "bmmc",
+                "bunp", "ncan"):
+        if getattr(args, opt) is not None:
+            setattr(filt, opt, getattr(args, opt))
+    if 15 in _parse_fmts(args.fmt):
+        for row in unique_introns(records):
+            out.write("\t".join(map(str, row)) + "\n")
+    else:
+        loci = cluster_loci(records, q_lens=q_lens, filt=filt)
+        if args.sort_order != "a":
+            members = [g for lo in loci for g in lo.members]
+            loci = cluster_loci(sort_records(members, order=args.sort_order),
+                                q_lens=q_lens, filt=FilterParams())
+        for line in locus_report(loci):
+            out.write(line + "\n")
+    if args.output:
+        out.close()
+    return 0
+
+
+def _read_lengths(path: str) -> np.ndarray:
+    vals = []
+    with open(path) as f:
+        for line in f:
+            for tok in line.split():
+                try:
+                    vals.append(float(tok))
+                except ValueError:
+                    break
+    return np.asarray(vals, dtype=np.float64)
+
+
+def cmd_ild(args) -> int:
+    """ILD tool family (fitild/compild/decompild/plotild, src/*.cc;
+    cmd_ild, spaln_tpu/cli.py:486-549).  A file of intron lengths is fitted
+    on --device (fit_ild), a saved .ild.json loaded; compare, decompose
+    and plot are numpy on the host."""
+    import dataclasses
+    import json
+    from .tools.fitild import (IldFit, compare_ilds, decompose_ild,
+                               fit_ild, ild_pdf, plot_ild_text)
+
+    def fit_or_load(path):
+        if path.endswith(".json"):
+            with open(path) as fh:
+                return IldFit(**json.load(fh))
+        return fit_ild(_read_lengths(path), n_modes=args.modes,
+                       device=_device(args.device))
+
+    out = open(args.output, "w") if args.output else sys.stdout
+    if args.op == "fit":                   # fitild
+        fit = fit_or_load(args.files[0])
+        out.write(json.dumps(dataclasses.asdict(fit)) + "\n")
+        out.write("-yI" + fit.yI_line() + "\n")
+    elif args.op == "compare":             # compild
+        fits = [fit_or_load(p) for p in args.files]
+        for i, fa in enumerate(fits):
+            for j, fb in enumerate(fits[i + 1:], start=i + 1):
+                d = compare_ilds(fa, fb)
+                out.write(f"{args.files[i]}\t{args.files[j]}\t{d:.6f}\n")
+    elif args.op == "decompose":           # decompild
+        fit = fit_or_load(args.files[0])
+        x = np.unique(np.geomspace(max(min(fit.mus) + 1, 10),
+                                   args.x_max, 64).astype(int))
+        rows = decompose_ild(fit, x)
+        tot = ild_pdf(fit, x)
+        out.write("#len\ttotal\t" + "\t".join(
+            f"mode{i + 1}" for i in range(len(rows))) + "\n")
+        for ci, xx in enumerate(x):
+            out.write(f"{xx}\t{tot[ci]:.3e}\t" + "\t".join(
+                f"{rows[mi][ci]:.3e}" for mi in range(len(rows))) + "\n")
+    elif args.op == "plot":                # plotild
+        fit = fit_or_load(args.files[0])
+        lens = (_read_lengths(args.files[1])
+                if len(args.files) > 1 else None)
+        for line in plot_ild_text(fit, lens):
+            out.write(line + "\n")
+    if args.output:
+        out.close()
+    return 0
+
+
+def cmd_seq(args) -> int:
+    """Batch sequence toolbox (the utn command set, utn.cc:1412-1461;
+    cmd_seq, spaln_tpu/cli.py:551-663): orf find/translate, poly-A trim,
+    composition, mutate, forge random sequences, restriction sites,
+    GenBank CDS extraction."""
+    import os
+    from .seq.codec import comrev, decode_dna, decode_protein, translate
+    from .seq.utilseq import composition, find_orfs, rm_polya
+    from .tools.seqextras import (extcds, montseq, mutate_seq,
+                                  read_renzyme, resite)
+    out = open(args.output, "w") if args.output else sys.stdout
+    op = args.op
+    if op == "forge":
+        for i, s in enumerate(montseq(args.count, args.length,
+                                      protein=args.aa, seed=args.seed)):
+            out.write(f">rand{i}\n{s}\n")
+    elif op == "extcds":
+        for rec in extcds(args.input):
+            hdr = rec.entry + (f" {rec.product}" if rec.product else "")
+            out.write(f">{hdr}\n{rec.seq}\n")
+    else:
+        if args.input is None:
+            raise SystemExit(f"seq {op} needs an input file")
+        enz = None
+        if op == "resite":
+            enz = read_renzyme(args.enzymes or os.path.join(
+                find_table_dir(args.table_dir), "renzyme"))
+        for rec in iter_seqfile(args.input):
+            is_aa = rec.molc == PROTEIN
+            dec = decode_protein if is_aa else decode_dna
+            if op == "orf":
+                for b0, b1, frame, strand in find_orfs(
+                        rec.codes, min_len=args.min_orf):
+                    sub = (rec.codes[b0:b1] if strand > 0
+                           else comrev(rec.codes[b0:b1]))
+                    pep = decode_protein(translate(sub))
+                    out.write(f">{rec.name}_orf{b0 + 1}-{b1} "
+                              f"frame {frame} strand "
+                              f"{'+' if strand > 0 else '-'}\n{pep}\n")
+            elif op == "polya":
+                lo, hi, _ = rm_polya(rec.codes)
+                out.write(f">{rec.name}\n{dec(rec.codes[lo:hi])}\n")
+            elif op == "comp":
+                comp = composition(rec.codes, is_aa=is_aa)
+                line = " ".join(f"{k}:{v}" for k, v in sorted(comp.items()))
+                out.write(f"{rec.name}\t{len(rec.codes)}\t{line}\n")
+            elif op == "mutate":
+                s = mutate_seq(dec(rec.codes), sub=args.sub, ins=args.ins,
+                               del_=args.dele, protein=is_aa,
+                               seed=args.seed)
+                out.write(f">{rec.name}_mut\n{s}\n")
+            elif op == "resite":
+                for site in resite(dec(rec.codes), enz,
+                                   unique_only=args.unique):
+                    out.write(f"{rec.name}\t{site.enzyme}\t"
+                              f"{site.pos + 1}\t{site.strand}\n")
+    if args.output:
+        out.close()
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -608,10 +756,63 @@ def build_parser() -> argparse.ArgumentParser:
                          "subcommands)")
     sp.set_defaults(func=cmd_pair)
 
-    for name in UNPORTED:
-        sp = sub.add_parser(name, help=f"not ported yet ({UNPORTED[name]})")
-        sp.add_argument("rest", nargs=argparse.REMAINDER)
-        sp.set_defaults(func=_unported)
+    sp = sub.add_parser("sortgrcd",
+                        help="merge/cluster/filter -O12 run shards")
+    sp.add_argument("shards", nargs="+")
+    sp.add_argument("-O", dest="fmt", default="0",
+                    help="0 locus report, 15 unique introns")
+    sp.add_argument("-F", dest="filter", type=int, default=0,
+                    help="filter preset 0..3 (sortgrcd.cc:56-64)")
+    sp.add_argument("-C", dest="min_coverage", type=float, default=None)
+    sp.add_argument("-I", dest="min_identity", type=float, default=None)
+    sp.add_argument("-H", dest="min_score", type=float, default=None,
+                    help="min gene score (Gscore)")
+    sp.add_argument("-m", dest="bmmc", type=int, default=None,
+                    help="max boundary mismatches per terminal exon")
+    sp.add_argument("-u", dest="bunp", type=int, default=None,
+                    help="max boundary unpaired per terminal exon")
+    sp.add_argument("-n", dest="ncan", type=int, default=None,
+                    help="terminal-junction canonicity level 0..3")
+    sp.add_argument("-S", dest="sort_order", default="a",
+                    choices=["a", "b", "c", "r"],
+                    help="chromosome order: alphabetic/abundance/"
+                         "appearance/reverse-minus")
+    sp.add_argument("-o", dest="output", default=None)
+    sp.set_defaults(func=cmd_sortgrcd)
+
+    sp = sub.add_parser("ild", help="intron-length-distribution tools "
+                        "(fitild / compild / decompild / plotild)")
+    sp.add_argument("op", choices=["fit", "compare", "decompose", "plot"])
+    sp.add_argument("files", nargs="+",
+                    help="length lists (one per line) or saved fits")
+    sp.add_argument("-m", dest="modes", type=int, default=2,
+                    help="Frechet mixture components (1-3)")
+    sp.add_argument("--x-max", type=int, default=20000)
+    sp.add_argument("-o", dest="output", default=None)
+    sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where a length list is fitted (as for the other "
+                         "subcommands)")
+    sp.set_defaults(func=cmd_ild)
+
+    sp = sub.add_parser("seq", help="sequence toolbox (utn equivalents)")
+    sp.add_argument("op", choices=["orf", "polya", "comp", "mutate",
+                                   "forge", "resite", "extcds"])
+    sp.add_argument("input", nargs="?", default=None)
+    sp.add_argument("-o", dest="output", default=None)
+    sp.add_argument("-t", dest="table_dir", default=None)
+    sp.add_argument("--min-orf", type=int, default=30)
+    sp.add_argument("--sub", type=float, default=0.0)
+    sp.add_argument("--ins", type=float, default=0.0)
+    sp.add_argument("--del", dest="dele", type=float, default=0.0)
+    sp.add_argument("--count", type=int, default=1)
+    sp.add_argument("--length", type=int, default=1000)
+    sp.add_argument("--aa", action="store_true")
+    sp.add_argument("--seed", type=int, default=None)
+    sp.add_argument("--enzymes", default=None,
+                    help="renzyme table path (default: table dir)")
+    sp.add_argument("--unique", action="store_true",
+                    help="unique-cutter enzymes only")
+    sp.set_defaults(func=cmd_seq)
     return p
 
 

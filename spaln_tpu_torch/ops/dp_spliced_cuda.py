@@ -74,6 +74,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -222,6 +223,17 @@ def _launch(name: str, device: torch.device, *args,
         msg = lib.error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
     if not loader:
+        count_launch(name)
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """One more launch of ``name`` in ``launches``, under a lock: the
+    shards of a batch split over devices launch from threads of their
+    own (align/driver.py execute_jobs)."""
+    with _count_lock:
         launches[name] += 1
 
 

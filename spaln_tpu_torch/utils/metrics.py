@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import threading
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
@@ -26,13 +27,18 @@ class Metrics:
     counters: dict = field(default_factory=lambda: defaultdict(int))
     timings: dict = field(default_factory=lambda: defaultdict(float))
     calls: dict = field(default_factory=lambda: defaultdict(int))
+    # the shards of a batch split over devices bump from threads
+    lock: threading.Lock = field(default_factory=threading.Lock,
+                                 repr=False, compare=False)
 
     def bump(self, name: str, k: int = 1) -> None:
-        self.counters[name] += k
+        with self.lock:
+            self.counters[name] += k
 
     def add_time(self, name: str, dt: float) -> None:
-        self.timings[name] += dt
-        self.calls[name] += 1
+        with self.lock:
+            self.timings[name] += dt
+            self.calls[name] += 1
 
     def reset(self) -> None:
         self.counters.clear()

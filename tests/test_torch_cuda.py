@@ -15,8 +15,10 @@ knock-out build against the production one, and the production
 instances' registers; every step skeleton (csrc/mosaic_repro.cu) at the
 script's inputs, the knock-out builds of time_kernel_pieces and
 bisect_mosaic (each launched, "none" and each forced k equal to the
-production kernel) and the bench's scores against the plain versions.
-Needs an NVIDIA GPU; skipped
+production kernel) and the bench's scores against the plain versions;
+fit_ild on the card against the CPU fit, a map split in two shards on
+one card against the unsharded map, and the entry module (entry(),
+dryrun_multichip(1) over NCCL).  Needs an NVIDIA GPU; skipped
 without one.  The machine with the card has no JAX, so run these
 without the repo's conftest:
 
@@ -1117,3 +1119,87 @@ def test_bench_holds_row_rc_not_only_scores(cuda, monkeypatch):
     monkeypatch.setattr(K, "slab_score_plain", off)
     with pytest.raises(AssertionError, match="by up to 1"):
         bench.measure(bp, prm, iters=1)
+
+
+# ------------------------------------------- tools and data parallelism
+def test_fit_ild_on_card_equals_cpu(cuda):
+    """fit_ild on the card (torch.optim.Adam over autograd, the best
+    step kept on the device) within the fit tolerance of the CPU fit:
+    NLL relative 1e-5, weights absolute 0.005, theta and kappa relative
+    1%, mu within 1% of its component's theta."""
+    from spaln_tpu_torch.tools.fitild import fit_ild, sample_frechet_mixture
+    lens = sample_frechet_mixture(np.random.default_rng(2), 4000,
+                                  [0.7, 0.3], [30., 30.], [60., 600.],
+                                  [1.2, 1.8])
+    got = fit_ild(lens, n_modes=2, steps=1500)
+    want = fit_ild(lens, n_modes=2, steps=1500, device="cpu")
+    assert got.n == want.n == 4000
+    assert abs(got.nll - want.nll) <= 1e-5 * abs(want.nll)
+    for g, w in zip(got.weights, want.weights):
+        assert abs(g - w) <= 0.005
+    for key in ("thetas", "kappas"):
+        for g, w in zip(getattr(got, key), getattr(want, key)):
+            assert abs(g - w) <= 0.01 * abs(w)
+    for g, w, th in zip(got.mus, want.mus, want.thetas):
+        assert abs(g - w) <= 0.01 * th
+
+
+@pytest.mark.parametrize("udh", [False, True])
+def test_two_shard_map_on_card_equals_unsharded(cuda, udh):
+    """map_queries_sharded on [cuda:0, cuda:0] (every batch in two
+    shards run at once, plane buckets or -A 3's UDH ones) gives the
+    unsharded map's gene structures, on the kernels."""
+    from spaln_tpu_torch.align.driver import AlignerContext
+    from spaln_tpu_torch.align.mapper import GenomeMapper
+    from spaln_tpu_torch.constants import DNA
+    from spaln_tpu_torch.parallel import map_queries_sharded
+    from spaln_tpu_torch.seed.blockindex import BlockIndex
+    from spaln_tpu_torch.seq.fasta import SeqRecord
+    from spaln_tpu_torch.seq.genome import GenomeStore
+    from spaln_tpu_torch.utils.metrics import metrics
+    rng = np.random.default_rng(42)
+    bases = np.array(list("ACGT"))
+
+    def mk(n):
+        return "".join(rng.choice(bases, n))
+
+    contigs, queries = [], []
+    for ci in range(3):
+        parts = [mk(2000)]
+        for _ in range(3):
+            e1, e2 = mk(int(rng.integers(150, 300))), mk(130)
+            parts += [e1 + "GTAAGT" + mk(int(rng.integers(100, 300)))
+                      + "TTTCTAG" + e2, mk(1500)]
+            queries.append(encode_dna(e1 + e2))
+        contigs.append(SeqRecord(name=f"c{ci}", molc=DNA,
+                                 codes=encode_dna("".join(parts))))
+    store = GenomeStore.from_records(contigs)
+    ctx = AlignerContext.create(TableDir(find_table_dir()), cuda,
+                                force_udh=udh)
+    mapper = GenomeMapper(store, BlockIndex.build(store), ctx)
+
+    def key(res):
+        return [[(g.g_name, g.strand, g.score,
+                  [(e.g_start, e.g_end) for e in g.exons]) for g in r]
+                for r in res]
+    want = mapper.map_queries(queries, lanes=64, max_batch=8)
+    metrics.reset()
+    before = dict(K.launches)
+    got = map_queries_sharded(mapper, queries, lanes=64, max_batch=8,
+                              devices=[torch.device("cuda", 0)] * 2)
+    assert metrics.counters.get("sharded_batches", 0) >= 1
+    first = "spliced_slab_links" if udh else "spliced_slab_trace"
+    assert K.launches[first] - before[first] >= 2
+    assert key(got) == key(want)
+    assert sum(map(bool, got)) == 9
+
+
+def test_entry_and_dryrun_on_card(cuda):
+    """entry()'s K5 forward on the card equals its plain version's rows;
+    dryrun_multichip(1) runs over NCCL."""
+    from spaln_tpu_torch.entry import dryrun_multichip, entry
+    fn, args = entry()
+    assert args[0].device.type == "cuda"
+    fn_c, args_c = entry("cpu")
+    assert torch.equal(fn(*args).cpu(), fn_c(*args_c))
+    dryrun_multichip(1)

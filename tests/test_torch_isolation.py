@@ -1,7 +1,8 @@
 """The port imports neither jax nor spaln_tpu: checked in a fresh
 interpreter, after importing the package, its CLI and every module of
 the map (cDNA and protein), align and search paths, of the step probes
-and skeletons and of the bench."""
+and skeletons, of the bench, the tools, the data-parallel layer and the
+entry module."""
 import json
 import os
 import subprocess
@@ -32,7 +33,14 @@ MODULES = ["spaln_tpu_torch", "spaln_tpu_torch.cli",
            "spaln_tpu_torch.probes.ablate_pallas",
            "spaln_tpu_torch.probes.mosaic_repro",
            "spaln_tpu_torch.probes.time_kernel_pieces",
-           "spaln_tpu_torch.probes.bisect_mosaic", "spaln_tpu_torch.bench"]
+           "spaln_tpu_torch.probes.bisect_mosaic", "spaln_tpu_torch.bench",
+           "spaln_tpu_torch.tools", "spaln_tpu_torch.tools.seqextras",
+           "spaln_tpu_torch.tools.kmers", "spaln_tpu_torch.tools.divergence",
+           "spaln_tpu_torch.tools.exinpot", "spaln_tpu_torch.tools.npssm",
+           "spaln_tpu_torch.tools.makmdm", "spaln_tpu_torch.tools.fitild",
+           "spaln_tpu_torch.tools.make_ssp", "spaln_tpu_torch.parallel",
+           "spaln_tpu_torch.parallel.sharding", "spaln_tpu_torch.entry",
+           "spaln_tpu_torch.out.sortgrcd"]
 
 
 @pytest.mark.parametrize("mods", [MODULES[:2], MODULES])
