@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of the map, align, search and pair paths from
-spaln_tpu_torch/csrc/spliced_dp.cu (eleven C entries), of the protein
+spaln_tpu_torch/csrc/spliced_dp.cu (thirteen C entries), of the protein
 path from spaln_tpu_torch/csrc/tron_dp.cu (three), the step probes
 from spaln_tpu_torch/csrc/probes.cu (six) and the step skeletons from
 spaln_tpu_torch/csrc/mosaic_repro.cu (one entry, 30 instances), one nvcc
@@ -36,13 +36,23 @@ per source, started together, then:
    UDH path on that bucket as it runs (every path's slab run in one
    retrace launch, every strip in one spliced_tb_strips launch, exact
    against its plain version) with the same op streams as the one-slab
-   path (one problem-slab a retrace launch) and as run_bucket.  Last
+   path (one problem-slab a retrace launch) and as run_bucket.  Then the
+   UDH path of a bucket in K6's modes (phase 1's, local with a -yJ bonus
+   on half the problems, single and double affine) as it runs: every
+   (problem, slab) pair in one spliced_slab_retrace_pairs launch and
+   every strip in one spliced_tb_strips launch (a slab a walk), each
+   exactly equal to its plain version on the card, the pairs' planes to
+   the one-slab launches of spliced_slab_retrace, the walks' steps and
+   tile loads to the model's; the pairs launch timed against those
+   one-slab launches.  Last
    timing-only buckets at tetrapod width (B=32, L=128, W=16,384, 12
    slabs) and of a one-problem align window (B=1, W=65,536, 12 slabs):
    K1, K4 and the retrace (one slab; slabs 1..11; all 12 slabs of every
    problem, as the UDH path launches them, at its own k and at k = 1, 2,
-   3, 4, 7), each retrace's planes equal to K1's; ms per launch, k, CTAs
-   per problem, serial steps per launch and us per global step.  Last
+   3, 4, 7; every (problem, slab) pair in one launch of the retrace of
+   pairs, with the CTAs an SM holds), each retrace's planes equal to
+   K1's; ms per launch, k, CTAs per problem, serial steps per launch and
+   us per global step.  Last
    the tron batch at phase 8's shapes (B=4 planted protein genes of
    330-384 aa with 2-6 kb introns, the map's 128 lanes: 3 slabs, the
    bands prepare_tron_job gives them: W = 15,744): K7 with 3 and 5
@@ -120,7 +130,10 @@ per source, started together, then:
    size rule, then -A 3 -y l3) and `map` of its 48 cDNAs rewritten with
    junction records (;B/;b) at their planted junctions (-y l3 under the
    size rule, then -A 3): every bucket on the kernels in K6's modes
-   with no plain call, >= 90% at the planted locus and strand; then
+   with no plain call, >= 90% at the planted locus and strand; under -A
+   3 the retrace of pairs at most once a UDH bucket (plus the plane
+   budget's splits, counted) and never one slab a launch, its launches'
+   pairs, CTAs an SM holds and waves logged; then
    phase 2's corpus with `-L S -A 3` and with junction records,
    byte-identical with the DP forced through the plain versions on the
    card;
@@ -155,6 +168,7 @@ smoke_work/ (removed at the end), map text to smoke_out/.
     python3 chip_smoke.py --tron-timing [--package-root DIR]
     python3 chip_smoke.py --walk-timing [--package-root DIR]
     python3 chip_smoke.py --probe-timing [--package-root DIR]
+    python3 chip_smoke.py --emission-timing [--package-root DIR]
 
 run phase 1's timing buckets alone, or K7 on phase 1's tron batch and
 on one problem of 11 slabs at W = 23,808 (the rule's geometry and, where
@@ -179,7 +193,11 @@ kernel), each build on bisect_mosaic's batch, and each skeleton level
 at 7, 14 and 28 chunks; it reports each probe instance's and each
 build's score-mode instances' SASS instructions (cuobjdump) and
 registers and spills (ptxas), writes the probes' SASS to smoke_out/,
-and prints one JSON line.
+and prints one JSON line.  --emission-timing builds the production
+slab library and its timing build of the local emission's
+store-and-scan form (-DSLAB_EMIT_ROWS=1) together, holds the two forms
+equal on a batch of search_protein_local (B=64, L=64) and times K1 with
+each beside K6 off on the same shape, in turns, three times over.
 """
 from __future__ import annotations
 
@@ -208,6 +226,9 @@ REPLACES = {
     "spliced_slab_trace_dagp": "spaln_tpu/ops/dp_spliced_pallas.py:195",
     "spliced_slab_retrace": "spaln_tpu/ops/dp_spliced_scan.py:592",
     "spliced_slab_retrace_dagp": "spaln_tpu/ops/dp_spliced_scan.py:592",
+    "spliced_slab_retrace_pairs": "spaln_tpu/ops/dp_spliced_scan.py:592",
+    "spliced_slab_retrace_pairs_dagp":
+        "spaln_tpu/ops/dp_spliced_scan.py:592",
     "spliced_slab_links": "spaln_tpu/ops/dp_spliced_pallas.py:195",
     "spliced_slab_links_dagp": "spaln_tpu/ops/dp_spliced_scan.py:592",
     "spliced_slab_score": "spaln_tpu/ops/dp_spliced_pallas.py:195",
@@ -350,11 +371,14 @@ def _operand_bytes(bp) -> int:
 
 
 @contextlib.contextmanager
-def kernel_clock(K, retraces: list | None = None, each: dict | None = None):
+def kernel_clock(K, retraces: list | None = None, each: dict | None = None,
+                 pairs: list | None = None):
     """Time every C entry's launches with CUDA events while the block
     runs; yields a dict name -> device ms, filled on exit.  Appends each
     retrace launch's (problems, slabs, k, CTAs per problem) to
-    ``retraces``, and fills ``each`` with name -> each launch's ms."""
+    ``retraces`` (a retrace of pairs: (pairs, 1, k, CTAs per pair)), each
+    retrace of pairs' (entry, pairs, L, A) to ``pairs``, and fills
+    ``each`` with name -> each launch's ms."""
     events = {k: [] for k in K.KERNELS}
     orig = K._launch
 
@@ -365,7 +389,12 @@ def kernel_clock(K, retraces: list | None = None, each: dict | None = None):
         orig(name, device, *args, **kw)
         e1.record()
         events[name].append((e0, e1))
-        if retraces is not None and name.startswith("spliced_slab_retrace"):
+        if name.startswith("spliced_slab_retrace_pairs"):
+            if retraces is not None:
+                retraces.append((args[9], 1, args[12], args[14]))
+            if pairs is not None:
+                pairs.append((name, args[9], args[10], args[11]))
+        elif retraces is not None and name.startswith("spliced_slab_retrace"):
             retraces.append((args[8], args[12], args[13], args[15]))
 
     out: dict = {}
@@ -428,12 +457,16 @@ def plain_on_card(K):
     def spliced_slab_retrace(bp, prm, s0, nslab, snap, sel):
         return K.slab_retrace_plain(bp, prm, s0, nslab, snap, sel)
 
+    def spliced_slab_retrace_pairs(bp, prm, slabs, snap, sel):
+        return K.slab_retrace_pairs_plain(bp, prm, slabs, snap, sel)
+
     def spliced_tb_strips(fl, spj, starts, lws, s0, IT):
         return K.tb_strips_plain(fl, spj, starts, lws, s0, IT)
 
     hooks = [(K, spliced_slab_trace), (K, spliced_ends_tb_walk),
              (U, spliced_slab_links), (U, spliced_last_ends),
-             (U, spliced_slab_retrace), (U, spliced_tb_strips)]
+             (U, spliced_slab_retrace), (U, spliced_slab_retrace_pairs),
+             (U, spliced_tb_strips)]
     saved = [(m, fn.__name__, getattr(m, fn.__name__)) for m, fn in hooks]
     for m, fn in hooks:
         setattr(m, fn.__name__, fn)
@@ -1293,14 +1326,146 @@ def _udh_both_ways(K, dp, bp, prm):
     return n_one, int(args[2].shape[0])
 
 
+def _pairs_work(K, bp, prm, slabs, sel) -> tuple[int, int]:
+    """(bytes, int32 operations) a retrace of (problem, slab) pairs needs
+    on this run's inputs: each pair's substitution rows (its slab's) and
+    snapshot read once, each problem's genome operands and joint rows
+    read once over the union of its pairs' bands (slab s reads the T + L
+    columns from s * L on, so that neighbouring slabs share T of them),
+    the pairs' band cells' planes written once, and the DP's operations
+    on those cells."""
+    dagp = prm.dagp
+    L, T, A = bp.L, bp.T, bp.qprof.shape[2]
+    nb = 3 if dagp else 2
+    cells = acc = don = 0
+    for s in sorted(set(slabs.tolist())):
+        cols = torch.nonzero(slabs == s).flatten()
+        c, a, d = _dp_cells(K._select(bp, sel[cols]), [s])
+        cells, acc, don = cells + c, acc + a, don + d
+    cols = 0                                # genome columns, problem by problem
+    for b in sorted(set(sel.tolist())):
+        end = -1
+        for s in sorted(set(slabs[sel == b].tolist())):
+            lo, hi = s * L, s * L + T + L
+            cols += hi - max(lo, end)
+            end = hi
+    nbytes = (4 * int(sel.shape[0]) * (L * A + nb * (T + 2))
+              + 4 * 22 * cols + (21 if dagp else 13) * cells)
+    ops = (cells * (OPS_CELL_DAGP if dagp else OPS_CELL)
+           + acc * (OPS_ACC_DAGP if dagp else OPS_ACC)
+           + don * (OPS_DON_DAGP if dagp else OPS_DON))
+    return nbytes, ops
+
+
+def check_retrace_pairs(K, dp, ctx, ctx3) -> dict:
+    """The UDH path of phase 1's bucket in K6's modes (local, a -yJ bonus
+    on half the problems), single and double affine, as it runs: every
+    (problem, slab) pair in one spliced_slab_retrace_pairs launch and
+    every strip in one spliced_tb_strips launch (a slab a walk).  Each
+    launch's outputs exactly equal to its plain version's on the card;
+    the pairs' planes to the one-slab launches (spliced_slab_retrace of
+    each slab from its own snapshot, the route it replaces); the walks' steps
+    and tile loads to the model's.  The pairs launch is timed against
+    those one-slab launches.  Returns the pairs entries' rows."""
+    from spaln_tpu_torch.ops import dp_spliced_udh as U
+    out = {}
+    for c in (ctx, ctx3):
+        prm = c.prm
+        b6 = _k6_bucket(_phase1_bucket(dp, c))
+        name = K.entry("spliced_slab_retrace_pairs", prm)
+        seen = {}
+        orig_r, orig_s = U.spliced_slab_retrace_pairs, U.spliced_tb_strips
+
+        def cap_r(*a):
+            seen["retrace"] = (a, orig_r(*a))
+            return seen["retrace"][1]
+
+        def cap_s(*a):
+            seen["strips"] = (a, orig_s(*a))
+            return seen["strips"][1]
+
+        before = dict(K.launches)
+        U.spliced_slab_retrace_pairs, U.spliced_tb_strips = cap_r, cap_s
+        try:
+            ops = U.run_spliced_batch_udh(b6, prm)[2]
+        finally:
+            U.spliced_slab_retrace_pairs, U.spliced_tb_strips = orig_r, orig_s
+        n = {k: K.launches[k] - before[k] for k in K.KERNELS}
+        if (n[name] != 1 or n["spliced_tb_strips"] != 1
+                or n[K.entry("spliced_slab_retrace", prm)]):
+            raise AssertionError(f"K6 bucket UDH: launches {n}, expected "
+                                 f"one {name} and one spliced_tb_strips")
+        if not all(any(o[0] == "I" for o in x) for x in ops):
+            raise AssertionError(f"K6 bucket UDH ({name}): a planted intron "
+                                 f"was not recovered")
+        (bp, _, slabs, snap, sel), planes = seen["retrace"]
+        if sorted(set(slabs.tolist())) != [0, 1]:
+            raise AssertionError(f"{name}: pairs of slabs {slabs.tolist()}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = K.slab_retrace_pairs_plain(bp, prm, slabs, snap, sel)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = _equal(f"{name} (K6 bucket)", planes, plain)
+        one = []
+        for s in (0, 1):
+            cols = torch.nonzero(slabs == s).flatten()
+            one.append((s, cols, snap[:, cols].contiguous(),
+                        sel[cols].contiguous()))
+            _equal(f"{name} slab {s} vs spliced_slab_retrace",
+                   [planes[0][:, :, cols], planes[1][:, :, :, cols]],
+                   K.spliced_slab_retrace(bp, prm, s, 1, one[-1][2],
+                                          one[-1][3]))
+        (fl, spj, starts, lws, s0, IT), recs = seen["strips"]
+        if not isinstance(s0, torch.Tensor):
+            raise AssertionError(f"{name}: the strips took one slab, {s0}")
+        sst = torch.empty((starts.shape[0], 2), dtype=torch.int32,
+                          device="cuda")
+        rs = K.spliced_tb_strips(fl, spj, starts, lws, s0, IT, stats=sst)
+        col = starts[:, 4].long()
+        keys = _walk_check(K, f"spliced_tb_strips ({name})", rs, sst, fl,
+                           lws[col], s0[col], starts[:, 2], col)
+        _equal(f"spliced_tb_strips ({name}), a slab a walk", [recs, rs],
+               [K.tb_strips_plain(fl, spj, starts, lws, s0, IT)] * 2)
+        call = lambda: K.spliced_slab_retrace_pairs(bp, prm, slabs, snap,
+                                                    sel)
+        per_slab = lambda: [K.spliced_slab_retrace(bp, prm, s, 1, sn, se)
+                            for s, _, sn, se in one]
+        ms = [_timed(call, 5), _timed(per_slab, 5), _timed(call, 5),
+              _timed(per_slab, 5)]
+        occ, threads, smem = K.retrace_pairs_occupancy(
+            prm.dagp, bp.L, bp.qprof.shape[2], torch.device("cuda"))
+        nbytes, nops = _pairs_work(K, bp, prm, slabs, sel)
+        bound_ms, bound_by = _bound(nbytes, nops)
+        out[name] = dict(max_abs_err=err, plain_ms=plain_ms,
+                         ms=min(ms[0], ms[2]), one_slab_ms=min(ms[1], ms[3]),
+                         turns_ms=[round(x, 4) for x in ms],
+                         pairs=int(sel.shape[0]), ctas_per_sm=occ,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         work=(nbytes, nops), strips=keys)
+        log(f"K6 bucket (B={bp.B} L={bp.L} W={bp.W} S={bp.S} T={bp.T}, "
+            f"local, -yJ on half): {name}: {out[name]['pairs']} pairs in one "
+            f"launch, exact against its plain version on the card "
+            f"({plain_ms:.0f} ms) and equal to the one-slab launches; "
+            f"{out[name]['ms']:.3f} ms, the {len(one)} one-slab launches "
+            f"{out[name]['one_slab_ms']:.3f} ms (turns pairs, one-slab, "
+            f"pairs, one-slab: {out[name]['turns_ms']}); {threads} threads, "
+            f"{smem} B of shared memory, {occ} CTAs an SM holds; bound "
+            f"{bound_ms:.7f} ms by {bound_by} ({nbytes} bytes, {nops} int32 "
+            f"ops); its {starts.shape[0]} strips (a slab a walk) in one "
+            f"spliced_tb_strips launch exact, steps and tile loads the "
+            f"model's: {json.dumps(keys)}")
+    return out
+
+
 # ---------------------------------------------------- phase 1, K6 modes
 # int32 operations K6 adds, counted from csrc/spliced_dp.cu: per band
 # cell the local mode's floor (a compare and a select; its flag bit rides
 # in the flag byte's or), per acceptor cell the -yJ bonus (one add), and
-# for the step emission per lane-step a shared-memory read and a
-# compare-select, per warp and step the shuffle tree (5 rounds of 2
-# shuffles and 3 compare-selects) and the store
-OPS_LOCAL_CELL, OPS_CIP_ACC, OPS_EMIT_LANE, OPS_EMIT_WARP = 2, 1, 2, 27
+# for the step emission per lane-step its share of the warp's maximum
+# and the test for the best, and per slab and step the two stores of its
+# (best, lane)
+OPS_LOCAL_CELL, OPS_CIP_ACC, OPS_EMIT_LANE, OPS_EMIT_STEP = 2, 1, 2, 2
 
 
 def _k6_bucket(bp):
@@ -1379,8 +1544,7 @@ def k6_finish(K, jobs, got, plain) -> dict:
             nbytes += (21 if dagp else 13) * cells
         if "emission" in name:
             nbytes += 8 * S * T * B
-            ops += S * T * B * (L * OPS_EMIT_LANE
-                                + -(-L // 32) * OPS_EMIT_WARP)
+            ops += S * T * B * (L * OPS_EMIT_LANE + OPS_EMIT_STEP)
         bound_ms, bound_by = _bound(nbytes, ops)
         rows[name] = dict(entry=entry, max_abs_err=err, plain_ms=plain_ms,
                           ms=min(ms[0], ms[2]), off_ms=min(ms[1], ms[3]),
@@ -1395,6 +1559,78 @@ def k6_finish(K, jobs, got, plain) -> dict:
             f"W={bp.W} S={S} T={T}: {cells} band cells, {acc} acceptor "
             f"cells)")
     return rows
+
+
+EMIT_ROWS = ("SLAB_EMIT_ROWS=1",)
+
+
+@contextlib.contextmanager
+def _emit_rows_build(K):
+    """While the block runs, the slab entries launch from the timing
+    build of the emission's store-and-scan form (-DSLAB_EMIT_ROWS=1),
+    each CTA with the shared memory its rows take: STAGE_C rows of k*L |
+    1 ints, or as many as fit beside the rest (at least one)."""
+    lib, smem = K._library, K.slab_smem
+
+    def rows_smem(mode, dagp, KL, A, emit=False):
+        base = smem(mode, dagp, KL, A)
+        rows = max(1, min(K.STAGE_C, (K.SMEM_MAX - base) // 4 // (KL | 1)))
+        return base + 4 * rows * (KL | 1) if emit else base
+
+    K._library = lambda defines=(): lib(defines or EMIT_ROWS)
+    K.slab_smem = rows_smem
+    try:
+        yield
+    finally:
+        K._library, K.slab_smem = lib, smem
+
+
+def emission_timing(K, dp) -> dict:
+    """K1 with the local emission on a batch of search_protein_local
+    (B=64, L=64, full band) in its two forms, the production build's
+    reduction from registers and the timing build's store-and-scan rows
+    (both built from this checkout, one nvcc each, started together),
+    exactly equal on the card; each timed in turns with K6 off on the
+    same shape (registers, rows, off, three times; CUDA events, 5 calls
+    each)."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        builds = list(pool.map(lambda d: K.build_library(K.SOURCE, d),
+                               ((), EMIT_ROWS)))
+    log(f"production and {EMIT_ROWS[0]} builds in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for (so, secs, ptxas), tag in zip(builds, ("registers", "rows")):
+        emit = {k: v for k, v in _ptxas_instances(ptxas).items()
+                if re.fullmatch(r"slab_kernel<0,[01],[01],\d+,[12],2>", k)}
+        log(f"  {tag}: {so.name}, nvcc {secs:.1f} s; the emission's "
+            f"instances: {emit}")
+    pb, pprm = _protein_batch(dp, local=True, L=64)
+    off = dataclasses.replace(pb, flags=dataclasses.replace(pb.flags,
+                                                            local=False))
+    reg = functools.partial(K.spliced_slab_trace, pb, pprm, emit_local=True)
+
+    def rows():
+        with _emit_rows_build(K):
+            return reg()
+
+    err = _equal("the emission's two forms (rows against registers)",
+                 rows(), reg())
+    calls = {"registers": reg, "rows": rows,
+             "k6_off": functools.partial(K.spliced_slab_trace, off, pprm)}
+    turns = {k: [] for k in calls}
+    for _ in range(3):
+        for k, fn in calls.items():
+            turns[k].append(_timed(fn, 5))
+    out = dict(shape=dict(B=pb.B, L=pb.L, W=pb.W, S=pb.S, T=pb.T),
+               max_abs_err=err,
+               ms={k: min(v) for k, v in turns.items()},
+               turns_ms={k: [round(x, 4) for x in v]
+                         for k, v in turns.items()})
+    log(f"K1 with the local emission (B={pb.B} L={pb.L} W={pb.W} "
+        f"S={pb.S}): the two forms exactly equal; min ms {out['ms']} "
+        f"(turns {out['turns_ms']})")
+    return out
 
 
 def _tetrapod_width_bucket(dp, ctx, B=32, W=16384, min_len=1000):
@@ -1468,7 +1704,9 @@ def slab_timing(K, dp, ctx):
     snapshot of slab 0 in one launch) at the checkout's own k and at k =
     1, 2, 3, 4, 7, beside the one-slab launch (slab 1) and slabs 1..11;
     then the retrace of a one-problem align window (B=1, W=65,536, 12
-    slabs) in the same ways.  Every retrace's planes must equal K1's.
+    slabs) in the same ways, and every (problem, slab) pair of each in one
+    launch of the retrace of pairs (a checkout with it).  Every retrace's
+    planes must equal K1's.
     Returns name -> ms per launch, k, CTAs per problem, serial steps per
     launch (the critical path, slab_serial_steps) and us per global
     step.  First K1 and K4 (single and double affine) on phase 1's
@@ -1527,14 +1765,40 @@ def _slab_timing(K, bp, prm, tag):
                           lambda s0=s0, nslab=nslab, snap=snap, k=k:
                           _with_k(K, k, lambda: K.spliced_slab_retrace(
                               bp, prm, s0, nslab, snap, sel)))
+    if hasattr(K, "spliced_slab_retrace_pairs"):
+        # every (problem, slab) pair in one launch, slab by slab: the
+        # pairs of slab s are columns s*B .. s*B+B-1
+        ids = torch.tensor([(b, s) for s in range(S) for b in range(bp.B)],
+                           dtype=torch.int32).T.contiguous().cuda()
+        psel, pslab = ids[0].contiguous(), ids[1].contiguous()
+        psnap = snaps[pslab.long(), :, psel.long()].transpose(0, 1)
+        psnap = psnap.contiguous()
+        r = K.spliced_slab_retrace_pairs(bp, prm, pslab, psnap, psel)
+        for s in range(S):
+            c = slice(s * bp.B, (s + 1) * bp.B)
+            if not (torch.equal(r[0][0][:, c], k1[0][s])
+                    and torch.equal(r[1][0][:, :, c], k1[1][s])):
+                raise AssertionError(f"retrace of pairs{tag}: slab {s} "
+                                     f"differs from K1's planes")
+        del r
+        runs[f"spliced_slab_retrace_pairs{tag} x{S * bp.B}"] = (
+            "pairs", 1, None,
+            lambda: K.spliced_slab_retrace_pairs(bp, prm, pslab, psnap, psel))
     out = {} if tag else _k3_timing(K, bp, prm, k1, "tetrapod width")
     if not tag and hasattr(K, "spliced_ends_tb_walk"):
         _ends_checks(K, bp, prm, k1, "tetrapod width",
                      ("across_warps", "row_col_tie"), timed=False)
     del k1
     for name, (mode, nslab, kf, fn) in runs.items():
+        extra = ""
         if mode == "retrace":
             k, ncta = _retrace_geom(K, bp, nslab, kf)
+        elif mode == "pairs":                  # a CTA a pair, k = 1
+            k, ncta = 1, 1
+            occ = K.retrace_pairs_occupancy(prm.dagp, L, A,
+                                            torch.device("cuda"))[0]
+            extra = (f"; {S * bp.B} CTAs, {occ} an SM holds: "
+                     f"{-(-S * bp.B // (occ * n_sm))} wave(s)")
         else:
             k = K.slab_geometry(mode, False, L, A, nslab)[0]
             ncta = K.slab_ctas(k, nslab, bp.B, n_sm)
@@ -1545,7 +1809,7 @@ def _slab_timing(K, bp, prm, tag):
         log(f"tetrapod-width bucket{tag} (B={bp.B} L={L} W={bp.W} S={S} "
             f"T={T}): {name}: {ms:.3f} ms per launch, k={k} on {ncta} "
             f"CTA(s) per problem, {steps} serial steps, "
-            f"{ms * 1e3 / steps:.4f} us per global step")
+            f"{ms * 1e3 / steps:.4f} us per global step{extra}")
     return out
 
 
@@ -2944,17 +3208,25 @@ def _check_no_skips(metrics, label: str) -> None:
         raise AssertionError(f"{label}: {n} queries skipped")
 
 
+def _retraces(n, dagp: bool = False) -> int:
+    """Retrace launches in the launch counts n, of runs and of pairs (a
+    checkout from before the pairs has none)."""
+    d = "_dagp" if dagp else ""
+    return (n.get("spliced_slab_retrace" + d, 0)
+            + n.get("spliced_slab_retrace_pairs" + d, 0))
+
+
 def _check_udh_kernels(K, metrics, label: str) -> None:
-    """Every UDH bucket ran on K4, K2e, K1 retrace and K3 strip, every
-    plane bucket (or align window) on K1 and the fused K2e + K3; no plain
-    version ran; no query was skipped."""
+    """Every UDH bucket ran on K4, K2e, K1 retrace (of runs, or of pairs
+    after a K6 links pass) and K3 strip, every plane bucket (or align
+    window) on K1 and the fused K2e + K3; no plain version ran; no query
+    was skipped."""
     _check_no_skips(metrics, label)
     udh = metrics.counters.get("udh_buckets", 0)
     planes = metrics.counters.get("device_buckets", 0)
     n = K.launches
     if udh and not (n["spliced_slab_links"] >= udh
-                    and n["spliced_tb_strips"] == n["spliced_slab_retrace"]
-                    >= udh):
+                    and n["spliced_tb_strips"] == _retraces(n) >= udh):
         raise AssertionError(f"{label}: {udh} UDH buckets, launches "
                              f"{dict(n)}")
     if (n["spliced_last_ends"] != n["spliced_slab_links"]
@@ -3193,14 +3465,15 @@ def _check_dagp_kernels(K, metrics, label: str) -> None:
     udh, planes = c.get("udh_buckets", 0), c.get("device_buckets", 0)
     if n["spliced_slab_trace_dagp"] != planes or (udh and not (
             n["spliced_slab_links_dagp"] >= udh
-            and n["spliced_tb_strips"] == n["spliced_slab_retrace_dagp"]
+            and n["spliced_tb_strips"] == _retraces(n, True)
             >= udh)) or n["spliced_ends_tb_walk"] != planes or (
             n["spliced_last_ends"] != n["spliced_slab_links_dagp"]
             or n["spliced_tb_walk"]):
         raise AssertionError(f"{label}: {planes} plane and {udh} UDH "
                              f"buckets, launches {dict(n)}")
     single = [k for k in ("spliced_slab_trace", "spliced_slab_links",
-                          "spliced_slab_retrace") if n[k]]
+                          "spliced_slab_retrace",
+                          "spliced_slab_retrace_pairs") if n.get(k)]
     if single:
         raise AssertionError(f"{label}: single-affine entries ran: {single}")
     if any(K.plain_calls.values()):
@@ -3366,13 +3639,52 @@ def _k6_small(K, cli) -> None:
             f"on the card ({len(texts['kernels'])} bytes)")
 
 
+def _check_pair_launches(K, label: str, counters: dict, dagp: bool,
+                         retraces: list, pairs: list) -> dict:
+    """A K6 map under -A 3: the retrace ran as the retrace of pairs, at
+    most once a UDH bucket past the plane budget's splits (the counter
+    udh_retrace_splits), never one slab a launch (no launch of the
+    retrace of runs), one strip launch each.  Logs the launches' pairs,
+    the CTAs an SM holds and the waves; returns them."""
+    d = "_dagp" if dagp else ""
+    n = K.launches
+    name = "spliced_slab_retrace_pairs" + d
+    udh = counters.get("udh_buckets", 0)
+    splits = counters.get("udh_retrace_splits", 0)
+    if (n["spliced_slab_retrace" + d] or not 1 <= n[name] <= udh + splits
+            or n["spliced_tb_strips"] != n[name]):
+        raise AssertionError(f"{label}: {udh} UDH buckets and {splits} "
+                             f"plane-budget splits, launches {dict(n)}: "
+                             f"expected {name} at most once a bucket past "
+                             f"the splits and no one-slab retrace")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    waves, occ = [], {}
+    for _, nb, L, A in pairs:
+        if (L, A) not in occ:
+            occ[L, A] = K.retrace_pairs_occupancy(dagp, L, A,
+                                                  torch.device("cuda"))[0]
+        waves.append(-(-nb // (occ[L, A] * n_sm)))
+    out = dict(launches=n[name], buckets=udh, splits=splits,
+               pairs=[p[1] for p in pairs], ctas_per_sm=sorted(set(
+                   occ.values())), waves=max(waves))
+    log(f"{label}: retrace {n[name]} {name} launch(es) for {udh} UDH "
+        f"buckets ({splits} plane-budget splits), 0 one-slab launches, "
+        f"{n['spliced_tb_strips']} strip launch(es); pairs a launch "
+        f"{out['pairs']}; (pairs, 1, k, CTAs a pair) "
+        f"{_retrace_shapes(retraces)}; {out['ctas_per_sm']} CTAs an SM "
+        f"holds ({n_sm} SMs), at most {out['waves']} wave(s) a launch")
+    return out
+
+
 def tetrapod_k6_map(K, cli, metrics, truth) -> dict:
     """K6 on phase 4's genome and index: map -L S (the size rule, then
     -A 3 -y l3) and map of the cDNAs with junction records at their
     planted junctions (-y l3 under the size rule, then -A 3); every
     bucket on the kernels in K6's modes with no plain call, >= 90% of
     queries at their planted locus and strand; then phase 2's corpus
-    against the plain versions on the card (_k6_small)."""
+    against the plain versions on the card (_k6_small).  Under -A 3 the
+    UDH retrace runs every (problem, slab) pair of a bucket in one
+    launch of the retrace of pairs (_check_pair_launches)."""
     d = WORK / "tetra"
     nj = write_junction_queries(d / "cdna.fa", d / "cdna_j.fa", truth)
     runs = {}
@@ -3380,7 +3692,9 @@ def tetrapod_k6_map(K, cli, metrics, truth) -> dict:
         metrics.reset()
         _reset_counts(K)
         out = OUT / f"tetra_k6.{'_'.join(label.split()[1:])}.O0_4"
-        with kernel_clock(K) as kms, k6_modes(K) as seen:
+        retraces, pairs = [], []
+        with kernel_clock(K, retraces, pairs=pairs) as kms, \
+                k6_modes(K) as seen:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             cli.main(["map", str(d / q), "-d", str(d / "genome"), "-T",
@@ -3407,6 +3721,9 @@ def tetrapod_k6_map(K, cli, metrics, truth) -> dict:
         runs[label] = dict(launches=dict(K.launches), counters=c, ms=kms,
                            wall=wall, modes={"|".join(map(str, k)): v
                                              for k, v in seen.items()})
+        if udh:
+            runs[label]["retrace"] = _check_pair_launches(
+                K, label, c, "l3" in extra, retraces, pairs)
         log(f"{label}: {len(truth)} queries in {wall:.2f} s = "
             f"{len(truth) / wall:.3f} queries/s; udh_buckets "
             f"{c.get('udh_buckets', 0)}, plane buckets "
@@ -4105,14 +4422,22 @@ def _card() -> str:
 
 
 def timing_main(what: str, argv: list) -> int:
-    """--slab-timing, --tron-timing or --probe-timing [--package-root
-    DIR]: phase 1's tetrapod-width timing (slab_timing), the tron timing
-    (tron_timing) or the step probes and knock-outs (probe_timing)
-    alone, of the package under DIR (default: this checkout), so that
-    two commits are timed on one card; prints one JSON line."""
+    """--slab-timing, --tron-timing, --probe-timing, --walk-timing or
+    --emission-timing [--package-root DIR]: phase 1's tetrapod-width
+    timing (slab_timing), the tron timing (tron_timing), the step probes
+    and knock-outs (probe_timing), the walks (walk_timing) or the two
+    forms of K6's local emission (emission_timing) alone, of the package
+    under DIR (default: this checkout), so that two commits are timed on
+    one card; prints one JSON line."""
     if argv[:1] == ["--package-root"]:
         sys.path.insert(0, str(Path(argv[1]).resolve()))
     log(_card())
+    if what == "--emission-timing":
+        from spaln_tpu_torch.ops import dp_spliced as dp
+        from spaln_tpu_torch.ops import dp_spliced_cuda as K
+        print(json.dumps({"emission_timing": emission_timing(K, dp),
+                          "package": K.__file__}))
+        return 0
     if what == "--walk-timing":
         from concurrent.futures import ThreadPoolExecutor
         from spaln_tpu_torch.ops import dp_spliced as dp
@@ -4161,7 +4486,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if sys.argv[1:2] in (["--slab-timing"], ["--tron-timing"],
-                         ["--probe-timing"], ["--walk-timing"]):
+                         ["--probe-timing"], ["--walk-timing"],
+                         ["--emission-timing"]):
         return timing_main(sys.argv[1], sys.argv[2:])
     from spaln_tpu_torch import cli
     from spaln_tpu_torch.align.driver import AlignerContext
@@ -4213,6 +4539,7 @@ def main() -> int:
         results.update(check_k5_kernels(K, dp, ctx3))
         _, k6_rows = check_tall_kernels(K, dp, ctx, ctx3,
                                         k6_jobs(K, dp, ctx, ctx3))
+        results.update(check_retrace_pairs(K, dp, ctx, ctx3))
         # K7's plain versions step on CPU copies in 6 processes while
         # phases 2-8 run (the pool's workers end with the block)
         tron_pool = stack.enter_context(
@@ -4260,6 +4587,12 @@ def main() -> int:
         launches[k] = yl3["udh"]["launches"][k]
     launches["spliced_slab_score"] = \
         prot["search"]["launches"]["spliced_slab_score"]
+    # the retrace of pairs from phase 11's K6 maps under -A 3: the
+    # junction-record map (single affine) and -L S -y l3 (double)
+    launches["spliced_slab_retrace_pairs"] = k6map["map junctions -A 3"][
+        "launches"]["spliced_slab_retrace_pairs"]
+    launches["spliced_slab_retrace_pairs_dagp"] = k6map[
+        "map -L S -A 3 -y l3"]["launches"]["spliced_slab_retrace_pairs_dagp"]
     # K2e from phase 7's score pass, one a score batch (the plane path
     # runs it inside the fused entry; spliced_tb_walk, K3 alone, is on no
     # path: its walk runs in the fused entry, its kernel in the strips')
@@ -4288,7 +4621,8 @@ def main() -> int:
     sources.update({k: str(TK.SOURCE.relative_to(ROOT)) for k in TK.KERNELS})
     names = K.KERNELS + TK.KERNELS
     path = set(K.PLANE_PATH + K.PLANE_PATH_DAGP + K.UDH_PATH
-               + K.UDH_PATH_DAGP + K.SCORE_PATH + TK.KERNELS)
+               + K.UDH_PATH_DAGP + K.UDH_PATH_K6 + K.UDH_PATH_K6_DAGP
+               + K.SCORE_PATH + TK.KERNELS)
     if not all(launches[k] > 0 for k in path) or launches["spliced_tb_walk"]:
         raise AssertionError(f"a kernel of the path never ran, or K3 ran "
                              f"alone: {launches}")
@@ -4308,7 +4642,9 @@ def main() -> int:
              ms=results[k]["ms"], plain_ms=results[k]["plain_ms"],
              bound_ms=results[k]["bound_ms"],
              bound_by=results[k]["bound_by"], library_ms=None,
-             **{x: results[k][x] for x in (*WALK_KEYS, "call_ms")
+             **{x: results[k][x] for x in (*WALK_KEYS, "call_ms",
+                                           "one_slab_ms", "pairs",
+                                           "ctas_per_sm")
                 if x in results[k]},
              **({} if k in path else {"main_path": "none: its walk runs "
                                       "in spliced_ends_tb_walk"}))

@@ -1,6 +1,6 @@
 // Banded spliced DP of one geometry bucket on an NVIDIA Hopper GPU:
 // four kernels (the slab kernel a template over three modes and the
-// double-affine switch) behind eleven entries of a plain C interface (bound
+// double-affine switch) behind thirteen entries of a plain C interface (bound
 // with ctypes by spaln_tpu_torch/ops/dp_spliced_cuda.py, which also holds
 // their plain PyTorch versions).
 //
@@ -26,6 +26,8 @@
 //   ipen  (Np,)               exact intron penalty by length
 //   sel   (nb,)               operand problem of each CTA (retrace), or
 //                             null for CTA b = problem b
+//   slabs (nb,)               slab of each CTA (the retrace of pairs), or
+//                             null for s0
 //   flags (S', T, nb, L) u8   winner state | E open << 3 | F open << 4
 //                             | E2 open << 5 | F2 open << 6 | local
 //                             restart << 7, 255 = inactive cell (S'
@@ -43,7 +45,8 @@
 //                             DAGP (NLK = 5), boundary F2 (lane L-1)
 //   snaps (S, NB, B, T + 2)   the slab's entry boundary rows over the
 //                             columns lane 0 reads, n = m0 + lw + k
-//   snap  (NB, nb, T + 2)     a retrace's entry boundary (from snaps)
+//   snap  (NB, nb, T + 2)     a retrace's entry boundary (from snaps;
+//                             of each CTA's own slab for pairs)
 //   cip   (B, Mpad + L)       -yJ bonus of query row m at m - 1, added to
 //                             every acceptor close of the row; or null
 //   loc_v, loc_i (S, T, B)    local mode's emission: each slab's best H
@@ -52,6 +55,8 @@
 //   ends  (B, 3)              (score, end m, end n)
 //   starts (nw, 5)            strip walk start (m, n, state, m_stop,
 //                             problem column b of the planes)
+//   slab0 (B,)                first slab of each column's planes, or
+//                             null for s0
 //   recs  (IT, nw, 4)         walk records (kind, m, n, jnc - 1) of nw
 //                             walks (B for the full walk), zeroed by the
 //                             caller
@@ -74,6 +79,11 @@ enum { G_RES, G_ISDON, G_ISACC, G_SIG5, G_ACCB, G_DINC5 };
 // psp orphan-exon bit per state H, E, F, E2, F2 (aln.h:56-59)
 __device__ __constant__ int PSP_BIT[5] = {4, 1, 8, 2, 16};
 enum { MODE_TRACE, MODE_LINKS, MODE_SCORE };
+// the slab kernel's K6 instances: off (the main path), the local and -yJ
+// modes, and those with the local mode's emission (trace mode only); and
+// the retrace of (problem, slab) pairs, K6 off with a slab a CTA (its own
+// instances, so that the main path's read no slab index)
+enum { K6_OFF, K6_MODES, K6_EMIT, K6_PAIRS };
 
 // Knock-outs of the score mode, for timing only: a build with
 // -DSLAB_ABLATE=n drops one piece of the step from slab_kernel<MODE_SCORE,
@@ -152,13 +162,30 @@ __host__ __device__ constexpr bool ko_combo(int abl, int piece) {
 //     registers (nvcc -Xptxas -v) so that none spills;
 //   STAGE_C: genome columns per staged chunk; the ring holds
 //     k * L + 2 * STAGE_C columns;
-//   slab_smem_ints: the dynamic shared memory of one CTA;
+//   slab_smem_ints: the dynamic shared memory of one CTA, and
+//     EMIT_INTS more where it emits K6's local steps;
 //   CLUSTER_MAX: CTAs per problem at most (a portable cluster);
 //   LANES_PER_THREAD: lanes a thread runs at most (a slab wider than
-//     max_threads).
+//     max_threads);
+//   EMIT_SLOTS: (warp, sub-slab) partials of the emission at most, warps
+//     plus sub-slabs (at most 28 + 7 at 896 threads).
 constexpr int STAGE_C = 32;
 constexpr int CLUSTER_MAX = 8;
 constexpr int LANES_PER_THREAD = 2;
+constexpr int EMIT_SLOTS = 64;
+constexpr int EMIT_INTS = 4 * EMIT_SLOTS;    // two buffers of (value, lane)
+
+// A timing build with -DSLAB_EMIT_ROWS=1 replaces the emission's
+// reduction from registers by the form it was measured against: each
+// step stores its lanes' H into rows of KL | 1 ints after the
+// substitution rows (EC of them, STAGE_C or as many as the launch's
+// shared memory holds), and every EC steps, after the step's barrier, a
+// thread a (sub-slab, step) scans one row's L values, then one more
+// barrier frees the rows.  No path runs it; chip_smoke.py
+// --emission-timing holds it against the production build.
+#ifndef SLAB_EMIT_ROWS
+#define SLAB_EMIT_ROWS 0
+#endif
 
 constexpr int max_threads(int mode, bool dagp) {
   return mode == MODE_TRACE ? (dagp ? 640 : 896)
@@ -189,7 +216,11 @@ __device__ __forceinline__ int colinit(int k, int b_exgl, int gop,
 // (spliced_slab_retrace) runs slabs s0 .. s0+nslab-1 of selected problems
 // from an entry boundary the caller restores from K4's snapshot: the
 // per-slab _scan_slab(emit_trace=True) re-run of
-// ops/dp_spliced_udh.py:_retrace (157-201).
+// ops/dp_spliced_udh.py:_retrace (157-201).  Its pairs form
+// (spliced_slab_retrace_pairs) runs one (problem, slab) pair a CTA, each
+// from its own slab's snapshot: the reference's re-run of every slab
+// from its own snapshot after a local or -yJ links pass, all slabs of a
+// bucket in one launch (k = 1, one CTA a pair, several to an SM).
 //
 // slab_kernel<MODE_LINKS, false> (spliced_slab_links, K4) replaces
 // _make_kernel(emit_links=True) (reached through
@@ -284,13 +315,16 @@ __device__ __forceinline__ int colinit(int k, int b_exgl, int gop,
 // K6, the local (Smith-Waterman-Gotoh) and -yJ modes of K1 and K4: the
 // counterpart of _make_step(local=True, cip=True)
 // (ops/dp_spliced_scan.py:223, run by _scan_slab 592), which spaln_tpu
-// runs on its scan engine only.  They are compiled into the K6 = true
-// instances of the trace and links modes only; there the local mode,
-// the bonus and the emission are runtime switches, uniform across the
-// launch.  The main path (no local mode, no bonus) runs the K6 = false
-// instances, the code it ran before K6 (as runtime switches they cost
-// K4 5.5% at phase 1's bucket: PERF.md, PR 13); the score mode, which
-// no path runs in them, has no K6 instance:
+// runs on its scan engine only.  They are compiled into the K6_MODES
+// instances of the trace and links modes, and with the emission into
+// the K6_EMIT instances of the trace mode; there the local mode and the
+// bonus are runtime switches, uniform across the launch.  The main path
+// (no local mode, no bonus) runs the K6_OFF instances, the code it ran
+// before K6 (as runtime switches they cost K4 5.5% at phase 1's bucket:
+// PERF.md); the emission has instances of its own because its registers
+// made the K6 trace instance spill (K1 local +11% at phase 1's bucket
+// against +2% without them: PERF.md); the score mode,
+// which no path runs in them, has no K6 instance:
 //   cip    a lane's bonus is constant over its slab: loaded into a
 //          register at the round's start and added to the acceptor base
 //          once per closing cell (the same sum at every candidate);
@@ -298,16 +332,19 @@ __device__ __forceinline__ int colinit(int k, int b_exgl, int gop,
 //          (the walks stop there); the donor push and the E/F states
 //          read the value before the floor, as the reference does;
 //   loc_v  (trace mode, only asked for by the local protein search)
-//          each slab's best committed H at each step and its first lane.
-//          Lane v's H of step t sits in the H ring until step t+3
-//          overwrites it, so at step t+1, after the barrier that ends
-//          step t, warp w reduces sub-slab w (w + nwarp, ...) from the
-//          ring: each lane the best of its strided lanes (the first on
-//          ties), then the warp's maximum and the lowest lane that holds
-//          it by two warp reductions (__reduce_max_sync,
-//          __reduce_min_sync).  A step that does not emit takes no extra
-//          barrier; the round's last step is reduced after the loop,
-//          before the barrier that starts the next round.
+//          each slab's best committed H at each step and its first lane,
+//          reduced from the registers that hold it: at the end of its
+//          step each warp reduces its own lanes of each sub-slab to a
+//          (best, first lane) partial (__reduce_max_sync, then a ballot,
+//          or __reduce_min_sync at two lanes a thread) in a small
+//          double-buffered array after the substitution rows (EMIT_INTS,
+//          asked for by the launch), and after the step's barrier one
+//          thread a sub-slab combines its few partials and stores them.
+//          No extra barrier; the round's last step is combined after the
+//          loop, before the barrier that starts the next round.  (The
+//          earlier form, each warp scanning a sub-slab's L values in the
+//          H ring before its next step, cost +50% on a search batch; the
+//          SLAB_EMIT_ROWS form above is timed against this one: PERF.md.)
 // One lane's registers: its place in the CTA's round (set at the round's
 // start) and the DP state it carries from one step to the next.
 struct Lane {
@@ -338,13 +375,14 @@ __device__ __forceinline__ void seed_live(Lane& x, int gop, int ns) {
 }
 #endif
 
-template <int MODE, bool DAGP, bool MULTI, int MAXT, int P, bool K6>
+template <int MODE, bool DAGP, bool MULTI, int MAXT, int P, int K6>
 __global__ void __launch_bounds__(MAXT)
 slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
             const int* __restrict__ joint, const int* __restrict__ ipen,
             const int* __restrict__ Ms, const int* __restrict__ Ns,
             const int* __restrict__ lws, const int* __restrict__ sel,
-            int A, int L, int s0, int nslab, int W, int T, int Mpad,
+            const int* __restrict__ slabs, int A, int L, int s0, int nslab,
+            int W, int T, int Mpad,
             int Np, int gop, int gep, int lgop, int lgep, int llmt,
             int a_exgl, int a_exgr, int b_exgl,
             const int* __restrict__ snap, int* bnd,
@@ -355,6 +393,8 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
             int* __restrict__ loc_v, int* __restrict__ loc_i) {
   constexpr bool LINKS = MODE == MODE_LINKS;
   constexpr bool TRACE = MODE == MODE_TRACE;
+  constexpr bool EMIT = TRACE && K6 == K6_EMIT;  // loc_v, loc_i set
+  constexpr bool MODES = K6 == K6_MODES || EMIT;  // local, cip switches
   constexpr int NS = DAGP ? 5 : 3;        // states with a junction plane
   constexpr int NB = DAGP ? 3 : 2;        // boundary rows H, F (, F2)
   constexpr int NLK = DAGP ? 5 : 4;       // link streams per slab
@@ -370,6 +410,7 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
   const int cq = blockIdx.x - ob * ncta;     // CTA of the problem
   const int nb = gridDim.x / ncta;
   const int b = sel ? sel[ob] : ob;          // operand problem
+  const int sb = K6 == K6_PAIRS ? slabs[ob] : s0;   // its first slab
   const int R = KL + 2 * C;                  // staged genome columns
   int* jr = smem;                            // R x 16 joint rows
   int* gw = jr + 16 * R;                     // R packed small operands
@@ -383,6 +424,18 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
   int* FLs = HLs + (LINKS ? 3 * KL : 0);     // 2 x KL: F links (K4)
   int* F2Ls = FLs + (LINKS ? 2 * KL : 0);    // 2 x KL: F2 links (K4, DAGP)
   int* qp = F2Ls + (LINKS && DAGP ? 2 * KL : 0);  // KL x A substitution rows
+#if SLAB_EMIT_ROWS
+  int* ebuf = qp + KL * A;                   // EC x ES (K6 emission)
+  const int ES = KL | 1;                     // its row stride, odd
+  int EC = 1;                                // its rows: steps a scan
+  if constexpr (EMIT) {
+    unsigned dsm;                            // the launch's bytes
+    asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(dsm));
+    EC = min(C, ((int)dsm / 4 - slab_smem_ints(KL, A, MODE, DAGP)) / ES);
+  }
+#else
+  int* lpart = qp + KL * A;                  // 2 x 2 x EMIT_SLOTS (K6 emission)
+#endif
   const int M = Ms[b], N = Ns[b], lw = lws[b];
   const int nbnd = Np + 1;
   const int TS = T + 2;
@@ -401,8 +454,8 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
   const int* jb = joint + (size_t)b * Np * 16;
   const int nround = (nslab + ksub - 1) / ksub;
   const int g0 = cq * nthr + g, gstep = ncta * nthr;   // the problem's threads
-  if (snap) {                 // entry boundary of slab s0 (retrace)
-    const int w0 = s0 * L + 1 + lw;
+  if (snap) {                 // entry boundary of slab sb (retrace)
+    const int w0 = sb * L + 1 + lw;
     for (int n = g0; n < nbnd; n += gstep) {
       const int kk = n - w0;
       const bool in = kk >= 0 && kk < TS;
@@ -431,7 +484,7 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
   const size_t tstride = (size_t)nb * L;
 
   for (int r = cq; r < nround; r += ncta) {
-    const int q0 = (s0 + r * ksub) * L;         // query row of lane 0
+    const int q0 = (sb + r * ksub) * L;         // query row of lane 0
     const int base = q0 + 2 + lw;            // column of lane 0, step 0
     const int nstep = T + 2 * (min(ksub, nslab - r * ksub) - 1) * L;
     // round r-1 (another CTA of the problem) must stay 2*k'*L steps
@@ -497,9 +550,9 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
       const int v = g + p * nthr;
       x.j = v / L;                           // sub-slab
       x.i = v - x.j * L;                     // lane in the sub-slab
-      x.ls = r * ksub + x.j;                 // its slab - s0
+      x.ls = r * ksub + x.j;                 // its slab - sb
       x.live = v < KL && x.ls < nslab;
-      const int s = s0 + x.ls;
+      const int s = sb + x.ls;
       x.m0 = s * L + 1;
       x.m = x.m0 + x.i;
       if (LINKS && x.live && x.i == 0) {     // snapshot entry T+1
@@ -532,7 +585,7 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
       x.col_m = colinit(x.m, b_exgl, gop, gep);
       x.col_m1 = colinit(x.m - 1, b_exgl, gop, gep);
       x.internal = !a_exgr || x.m < M;
-      x.cipv = K6 && cip && x.live ? cip[(size_t)b * (Mpad + L) + x.m - 1]
+      x.cipv = MODES && cip && x.live ? cip[(size_t)b * (Mpad + L) + x.m - 1]
                                     : 0;
       x.li = min(max(M - x.m0, 0), L - 1);    // lane of row M
       x.fl_out = nullptr;
@@ -782,7 +835,7 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
           }
 #else
           if (closes) {
-            const int acc = K6 ? accb + x.cipv : accb;   // -yJ bonus
+            const int acc = MODES ? accb + x.cipv : accb;   // -yJ bonus
             int xc[NCAND];
 #pragma unroll
             for (int l = 0; l < NCAND; ++l)
@@ -846,7 +899,7 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
           }
           // ---- masked commit and emissions; local mode restarts an
           // active cell at the zero floor
-          const bool reset = K6 && local && active && mx <= 0;
+          const bool reset = MODES && local && active && mx <= 0;
           const int h_out = !active ? NEV : reset ? 0 : mx;
           const int f_out = active ? sv[2] : NEV;
           int f2_out = NEV;
@@ -913,37 +966,163 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
       if (++x.slot == R) x.slot = 0;
     };
 
-    // local mode's emission of global step tau (K6): the best H of each
-    // sub-slab there and its first lane, from ring slot h3 = tau mod 3
-    auto emit_best = [&](const int tau, const int h3) {
-      const int warp = g >> 5, wl = g & 31;
-      const int nwarp = (nthr + 31) >> 5;
-      const int cnt = min(32, nthr - (warp << 5));   // threads of the warp
-      const unsigned mask = cnt == 32 ? 0xffffffffu : (1u << cnt) - 1;
-      for (int j = warp; j < ksub; j += nwarp) {
-        const int ls = r * ksub + j;
-        const int t = tau - 2 * j * L;
-        if (ls >= nslab || t < 0 || t >= T) continue;   // the warp's own
-        const int* h = Hs + h3 * KL + j * L;
-        int bv = -2147483647 - 1, bi = L;
-        for (int c = wl; c < L; c += 32)
-          if (h[c] > bv) { bv = h[c]; bi = c; }
-        const int best = __reduce_max_sync(mask, bv);
-        const int first = __reduce_min_sync(mask, bv == best ? bi : L);
-        if (wl == 0) {
-          const size_t o = ((size_t)ls * T + t) * nb + ob;
-          loc_v[o] = best;
-          loc_i[o] = first;
+#if SLAB_EMIT_ROWS
+    // local mode's emission (K6), the timing build's form: at the end of
+    // global step tau each thread stores the committed H of its lanes
+    // (NEV where a cell was inactive, as the ring holds it) into row er
+    // of ebuf; after the barrier that ends each EC steps, thread (j,
+    // step) scans sub-slab j's L values of that step for the best and its
+    // first lane, in four interleaved runs merged by (value descending,
+    // lane ascending), stores them, and one more barrier lets the next
+    // steps overwrite the rows.  The round's last part is scanned after
+    // the loop.
+    auto emit_scan = [&](const int c0, const int n) {
+      for (int q = g; q < ksub * EC; q += nthr) {
+        const int j = q / EC, st = q - j * EC;
+        const int tau = c0 + st, ls = r * ksub + j, t = tau - 2 * j * L;
+        if (st >= n || ls >= nslab || t < 0 || t >= T) continue;
+        const int* h = ebuf + st * ES + j * L;
+        int bv[4], bi[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {          // L >= 3; NEV > INT_MIN
+          bv[u] = u < L ? h[u] : -2147483647 - 1;
+          bi[u] = u;
         }
+        for (int c = 4; c < L; c += 4)
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (c + u < L && h[c + u] > bv[u]) {
+              bv[u] = h[c + u];
+              bi[u] = c + u;
+            }
+#pragma unroll
+        for (int u = 1; u < 4; ++u)
+          if (bv[u] > bv[0] || (bv[u] == bv[0] && bi[u] < bi[0])) {
+            bv[0] = bv[u];
+            bi[0] = bi[u];
+          }
+        const size_t o = ((size_t)ls * T + t) * nb + ob;
+        loc_v[o] = bv[0];
+        loc_i[o] = bi[0];
       }
     };
-    const bool emit = K6 && TRACE && loc_v != nullptr;
+
+    int p3 = 0;                              // tau mod 3
+    int er = 0;                              // tau's emission row
+    for (int tau = 0; tau < nstep; ++tau) {
+#pragma unroll
+      for (int p = 0; p < P; ++p) lane_step(ln[p], g + p * nthr, tau, p3);
+      if constexpr (EMIT) {
+        int* row = ebuf + er * ES;
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          if (g + p * nthr < KL) row[g + p * nthr] = ln[p].h1;
+      }
+      if (++p3 == 3) p3 = 0;
+      const bool chunk = (tau + 1) % C == 0;
+      if (chunk) {                  // chunk q is due at step q*C
+        const int q = (tau + 1) / C;
+        __pipeline_wait_prior(0);
+        pack(q);
+        issue(q + 1);
+      }
+      __syncthreads();
+      if constexpr (EMIT)
+        if (++er == EC) {
+          emit_scan(tau + 1 - EC, EC);
+          __syncthreads();          // the scan is done with the rows
+          er = 0;
+        }
+      if (chunk) sync_rounds(tau + 1);
+    }
+    __pipeline_wait_prior(0);     // nothing lands in the next round's ring
+    if constexpr (EMIT)
+      if (er) emit_scan(nstep - er, er);
+#else
+    // local mode's emission (K6), in two levels.  At the end of global
+    // step tau each thread holds the committed H of its lanes (NEV where
+    // a cell was inactive, as the ring holds it), and each warp reduces
+    // its lanes of each sub-slab j to a (best, first lane) partial, slot
+    // warp + j of buffer tau & 1 (the slots of a warp's sub-slabs and of
+    // a sub-slab's warps both rise with the lane, so no two partials
+    // share one).  After the step's barrier, in step tau + 1, the thread
+    // of sub-slab j's lane 0 combines its partials (value descending,
+    // lane ascending: associative, so any order gives the first lane of
+    // the best, jnp.argmax's rule) into loc_v / loc_i.  A step writes
+    // one buffer while the other is read; the next write to a buffer
+    // comes after the barrier that follows its combine.
+    // The round's constants: the warp's threads of this thread's sub-slab
+    // (P = 1: thread v runs lane v, so a warp straddles sub-slabs where a
+    // boundary falls inside it; P = 2: one sub-slab, k = 1), the first
+    // step of the sub-slab, and for its lane 0 the first of its partials'
+    // slots, their count and its output at t = 0.
+    const int warp = g >> 5, wl = g & 31;
+    const int et0 = 2 * ln[0].j * L;          // global step of t = 0
+    unsigned gm = 0;
+    int es0 = 0, esn = 0;
+    size_t eo = 0;
+    if constexpr (EMIT) {
+      const Lane& x = ln[0];
+      const int cnt = min(32, nthr - (warp << 5));   // threads of the warp
+      const unsigned wmask = cnt == 32 ? 0xffffffffu : (1u << cnt) - 1;
+      const bool straddle =
+          P == 1 && (warp << 5) / L != ((warp << 5) + cnt - 1) / L;
+      gm = straddle ? __match_any_sync(wmask, x.j) : wmask;
+      es0 = (P == 1 ? (x.j * L) >> 5 : 0) + x.j;
+      esn = P == 1 ? ((x.j * L + L - 1) >> 5) - ((x.j * L) >> 5) + 1
+                   : (nthr + 31) >> 5;
+      eo = (size_t)x.ls * T * nb + ob;
+    }
+    auto emit_partials = [&](const int tau) {
+      const Lane& x = ln[0];
+      const int t = tau - et0;
+      if (!x.live || t < 0 || t >= T) return;     // uniform over gm
+      int bv = x.h1, bi = x.i;
+#pragma unroll
+      for (int p = 1; p < P; ++p)                 // a later lane: strict >
+        if (ln[p].live && ln[p].h1 > bv) {
+          bv = ln[p].h1;
+          bi = ln[p].i;
+        }
+      const int best = __reduce_max_sync(gm, bv);
+      int first = bi;
+      if constexpr (P == 1) {
+        // the group's threads hold consecutive lanes in order: the
+        // lowest thread that holds the best holds its first lane
+        if (wl != __ffs(__ballot_sync(gm, bv == best)) - 1) return;
+      } else {
+        first = __reduce_min_sync(gm, bv == best ? bi : L);
+        if (wl != __ffs(gm) - 1) return;
+      }
+      int* lp = lpart + (tau & 1) * 2 * EMIT_SLOTS + warp + x.j;
+      lp[0] = best;
+      lp[EMIT_SLOTS] = first;
+    };
+    auto emit_combine = [&](const int tau) {
+      const Lane& x = ln[0];                 // lane 0 of sub-slab x.j
+      const int t = tau - et0;
+      if (x.i != 0 || !x.live || t < 0 || t >= T) return;
+      const int* lp = lpart + (tau & 1) * 2 * EMIT_SLOTS + es0;
+      int bv = lp[0], bi = lp[EMIT_SLOTS];
+      for (int w = 1; w < esn; ++w) {
+        const int v = lp[w], i = lp[EMIT_SLOTS + w];
+        if (v > bv || (v == bv && i < bi)) {
+          bv = v;
+          bi = i;
+        }
+      }
+      loc_v[eo + (size_t)t * nb] = bv;
+      loc_i[eo + (size_t)t * nb] = bi;
+    };
 
     int p3 = 0;                              // tau mod 3
     for (int tau = 0; tau < nstep; ++tau) {
-      if (emit && tau > 0) emit_best(tau - 1, p3 == 0 ? 2 : p3 - 1);
 #pragma unroll
       for (int p = 0; p < P; ++p) lane_step(ln[p], g + p * nthr, tau, p3);
+      if constexpr (EMIT) {
+        if (tau > 0) emit_combine(tau - 1);
+        emit_partials(tau);
+      }
       if (++p3 == 3) p3 = 0;
       const bool chunk = (tau + 1) % C == 0;
       if (chunk) {                  // chunk q is due at step q*C
@@ -956,7 +1135,8 @@ slab_kernel(const int* __restrict__ qprof, const int* __restrict__ gops,
       if (chunk) sync_rounds(tau + 1);
     }
     __pipeline_wait_prior(0);     // nothing lands in the next round's ring
-    if (emit) emit_best(nstep - 1, (nstep - 1) % 3);
+    if constexpr (EMIT) emit_combine(nstep - 1);
+#endif
     sync_rounds(nstep);
   }
 }
@@ -1140,7 +1320,8 @@ last_ends_kernel(const int* __restrict__ row, const int* __restrict__ rc,
 // row or column 0, one (kind, m, n, jnc - 1) record per step.  Its strip
 // mode (spliced_tb_strips) replaces the host strip walks of the UDH
 // retrace (traceback_spliced_strip, dp_spliced_scan.py:1235): every
-// (slab, problem) strip of one retrace launch's planes (slabs s0..), each
+// (slab, problem) strip of one retrace launch's planes (slabs s0.., or
+// in a retrace of pairs slab slab0[b] of column b), each
 // from a given (m, n, state) in the planes of a given problem column b,
 // stops once m <= m_stop, its slab's upper boundary, where the full walk
 // stops at m < 1.  NS is the planes' state count (3, or 5 under DAGP:
@@ -1300,7 +1481,8 @@ tb_walk_kernel(const unsigned char* __restrict__ flags,
                const int* __restrict__ spj, const int* __restrict__ ends,
                const int* __restrict__ starts, const int* __restrict__ lws,
                int nw, int B, int L, int S, int T, int IT, int NS, int s0,
-               int* __restrict__ recs, int* __restrict__ stats) {
+               const int* __restrict__ slab0, int* __restrict__ recs,
+               int* __restrict__ stats) {
   __shared__ int band[1 + 5][TB_CELLS];     // flags, then junction planes
   const int w = blockIdx.x;
   int b, m, n, st, m_stop;
@@ -1311,8 +1493,10 @@ tb_walk_kernel(const unsigned char* __restrict__ flags,
     b = w;
     m = ends[b * 3 + 1]; n = ends[b * 3 + 2]; st = 0; m_stop = 0;
   }
+  // the planes of column b start at slab slab0[b] (a retrace of pairs),
+  // or all at s0
   tb_walk_body(flags, spj, w, nw, b, m, n, st, m_stop, lws[b], B, L, S, T,
-               IT, NS, s0, recs, stats, band);
+               IT, NS, slab0 ? slab0[b] : s0, recs, stats, band);
 }
 
 // spliced_ends_tb_walk: K2e as the prologue of K3's launch on the plane
@@ -1360,11 +1544,13 @@ ends_tb_walk_kernel(const unsigned char* __restrict__ flags,
 int tb_walk_entry(const unsigned char* flags, const int* spj,
                   const int* ends, const int* starts, const int* lws, int nw,
                   int B, int L, int S, int T, int IT, int NS, int s0,
-                  int* recs, int* stats, cudaStream_t stream) {
+                  const int* slab0, int* recs, int* stats,
+                  cudaStream_t stream) {
   if (nw <= 0) return 0;
   if (NS != 3 && NS != 5) return (int)cudaErrorInvalidValue;
   tb_walk_kernel<<<nw, 32, 0, stream>>>(flags, spj, ends, starts, lws, nw,
-                                        B, L, S, T, IT, NS, s0, recs, stats);
+                                        B, L, S, T, IT, NS, s0, slab0, recs,
+                                        stats);
   return (int)cudaGetLastError();
 }
 
@@ -1373,26 +1559,37 @@ int tb_walk_entry(const unsigned char* flags, const int* spj,
 // bytes of dynamic shared memory, as slab_geometry chose them.  A launch
 // the instance cannot take is refused with cudaErrorInvalidValue;
 // nothing is launched with other numbers.
-template <int MODE, bool DAGP, int P, bool K6>
+template <int MODE, bool DAGP, int P, int K6>
 auto slab_instance(int ncta) {
   constexpr int MAXT = max_threads(MODE, DAGP);
   return ncta > 1 ? slab_kernel<MODE, DAGP, true, MAXT, P, K6>
                   : slab_kernel<MODE, DAGP, false, MAXT, P, K6>;
 }
 
-// The instance of a launch: P lanes a thread, K6's modes or not (never
-// for the score mode)
-template <int MODE, bool DAGP, bool K6>
+// The instance of a launch: P lanes a thread, K6's modes (K6_MODES, or
+// K6_EMIT with the local emission) or not (K6_OFF; the score mode has
+// no other)
+template <int MODE, bool DAGP, int K6>
 auto slab_pick(int P, int ncta) {
   return P == 1 ? slab_instance<MODE, DAGP, 1, K6>(ncta)
                 : slab_instance<MODE, DAGP, 2, K6>(ncta);
 }
 
+// The retrace of pairs' instance: a CTA a pair (no cluster), P lanes a
+// thread
+template <bool DAGP>
+auto pairs_pick(int P) {
+  constexpr int MAXT = max_threads(MODE_TRACE, DAGP);
+  return P == 1 ? slab_kernel<MODE_TRACE, DAGP, false, MAXT, 1, K6_PAIRS>
+                : slab_kernel<MODE_TRACE, DAGP, false, MAXT, 2, K6_PAIRS>;
+}
+
 template <int MODE, bool DAGP>
 int launch_slab(const int* qprof, const int* gops, const int* joint,
                 const int* ipen, const int* Ms, const int* Ns,
-                const int* lws, const int* sel, int nb, int L, int A,
-                int s0, int nslab, int k, int smem, int ncta, int* prog,
+                const int* lws, const int* sel, const int* slabs, int nb,
+                int L, int A, int s0, int nslab, int k, int smem, int ncta,
+                int* prog,
                 int W, int T, int Mpad, int Np, int gop, int gep, int lgop,
                 int lgep, int llmt, int a_exgl, int a_exgr, int b_exgl,
                 const int* snap, int* bnd, unsigned char* flags, int* spj,
@@ -1409,16 +1606,27 @@ int launch_slab(const int* qprof, const int* gops, const int* joint,
   constexpr int MAXT = max_threads(MODE, DAGP);
   const int KL = k * L;
   const int P = (KL + MAXT - 1) / MAXT;      // lanes a thread
+  const int nthr = (KL + P - 1) / P;
   if (k < 1 || P > LANES_PER_THREAD || (P > 1 && k > 1) || A > 256
       || ncta < 1 || ncta > CLUSTER_MAX
-      || smem < 4 * slab_smem_ints(KL, A, MODE, DAGP))
+      || smem < 4 * (slab_smem_ints(KL, A, MODE, DAGP)
+                     + (loc_v ? (SLAB_EMIT_ROWS ? KL | 1 : EMIT_INTS) : 0))
+      || (loc_v && (nthr + 31) / 32 + k > EMIT_SLOTS))
     return (int)cudaErrorInvalidValue;
   const bool k6 = cip || local || loc_v;
-  auto kernel = slab_pick<MODE, DAGP, false>(P, ncta);
+  auto kernel = slab_pick<MODE, DAGP, K6_OFF>(P, ncta);
   if constexpr (MODE == MODE_SCORE) {
-    if (k6) return (int)cudaErrorInvalidValue;
-  } else if (k6) {
-    kernel = slab_pick<MODE, DAGP, true>(P, ncta);
+    if (k6 || slabs) return (int)cudaErrorInvalidValue;
+  } else if constexpr (MODE == MODE_TRACE) {
+    if (slabs && (k6 || nslab != 1 || ncta != 1))
+      return (int)cudaErrorInvalidValue;
+    if (slabs) kernel = pairs_pick<DAGP>(P);
+    if (loc_v) kernel = slab_pick<MODE, DAGP, K6_EMIT>(P, ncta);
+    else if (k6) kernel = slab_pick<MODE, DAGP, K6_MODES>(P, ncta);
+  } else {
+    if (slabs) return (int)cudaErrorInvalidValue;
+    if (loc_v) return (int)cudaErrorInvalidValue;
+    if (k6) kernel = slab_pick<MODE, DAGP, K6_MODES>(P, ncta);
   }
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -1428,7 +1636,7 @@ int launch_slab(const int* qprof, const int* gops, const int* joint,
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   cfg.gridDim = dim3(nb * ncta);
-  cfg.blockDim = dim3((KL + P - 1) / P);
+  cfg.blockDim = dim3(nthr);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   if (ncta > 1) {                   // the CTAs of a problem, together
@@ -1440,8 +1648,8 @@ int launch_slab(const int* qprof, const int* gops, const int* joint,
     cfg.numAttrs = 1;
   }
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, kernel, qprof, gops, joint, ipen, Ms, Ns, lws, sel, A, L, s0,
-      nslab, W, T, Mpad, Np, gop, gep, lgop, lgep, llmt, a_exgl, a_exgr,
+      &cfg, kernel, qprof, gops, joint, ipen, Ms, Ns, lws, sel, slabs, A, L,
+      s0, nslab, W, T, Mpad, Np, gop, gep, lgop, lgep, llmt, a_exgl, a_exgr,
       b_exgl, snap, bnd, flags, spj, row, rc, links, snaps, ncta, prog, cip,
       local, loc_v, loc_i);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
@@ -1457,7 +1665,8 @@ int launch_slab(const int* qprof, const int* gops, const int* joint,
 // S, k, smem, ncta, prog, W, T, Mpad, Np, gop, gep, lgop, lgep, llmt,
 // a_exgl, a_exgr, b_exgl); the retrace entries take (sel, nb, L, A, s0,
 // nslab, k, smem, ncta, prog, W, ...) in place of (B, L, A, S, k, smem,
-// ncta, prog, W, ...).  k (sub-slabs) and smem (bytes) come from
+// ncta, prog, W, ...), the retrace-pairs entries (sel, slabs, nb, L, A,
+// k, smem, ncta, prog, W, ...).  k (sub-slabs) and smem (bytes) come from
 // slab_geometry, ncta (CTAs per problem) from slab_ctas; prog is scratch
 // of nb * ceil(S / k) ints.  lgop/lgep are read by the DAGP
 // instantiations only.
@@ -1486,9 +1695,9 @@ int spliced_slab_trace(SLAB_ARGS, int B, int L, int A, int S, GEOM_ARGS,
                        int* row, int* rc, MODE_ARGS, int* loc_v, int* loc_i,
                        cudaStream_t stream) {
   return launch_slab<MODE_TRACE, false>(
-      qprof, gops, joint, ipen, Ms, Ns, lws, nullptr, B, L, A, 0, S, k, smem,
-      ncta, prog, PASS_SCORE, nullptr, bnd, flags, spj, row, rc, nullptr,
-      nullptr, cip, local, loc_v, loc_i, stream);
+      qprof, gops, joint, ipen, Ms, Ns, lws, nullptr, nullptr, B, L, A, 0, S,
+      k, smem, ncta, prog, PASS_SCORE, nullptr, bnd, flags, spj, row, rc,
+      nullptr, nullptr, cip, local, loc_v, loc_i, stream);
 }
 
 int spliced_slab_trace_dagp(SLAB_ARGS, int B, int L, int A, int S,
@@ -1497,9 +1706,9 @@ int spliced_slab_trace_dagp(SLAB_ARGS, int B, int L, int A, int S,
                             int* rc, MODE_ARGS, int* loc_v, int* loc_i,
                             cudaStream_t stream) {
   return launch_slab<MODE_TRACE, true>(
-      qprof, gops, joint, ipen, Ms, Ns, lws, nullptr, B, L, A, 0, S, k, smem,
-      ncta, prog, PASS_SCORE, nullptr, bnd, flags, spj, row, rc, nullptr,
-      nullptr, cip, local, loc_v, loc_i, stream);
+      qprof, gops, joint, ipen, Ms, Ns, lws, nullptr, nullptr, B, L, A, 0, S,
+      k, smem, ncta, prog, PASS_SCORE, nullptr, bnd, flags, spj, row, rc,
+      nullptr, nullptr, cip, local, loc_v, loc_i, stream);
 }
 
 int spliced_slab_retrace(SLAB_ARGS, const int* sel, int nb, int L, int A,
@@ -1507,9 +1716,9 @@ int spliced_slab_retrace(SLAB_ARGS, const int* sel, int nb, int L, int A,
                          const int* snap, int* bnd, unsigned char* flags,
                          int* spj, cudaStream_t stream) {
   return launch_slab<MODE_TRACE, false>(
-      qprof, gops, joint, ipen, Ms, Ns, lws, sel, nb, L, A, s0, nslab, k, smem,
-      ncta, prog, PASS_SCORE, snap, bnd, flags, spj, nullptr, nullptr, nullptr,
-      nullptr, nullptr, 0, nullptr, nullptr, stream);
+      qprof, gops, joint, ipen, Ms, Ns, lws, sel, nullptr, nb, L, A, s0, nslab,
+      k, smem, ncta, prog, PASS_SCORE, snap, bnd, flags, spj, nullptr, nullptr,
+      nullptr, nullptr, nullptr, 0, nullptr, nullptr, stream);
 }
 
 int spliced_slab_retrace_dagp(SLAB_ARGS, const int* sel, int nb, int L,
@@ -1518,18 +1727,62 @@ int spliced_slab_retrace_dagp(SLAB_ARGS, const int* sel, int nb, int L,
                               unsigned char* flags, int* spj,
                               cudaStream_t stream) {
   return launch_slab<MODE_TRACE, true>(
-      qprof, gops, joint, ipen, Ms, Ns, lws, sel, nb, L, A, s0, nslab, k, smem,
-      ncta, prog, PASS_SCORE, snap, bnd, flags, spj, nullptr, nullptr, nullptr,
-      nullptr, nullptr, 0, nullptr, nullptr, stream);
+      qprof, gops, joint, ipen, Ms, Ns, lws, sel, nullptr, nb, L, A, s0, nslab,
+      k, smem, ncta, prog, PASS_SCORE, snap, bnd, flags, spj, nullptr, nullptr,
+      nullptr, nullptr, nullptr, 0, nullptr, nullptr, stream);
+}
+
+// The retrace of (problem, slab) pairs: CTA j runs slab slabs[j] of
+// problem sel[j] alone (nslab = 1), from snap[:, j] (K4's snapshot of
+// that slab); flags (1, T, nb, L), spj (1, NS, T, nb, L).
+int spliced_slab_retrace_pairs(SLAB_ARGS, const int* sel, const int* slabs,
+                               int nb, int L, int A, GEOM_ARGS, SCORE_ARGS,
+                               const int* snap, int* bnd,
+                               unsigned char* flags, int* spj,
+                               cudaStream_t stream) {
+  return launch_slab<MODE_TRACE, false>(
+      qprof, gops, joint, ipen, Ms, Ns, lws, sel, slabs, nb, L, A, 0, 1, k,
+      smem, ncta, prog, PASS_SCORE, snap, bnd, flags, spj, nullptr, nullptr,
+      nullptr, nullptr, nullptr, 0, nullptr, nullptr, stream);
+}
+
+int spliced_slab_retrace_pairs_dagp(SLAB_ARGS, const int* sel,
+                                    const int* slabs, int nb, int L, int A,
+                                    GEOM_ARGS, SCORE_ARGS, const int* snap,
+                                    int* bnd, unsigned char* flags, int* spj,
+                                    cudaStream_t stream) {
+  return launch_slab<MODE_TRACE, true>(
+      qprof, gops, joint, ipen, Ms, Ns, lws, sel, slabs, nb, L, A, 0, 1, k,
+      smem, ncta, prog, PASS_SCORE, snap, bnd, flags, spj, nullptr, nullptr,
+      nullptr, nullptr, nullptr, 0, nullptr, nullptr, stream);
+}
+
+// CTAs of the retrace-pairs instance (a CTA a pair, P lanes a thread)
+// an SM holds at once with ``threads`` threads and ``smem``
+// bytes: cudaOccupancyMaxActiveBlocksPerMultiprocessor into *blocks.
+int spliced_retrace_pairs_occupancy(int dagp, int P, int threads, int smem,
+                                    int* blocks) {
+#if SLAB_ABLATE
+  return (int)cudaErrorNotSupported;       // the score mode alone
+#else
+  auto kernel = dagp ? pairs_pick<true>(P) : pairs_pick<false>(P);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                            threads, smem);
+#endif
 }
 
 int spliced_slab_links(SLAB_ARGS, int B, int L, int A, int S, GEOM_ARGS,
                        SCORE_ARGS, int* bnd, int* row, int* rc, int* links,
                        int* snaps, MODE_ARGS, cudaStream_t stream) {
   return launch_slab<MODE_LINKS, false>(
-      qprof, gops, joint, ipen, Ms, Ns, lws, nullptr, B, L, A, 0, S, k, smem,
-      ncta, prog, PASS_SCORE, nullptr, bnd, nullptr, nullptr, row, rc, links,
-      snaps, cip, local, nullptr, nullptr, stream);
+      qprof, gops, joint, ipen, Ms, Ns, lws, nullptr, nullptr, B, L, A, 0, S,
+      k, smem, ncta, prog, PASS_SCORE, nullptr, bnd, nullptr, nullptr, row, rc,
+      links, snaps, cip, local, nullptr, nullptr, stream);
 }
 
 int spliced_slab_links_dagp(SLAB_ARGS, int B, int L, int A, int S,
@@ -1537,9 +1790,9 @@ int spliced_slab_links_dagp(SLAB_ARGS, int B, int L, int A, int S,
                             int* rc, int* links, int* snaps, MODE_ARGS,
                             cudaStream_t stream) {
   return launch_slab<MODE_LINKS, true>(
-      qprof, gops, joint, ipen, Ms, Ns, lws, nullptr, B, L, A, 0, S, k, smem,
-      ncta, prog, PASS_SCORE, nullptr, bnd, nullptr, nullptr, row, rc, links,
-      snaps, cip, local, nullptr, nullptr, stream);
+      qprof, gops, joint, ipen, Ms, Ns, lws, nullptr, nullptr, B, L, A, 0, S,
+      k, smem, ncta, prog, PASS_SCORE, nullptr, bnd, nullptr, nullptr, row, rc,
+      links, snaps, cip, local, nullptr, nullptr, stream);
 }
 
 int spliced_slab_score(SLAB_ARGS, int B, int L, int A, int S, GEOM_ARGS,
@@ -1547,13 +1800,13 @@ int spliced_slab_score(SLAB_ARGS, int B, int L, int A, int S, GEOM_ARGS,
                        cudaStream_t stream) {
   if (dagp)
     return launch_slab<MODE_SCORE, true>(
-        qprof, gops, joint, ipen, Ms, Ns, lws, nullptr, B, L, A, 0, S, k, smem,
-        ncta, prog, PASS_SCORE, nullptr, bnd, nullptr, nullptr, row, rc,
-        nullptr, nullptr, nullptr, 0, nullptr, nullptr, stream);
+        qprof, gops, joint, ipen, Ms, Ns, lws, nullptr, nullptr, B, L, A, 0,
+        S, k, smem, ncta, prog, PASS_SCORE, nullptr, bnd, nullptr, nullptr,
+        row, rc, nullptr, nullptr, nullptr, 0, nullptr, nullptr, stream);
   return launch_slab<MODE_SCORE, false>(
-      qprof, gops, joint, ipen, Ms, Ns, lws, nullptr, B, L, A, 0, S, k, smem,
-      ncta, prog, PASS_SCORE, nullptr, bnd, nullptr, nullptr, row, rc, nullptr,
-      nullptr, nullptr, 0, nullptr, nullptr, stream);
+      qprof, gops, joint, ipen, Ms, Ns, lws, nullptr, nullptr, B, L, A, 0, S,
+      k, smem, ncta, prog, PASS_SCORE, nullptr, bnd, nullptr, nullptr, row, rc,
+      nullptr, nullptr, nullptr, 0, nullptr, nullptr, stream);
 }
 
 int spliced_last_ends(const int* row, const int* rc, const int* Ms,
@@ -1590,15 +1843,18 @@ int spliced_tb_walk(const unsigned char* flags, const int* spj,
                     int T, int IT, int NS, int* recs, int* stats,
                     cudaStream_t stream) {
   return tb_walk_entry(flags, spj, ends, nullptr, lws, B, B, L, S, T, IT, NS,
-                       0, recs, stats, stream);
+                       0, nullptr, recs, stats, stream);
 }
 
+// slab0 (B,): the first slab of each problem column's planes (the
+// retrace of pairs: its slab), or null for s0 in every column
 int spliced_tb_strips(const unsigned char* flags, const int* spj,
                       const int* starts, const int* lws, int nw, int B,
                       int L, int S, int T, int IT, int NS, int s0,
-                      int* recs, int* stats, cudaStream_t stream) {
+                      const int* slab0, int* recs, int* stats,
+                      cudaStream_t stream) {
   return tb_walk_entry(flags, spj, nullptr, starts, lws, nw, B, L, S, T, IT,
-                       NS, s0, recs, stats, stream);
+                       NS, s0, slab0, recs, stats, stream);
 }
 
 }  // extern "C"

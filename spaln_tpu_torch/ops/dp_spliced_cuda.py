@@ -1,4 +1,4 @@
-"""The device DP of one geometry bucket: eleven C entries over the CUDA
+"""The device DP of one geometry bucket: thirteen C entries over the CUDA
 kernels of csrc/spliced_dp.cu, their plain PyTorch versions, and
 run_bucket.
 
@@ -11,6 +11,11 @@ run_bucket.
                         from an entry boundary restored from K4's
                         snapshot (the _scan_slab(emit_trace=True) re-run
                         of dp_spliced_udh.py:_retrace, 157-201)
+  spliced_slab_retrace_pairs
+                        K1, retrace of (problem, slab) pairs: a CTA a
+                        pair, each slab from its own K4 snapshot, every
+                        pair of a bucket in one launch (the reference's
+                        per-slab re-run after a local or -yJ links pass)
   spliced_slab_links    K4: the UDH links forward, K1's recurrence with
                         a crossing link per value and no planes
                         (_make_kernel(emit_links=True),
@@ -22,7 +27,7 @@ run_bucket.
                         dp_spliced_pallas.py:991-1070); one entry for
                         both gap models
   *_dagp                K5, double-affine mode (-yl3, DpParams.dagp) of
-                        the three above: the long-gap states E2 and F2
+                        the four above: the long-gap states E2 and F2
                         (_make_kernel(dagp=True)), five junction planes,
                         a fifth link stream and a third boundary row
   spliced_last_ends     K2e: the lastS end extraction
@@ -34,7 +39,9 @@ run_bucket.
   spliced_tb_strips     K3, strip mode: the walks of every (slab, problem)
                         strip of one retrace launch's planes, each from
                         its start down to its slab's upper boundary
-                        (traceback_spliced_strip, dp_spliced_scan.py:1235)
+                        (traceback_spliced_strip, dp_spliced_scan.py:1235);
+                        after a retrace of pairs each planes column has
+                        its own slab
   spliced_ends_tb_walk  K2e as the prologue of K3's launch, the plane
                         path's (the fusion of _fused_call,
                         dp_spliced_pallas.py:1075-1178): the ends of a
@@ -94,6 +101,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 KERNELS = ("spliced_slab_trace", "spliced_slab_trace_dagp",
            "spliced_slab_retrace", "spliced_slab_retrace_dagp",
+           "spliced_slab_retrace_pairs", "spliced_slab_retrace_pairs_dagp",
            "spliced_slab_links", "spliced_slab_links_dagp",
            "spliced_slab_score", "spliced_last_ends", "spliced_tb_walk",
            "spliced_tb_strips", "spliced_ends_tb_walk")
@@ -107,6 +115,12 @@ UDH_PATH = ("spliced_slab_links", "spliced_last_ends",
             "spliced_slab_retrace", "spliced_tb_strips")
 UDH_PATH_DAGP = ("spliced_slab_links_dagp", "spliced_last_ends",
                  "spliced_slab_retrace_dagp", "spliced_tb_strips")
+# the UDH path after a local or -yJ links pass (K6): every slab retraced
+# from its own snapshot, the pairs of a sub-batch in one launch
+UDH_PATH_K6 = ("spliced_slab_links", "spliced_last_ends",
+               "spliced_slab_retrace_pairs", "spliced_tb_strips")
+UDH_PATH_K6_DAGP = ("spliced_slab_links_dagp", "spliced_last_ends",
+                    "spliced_slab_retrace_pairs_dagp", "spliced_tb_strips")
 SCORE_PATH = ("spliced_slab_score", "spliced_last_ends")
 launches = {k: 0 for k in KERNELS}
 plain_calls = {k: 0 for k in KERNELS}
@@ -178,15 +192,22 @@ def _library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     for name in ("spliced_slab_retrace", "spliced_slab_retrace_dagp"):
         getattr(lib, name).argtypes = ([P] * 8 + [I] * 8 + [P] + [I] * 12
                                        + [P] * 4 + [P])
+    # operands, sel, slabs, then nb, L, A, k, smem, ncta, prog, ...
+    for name in ("spliced_slab_retrace_pairs",
+                 "spliced_slab_retrace_pairs_dagp"):
+        getattr(lib, name).argtypes = ([P] * 9 + [I] * 6 + [P] + [I] * 12
+                                       + [P] * 4 + [P])
     for name in ("spliced_slab_links", "spliced_slab_links_dagp"):
         getattr(lib, name).argtypes = slab + [P] * 5 + [P, I] + [P]
     lib.spliced_slab_score.argtypes = slab + [I] + [P] * 3 + [P]
     lib.spliced_last_ends.argtypes = [P] * 5 + [I] * 10 + [P, P]
     lib.spliced_ends_tb_walk.argtypes = [P] * 7 + [I] * 15 + [P] * 3 + [P]
     lib.spliced_tb_walk.argtypes = [P] * 4 + [I] * 6 + [P, P, P]
-    lib.spliced_tb_strips.argtypes = [P] * 4 + [I] * 8 + [P, P, P]
+    lib.spliced_tb_strips.argtypes = [P] * 4 + [I] * 8 + [P] + [P, P, P]
     for name in KERNELS:
         getattr(lib, name).restype = I
+    lib.spliced_retrace_pairs_occupancy.argtypes = [I] * 4 + [P]
+    lib.spliced_retrace_pairs_occupancy.restype = I
     lib.spliced_error_string.argtypes = [I]
     lib.spliced_error_string.restype = ctypes.c_char_p
     lib.error_string = lib.spliced_error_string
@@ -268,29 +289,37 @@ SMEM_MAX = 232_448
 K_LANES = 128        # k sub-slabs at most as fit the thread budget at L=128
 CLUSTER_MAX = 8      # CTAs per problem at most (a portable cluster)
 LANES_PER_THREAD = 2     # lanes a thread carries at most (a wide slab)
+# K6's local emission: (warp, sub-slab) partials at most (warps plus
+# sub-slabs: 28 + 7 at 896 threads), two buffers of (value, lane)
+EMIT_SLOTS = 64
+EMIT_INTS = 4 * EMIT_SLOTS
 
 
-def slab_smem(mode: str, dagp: bool, KL: int, A: int) -> int:
+def slab_smem(mode: str, dagp: bool, KL: int, A: int,
+              emit: bool = False) -> int:
     """Dynamic shared memory (bytes) of one CTA of KL threads: joint rows
     and packed operands of k*L + 2*STAGE_C staged genome columns, two
     landing chunks of the raw operand rows, the H/F(/F2) rings (and their
-    links in links mode) and the substitution rows (csrc slab_smem_ints)."""
+    links in links mode) and the substitution rows (csrc slab_smem_ints),
+    and with ``emit`` (K6's local emission) EMIT_INTS ints of its
+    partials."""
     rings = 7 if dagp else 5                 # H x3, F x2 (, F2 x2)
     if mode == "links":
         rings *= 2
     return 4 * (19 * (KL + 2 * STAGE_C) + 12 * STAGE_C + rings * KL
-                + KL * A)
+                + KL * A + (EMIT_INTS if emit else 0))
 
 
 def slab_geometry(mode: str, dagp: bool, L: int, A: int,
-                  S: int) -> tuple[int, int, int]:
+                  S: int, emit: bool = False) -> tuple[int, int, int]:
     """(k, threads, smem bytes) of one launch of the slab kernel in
     ``mode`` ("trace", "links" or "score") over S slabs of L lanes and an
     alphabet of A: k slabs of a problem in flight per CTA, as many as the
     instance's thread budget holds at L = 128 (k * max(L, 128) <= its
-    threads), no more than S, and fewer where the shared memory would
-    pass the card's.  A slab of more lanes than the budget runs alone in
-    its CTA, each thread carrying P = ceil(L / budget) lanes (at most
+    threads), no more than S, and fewer where the shared memory (with
+    ``emit``, the local emission's partials too) would pass the card's.
+    A slab of more lanes than the budget runs alone in its CTA, each
+    thread carrying P = ceil(L / budget) lanes (at most
     LANES_PER_THREAD), so threads = ceil(k L / P).  Raises ValueError for
     what the kernel cannot take even one slab at a time."""
     maxt = SLAB_MAX_THREADS[mode, dagp]
@@ -301,9 +330,9 @@ def slab_geometry(mode: str, dagp: bool, L: int, A: int,
         raise ValueError(f"alphabet of {A}: residue codes are packed in a "
                          f"byte")
     k = max(1, min(maxt // max(L, K_LANES), S))
-    while k > 1 and slab_smem(mode, dagp, k * L, A) > SMEM_MAX:
+    while k > 1 and slab_smem(mode, dagp, k * L, A, emit) > SMEM_MAX:
         k -= 1
-    smem = slab_smem(mode, dagp, k * L, A)
+    smem = slab_smem(mode, dagp, k * L, A, emit)
     if smem > SMEM_MAX:
         raise ValueError(f"slab kernel needs {smem} B of shared memory "
                          f"(L={L}, A={A})")
@@ -368,7 +397,7 @@ def slab_serial_steps(T: int, L: int, k: int, nslab: int,
 
 
 def _slab_checks(bp: BatchProblem, prm: DpParams, mode: str,
-                 nslab: int) -> tuple[int, int] | None:
+                 nslab: int, emit: bool = False) -> tuple[int, int] | None:
     """What the slab kernel (every mode) does not take; for tensors on a
     CUDA device, the (k, smem) of slab_geometry for a launch over nslab
     slabs.  The local and -yJ modes run in trace and links mode only:
@@ -384,7 +413,7 @@ def _slab_checks(bp: BatchProblem, prm: DpParams, mode: str,
     if bp.device.type == "cpu":
         return None
     k, _, smem = slab_geometry(mode, prm.dagp, bp.L, bp.qprof.shape[2],
-                               nslab)
+                               nslab, emit)
     _operand_checks(bp)
     return k, smem
 
@@ -441,7 +470,7 @@ def spliced_slab_trace(bp: BatchProblem, prm: DpParams,
     lane that holds it, for collect_local_ends."""
     if emit_local and not bp.flags.local:
         raise ValueError("emit_local: the emission is the local mode's")
-    geom = _slab_checks(bp, prm, "trace", bp.S)
+    geom = _slab_checks(bp, prm, "trace", bp.S, emit_local)
     if bp.device.type == "cpu":
         return slab_trace_plain(bp, prm, emit_local)
     B, L, S, T = bp.B, bp.L, bp.S, bp.T
@@ -507,6 +536,64 @@ def spliced_slab_retrace(bp: BatchProblem, prm: DpParams, s0: int,
             *_dp_ints(bp, prm), _ptr(snap), _ptr(bnd), _ptr(flags),
             _ptr(spj))
     return flags, spj
+
+
+def spliced_slab_retrace_pairs(bp: BatchProblem, prm: DpParams,
+                               slabs: torch.Tensor, snap: torch.Tensor,
+                               sel: torch.Tensor):
+    """K1, retrace of (problem, slab) pairs: pair j is slab ``slabs[j]``
+    of problem ``sel[j]`` (P int32 each), run alone from its own entry
+    boundary ``snap[:, j]`` (snap (n_bounds, P, T+2) int32, K4's snapshot
+    of that slab), a CTA a pair.  Returns (flags (1, T, P, L), spj (1,
+    NS, T, P, L)): pair j's planes in column j, equal to
+    spliced_slab_retrace of that slab alone.  The reference re-runs
+    every slab from its own snapshot after a local or -yJ links pass
+    (spaln_tpu/ops/dp_spliced_udh.py:159-163); this runs every such slab
+    of a bucket in one launch, k = 1 (retrace_geometry of one slab) and
+    several CTAs to an SM.  Neither K6 mode is taken (see
+    spliced_slab_retrace)."""
+    if bp.flags.local or bp.cip is not None:
+        raise ValueError("the retrace runs neither the local mode nor the "
+                         "-yJ bonus: the reference's UDH retrace drops "
+                         "both (spaln_tpu/ops/dp_spliced_udh.py:159-163)")
+    _slab_checks(bp, prm, "trace", 1)
+    nb = int(sel.shape[0])
+    if bp.device.type == "cpu":
+        return slab_retrace_pairs_plain(bp, prm, slabs, snap, sel)
+    dev, L, T = bp.device, bp.L, bp.T
+    _check("sel", sel, I32, (nb,), dev)
+    _check("slabs", slabs, I32, (nb,), dev)
+    _check("snap", snap, I32, (n_bounds(prm), nb, T + 2), dev)
+    flags = torch.empty((1, T, nb, L), dtype=torch.uint8, device=dev)
+    spj = torch.empty((1, n_states(prm), T, nb, L), dtype=I32, device=dev)
+    if not nb:
+        return flags, spj
+    bnd = _scratch(bp, prm, nb)
+    k, _, smem = retrace_geometry(prm.dagp, L, bp.qprof.shape[2], 1, nb,
+                                  _n_sm(dev))
+    prog, gargs = _geom_args(bp, (k, smem), nb, 1)
+    _launch(entry("spliced_slab_retrace_pairs", prm), dev,
+            *_operand_ptrs(bp), _ptr(sel), _ptr(slabs), nb, L,
+            bp.qprof.shape[2], *gargs, *_dp_ints(bp, prm), _ptr(snap),
+            _ptr(bnd), _ptr(flags), _ptr(spj))
+    return flags, spj
+
+
+def retrace_pairs_occupancy(dagp: bool, L: int, A: int,
+                            device: torch.device) -> tuple[int, int, int]:
+    """(CTAs an SM holds at once, threads, smem bytes) of a retrace of
+    pairs over L lanes and an alphabet of A on ``device`` (double affine
+    under ``dagp``), from cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    _, threads, smem = retrace_geometry(dagp, L, A, 1, 1, 1)
+    lib = _library()
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.spliced_retrace_pairs_occupancy(
+            int(dagp), -(-L // threads), threads, smem, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"spliced_retrace_pairs_occupancy: CUDA error "
+                           f"{rc}: {lib.error_string(rc).decode()}")
+    return out.value, threads, smem
 
 
 # ------------------------------------------------------------------- K4
@@ -962,12 +1049,7 @@ def _slab_plain(bp: BatchProblem, prm: DpParams, mode: str = "trace",
                     fl8 = fl8 | (reset.to(I32) << 7)
                 flags[ls, t] = torch.where(active, fl8, 255).to(torch.uint8)
                 if emit_local:
-                    # the first lane of the best value (jnp.argmax's rule,
-                    # written out: torch leaves the tie order open)
-                    best = h_out.max(dim=1).values
-                    loc_v[ls, t] = best
-                    loc_i[ls, t] = torch.where(h_out == best[:, None], lanes,
-                                               L).min(dim=1).values
+                    loc_v[ls, t], loc_i[ls, t] = local_emission_plain(h_out)
         # ---- H(M, n), H(m, N) and the boundary rows for the next slab
         if links:
             lk_out[s, 3] = torch.where(rcl_ok, lk_out[s, 3], 0)
@@ -987,6 +1069,67 @@ def _slab_plain(bp: BatchProblem, prm: DpParams, mode: str = "trace",
             return flags, spj, row, rc, loc_v, loc_i
         return flags, spj, row, rc
     return row, rc
+
+
+def local_emission_plain(h: torch.Tensor) -> tuple:
+    """K6's local emission of one step, plain: the best committed H over
+    the last axis (a slab's lanes) and the first lane that holds it
+    (jnp.argmax's rule, written out: torch leaves the tie order open)."""
+    best = h.max(dim=-1).values
+    lanes = torch.arange(h.shape[-1], device=h.device, dtype=I32)
+    return best, torch.where(h == best[..., None], lanes,
+                             h.shape[-1]).min(dim=-1).values
+
+
+def emission_partials(h: np.ndarray, L: int, k: int, P: int, tau: int,
+                      T: int, slabs: int) -> tuple:
+    """The slab kernel's two-level reduction of K6's local emission at
+    global step tau, modelled thread by thread: ``h`` (k*L,) the
+    committed H of the round's lanes there (NEV where a cell was
+    inactive, as the ring holds it), k sub-slabs of L lanes, P lanes a
+    thread (thread g runs lanes g + p * nthr), T steps a slab and
+    ``slabs`` of the round's sub-slabs in use.  Each warp reduces its
+    lanes of each sub-slab j that steps there (t = tau - 2 j L in [0, T))
+    to a (best, first lane) partial in slot warp + j: at P = 1 the lowest
+    of the group's threads that holds the best (its threads hold
+    consecutive lanes), at P = 2 each thread's two lanes first (the later
+    only if strictly better), then the lowest lane among those holding
+    the best.  Then sub-slab j's partials, warp by warp, are merged by
+    (value descending, lane ascending).  Returns ({j: (best, first
+    lane)}, {slot: (warp, j)} of the partials written); raises
+    AssertionError where two partials would share a slot."""
+    KL = k * L
+    nthr = -(-KL // P)
+    if P > 1 and k > 1:
+        raise ValueError("two lanes a thread run one sub-slab (k = 1)")
+    steps = {j for j in range(min(k, slabs)) if 0 <= tau - 2 * j * L < T}
+    part, slots = {}, {}
+    for w0 in range(0, nthr, 32):
+        warp = w0 // 32
+        groups: dict = {}
+        for g in range(w0, min(w0 + 32, nthr)):
+            bv, bi = int(h[g]), g % L
+            for p in range(1, P):
+                v = g + p * nthr
+                if v < KL and h[v] > bv:
+                    bv, bi = int(h[v]), v % L
+            groups.setdefault(g // L, []).append((bv, bi))
+        for j, grp in groups.items():
+            if j not in steps:
+                continue
+            best = max(bv for bv, _ in grp)
+            first = min(bi for bv, bi in grp if bv == best)
+            if warp + j in slots:
+                raise AssertionError(f"slot {warp + j}: {slots[warp + j]} "
+                                     f"and {(warp, j)}")
+            slots[warp + j] = (warp, j)
+            part[warp + j] = (best, first)
+    out = {}
+    for j in sorted(steps):
+        ws = (range((j * L) >> 5, ((j * L + L - 1) >> 5) + 1) if P == 1
+              else range(-(-nthr // 32)))
+        out[j] = min((part[w + j] for w in ws), key=lambda x: (-x[0], x[1]))
+    return out, slots
 
 
 # ------------------------------------------------------------------ K2e
@@ -1156,23 +1299,25 @@ def spliced_tb_walk(bp: BatchProblem, flags: torch.Tensor,
 
 
 def spliced_tb_strips(flags: torch.Tensor, spj: torch.Tensor,
-                      starts: torch.Tensor, lws: torch.Tensor, s0: int,
-                      IT: int, stats: torch.Tensor | None = None
-                      ) -> torch.Tensor:
+                      starts: torch.Tensor, lws: torch.Tensor,
+                      s0: int | torch.Tensor, IT: int,
+                      stats: torch.Tensor | None = None) -> torch.Tensor:
     """K3, strip mode: every strip of one retrace launch in one launch.
     ``flags`` (S', T, B', L) and ``spj`` are the planes of slabs s0.. of
-    B' problems; ``starts`` (nw, 5) int32 = (m, n, state, m_stop, b), one
-    walk per row, from cell (m, n) in ``state`` down to row m_stop
-    (exclusive) through the planes of problem column b; ``lws`` (B',)
-    are the problems' band placements.  Records as K3's, (IT, nw, 4);
-    ``stats`` (nw, 2), if given, as K3's."""
+    B' problems, or, with ``s0`` a (B',) int32 tensor (a retrace of
+    pairs), column b's of slabs s0[b]..; ``starts`` (nw, 5) int32 = (m,
+    n, state, m_stop, b), one walk per row, from cell (m, n) in
+    ``state`` down to row m_stop (exclusive) through the planes of
+    problem column b; ``lws`` (B',) are the problems' band placements.
+    Records as K3's, (IT, nw, 4); ``stats`` (nw, 2), if given, as
+    K3's."""
     S, T, B, L = flags.shape
     if flags.device.type == "cpu":
         recs = tb_strips_plain(flags, spj, starts, lws, s0, IT)
         if stats is not None:
             col = starts[:, 4].long()
-            stats.copy_(walk_stats(recs, flags, lws[col], s0, starts[:, 2],
-                                   col))
+            stats.copy_(walk_stats(recs, flags, lws[col],
+                                   _walk_slab0(s0, col), starts[:, 2], col))
         return recs
     dev = flags.device
     NS = _walk_states(spj)
@@ -1181,14 +1326,25 @@ def spliced_tb_strips(flags: torch.Tensor, spj: torch.Tensor,
     _check("spj", spj, I32, (S, NS, T, B, L), dev)
     _check("starts", starts, I32, (nw, 5), dev)
     _check("lws", lws, I32, (B,), dev)
+    slab0 = None
+    if isinstance(s0, torch.Tensor):
+        _check("s0", s0, I32, (B,), dev)
+        slab0, s0 = s0, 0
     out = _walk_out("out", None, (IT, nw, 4), dev)
     if stats is not None:
         _check("stats", stats, I32, (nw, 2), dev)
     if nw:
         _launch("spliced_tb_strips", dev, _ptr(flags), _ptr(spj),
                 _ptr(starts), _ptr(lws), nw, B, L, S, T, IT, NS, s0,
-                _ptr(out), None if stats is None else _ptr(stats))
+                None if slab0 is None else _ptr(slab0), _ptr(out),
+                None if stats is None else _ptr(stats))
     return out
+
+
+def _walk_slab0(s0, col: torch.Tensor):
+    """The first slab of each walk's planes: s0, or s0[col] of a (B',)
+    tensor (a retrace of pairs)."""
+    return s0[col].long() if isinstance(s0, torch.Tensor) else s0
 
 
 def spliced_ends_tb_walk(bp: BatchProblem, prm: DpParams,
@@ -1233,11 +1389,11 @@ def ends_tb_walk_plain(bp: BatchProblem, prm: DpParams, flags, spj, row,
     return se, tb_walk_plain(bp, flags, spj, se)
 
 
-def tb_walk_tiles(recs, flags, lw, s0: int = 0, st0=None, col=None
-                  ) -> list:
+def tb_walk_tiles(recs, flags, lw, s0=0, st0=None, col=None) -> list:
     """The bands K3's kernel stages, walk by walk, from the walks' records
     (IT, nw, 4) over planes whose flags are ``flags`` (S, T, B, L) (slabs
-    s0..), band placements lw (nw,), start states st0 (nw,) (default 0)
+    s0.., or a walk's own s0[w] where s0 is a tensor (nw,)), band
+    placements lw (nw,), start states st0 (nw,) (default 0)
     and problem columns col (nw,) (default the walk's index): for each
     walk a list of (step, band), band = (s, i, t, di, dt, n) the cells
     (i - di k, t - dt k), k < n, of slab s (relative to s0), loaded at
@@ -1257,6 +1413,8 @@ def tb_walk_tiles(recs, flags, lw, s0: int = 0, st0=None, col=None
            else torch.as_tensor(col).cpu().numpy().astype(np.int64))
     m = recs[:, :, 1].astype(np.int64)
     n = recs[:, :, 2].astype(np.int64)
+    if isinstance(s0, torch.Tensor):
+        s0 = s0.cpu().numpy().astype(np.int64)
     s = (m - 1) // L - s0
     i = (m - 1) % L
     t = n - m - lw[None, :] - 1 + 2 * i
@@ -1309,8 +1467,7 @@ def on_band(band, s: int, i: int, t: int) -> bool:
             and t == bt - dt * k)
 
 
-def walk_stats(recs, flags, lw, s0: int = 0, st0=None, col=None
-               ) -> torch.Tensor:
+def walk_stats(recs, flags, lw, s0=0, st0=None, col=None) -> torch.Tensor:
     """(nw, 2) int32 (steps, tile loads) of K3's walks from their records
     (the arguments of tb_walk_tiles): what the kernel writes to
     ``stats``."""
@@ -1328,20 +1485,22 @@ def tb_walk_plain(bp: BatchProblem, flags: torch.Tensor, spj: torch.Tensor,
                        bp.L, 0, bp.IT)
 
 
-def tb_strips_plain(flags, spj, starts, lws, s0: int, IT: int):
-    """Plain version of K3's strip mode."""
+def tb_strips_plain(flags, spj, starts, lws, s0, IT: int):
+    """Plain version of K3's strip mode (``s0`` an int, or a (B',) tensor
+    of each column's first slab)."""
     plain_calls["spliced_tb_strips"] += 1
     col = starts[:, 4].long()
     return _walk_plain(flags, spj, lws[col], starts[:, 0], starts[:, 1],
-                       starts[:, 2], starts[:, 3], flags.shape[3], s0, IT,
-                       col)
+                       starts[:, 2], starts[:, 3], flags.shape[3],
+                       _walk_slab0(s0, col), IT, col)
 
 
-def _walk_plain(flags, spj, lw, m, n, st, m_stop, L: int, s0: int,
-                IT: int, col: torch.Tensor | None = None) -> torch.Tensor:
+def _walk_plain(flags, spj, lw, m, n, st, m_stop, L: int, s0, IT: int,
+                col: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of K3 (_tb_walker) in both modes: a loop over the
     walk's steps, vectorized over the walks; walk w reads the planes of
-    problem column col[w] (default w)."""
+    problem column col[w] (default w), whose first slab is s0 (an int,
+    or one a walk)."""
     S, T, B, _ = flags.shape
     NS = _walk_states(spj)
     dev = flags.device
@@ -1436,6 +1595,26 @@ def slab_retrace_plain(bp: BatchProblem, prm: DpParams, s0: int,
     fl, spj, _, _ = _slab_plain(_select(bp, sel), prm, s0=s0, nslab=nslab,
                                 snap=snap)
     return fl, spj
+
+
+def slab_retrace_pairs_plain(bp: BatchProblem, prm: DpParams,
+                             slabs: torch.Tensor, snap: torch.Tensor,
+                             sel: torch.Tensor):
+    """Plain version of the retrace of pairs (and of its double-affine
+    mode): the pairs of each slab retraced together from their
+    snapshots, each into its own column."""
+    plain_calls[entry("spliced_slab_retrace_pairs", prm)] += 1
+    nb, dev = int(sel.shape[0]), bp.device
+    flags = torch.empty((1, bp.T, nb, bp.L), dtype=torch.uint8, device=dev)
+    spj = torch.empty((1, n_states(prm), bp.T, nb, bp.L), dtype=I32,
+                      device=dev)
+    for s in sorted(set(slabs.tolist())):
+        cols = torch.nonzero(slabs == s).flatten().to(dev)
+        fl, sp, _, _ = _slab_plain(_select(bp, sel[cols]), prm, s0=s,
+                                   nslab=1, snap=snap[:, cols])
+        flags[:, :, cols] = fl
+        spj[:, :, :, cols] = sp
+    return flags, spj
 
 
 # ----------------------------------------------------------- one bucket

@@ -29,10 +29,13 @@ boundaries (every L-th query row) are the intermediate rows:
    full-plane walk.
 
 The local mode and the -yJ bonus (K6) run in the links pass only: the
-reference's retrace re-runs its slabs without them
-(spaln_tpu/ops/dp_spliced_udh.py:159-163), so its op streams can differ
-from its plane path's there, and the port's equal its own (ROADMAP.md
-Queue 3).
+reference's retrace re-runs its slabs without them, each slab from its
+own snapshot (spaln_tpu/ops/dp_spliced_udh.py:159-163), so its op
+streams can differ from its plane path's there, and the port's equal its
+own (ROADMAP.md Queue 3).  The port retraces every (problem, slab) pair
+of such a bucket in one launch within the plane budget (pair_launches,
+spliced_slab_retrace_pairs: a CTA a pair), and walks their strips in
+one launch, each in its own slab's planes.
 """
 from __future__ import annotations
 
@@ -46,7 +49,8 @@ from .dp_spliced import (BatchProblem, LK_BND_F, LK_BND_F2, LK_BND_H, LK_RC,
                          plane_bytes_per_cell, strip_walk_bound,
                          unpack_link)
 from .dp_spliced_cuda import (spliced_last_ends, spliced_slab_links,
-                              spliced_slab_retrace, spliced_tb_strips)
+                              spliced_slab_retrace,
+                              spliced_slab_retrace_pairs, spliced_tb_strips)
 from .params import DpParams
 from ..utils.metrics import metrics
 
@@ -170,26 +174,25 @@ def retrace_launches(runs: list, max_ps: int) -> list:
     return out
 
 
-def slab_launches(runs: list, max_ps: int) -> list:
+def pair_launches(runs: list, max_ps: int) -> list:
     """The retrace's launches over ``runs`` [(problem, first slab, end
-    slab)] one slab at a time: for each slab, the problems whose runs
-    hold it, at most ``max_ps`` a launch, each from K4's snapshot of that
-    slab."""
-    out = []
-    for s in sorted({s for _, a, b in runs for s in range(a, b + 1)}):
-        members = [i for i, a, b in runs if a <= s <= b]
-        for c in range(0, len(members), max_ps):
-            out.append((s, 1, members[c:c + max_ps]))
-    return out
+    slab)] where every slab runs from its own snapshot: each launch a
+    list of (problem, slab) pairs, every pair of every run once, in the
+    runs' order, at most ``max_ps`` a launch (the plane budget's
+    problem-slabs), so as few launches as the budget allows."""
+    pairs = [(i, s) for i, a, b in runs for s in range(a, b + 1)]
+    return [pairs[c:c + max_ps] for c in range(0, len(pairs), max_ps)]
 
 
 def _retrace(bp: BatchProblem, prm: DpParams, snaps: torch.Tensor,
              cr: np.ndarray, se: np.ndarray, plane_budget: int) -> list:
     """_retrace (spaln_tpu dp_spliced_udh.py:151): re-run each path's
     slab run with planes in launches of whole runs within
-    ``plane_budget`` (retrace_launches), walk every strip of a launch in
-    one launch on the device, copy every strip back at once and stitch
-    the strips."""
+    ``plane_budget`` (retrace_launches), or after a local or -yJ links
+    pass each of its slabs alone, every (problem, slab) pair of a
+    sub-batch in one launch (pair_launches); walk every strip of a
+    launch in one launch on the device, copy every strip back at once and
+    stitch the strips."""
     B, L, W, T = bp.B, bp.L, bp.W, bp.T
     dev = bp.device
     # the reference's retrace builds its slab runner with neither local
@@ -198,7 +201,7 @@ def _retrace(bp: BatchProblem, prm: DpParams, snaps: torch.Tensor,
     # port does the same (ROADMAP.md Queue 3, "the UDH retrace drops
     # local and cip").  A run retraced from its first slab's snapshot
     # computes the later slabs' entry rows without them, so there every
-    # slab is retraced alone.
+    # slab is retraced alone, a CTA a (problem, slab) pair.
     alone = bp.flags.local or bp.cip is not None
     bp = dataclasses.replace(
         bp, flags=dataclasses.replace(bp.flags, local=False), cip=None)
@@ -217,32 +220,53 @@ def _retrace(bp: BatchProblem, prm: DpParams, snaps: torch.Tensor,
             s0 -= 1
         runs.append((i, s0, sf))
     first = {i: s0 for i, s0, _ in runs}
+
+    def start(i, s, j):
+        # a path leaves slab s+1 upward by a vertical move, so the strip
+        # starts here in the crossing's state: 0 (H), 2 (F) or 4 (F2)
+        # (dp_spliced_scan.py:1240-1243)
+        bm, bn = int(se[i, 1]), int(se[i, 2])
+        if s == (bm - 1) // L:
+            return bm, bn, 0, s * L, j
+        return ((s + 1) * L, int(cr[i, s + 1, 0]), int(cr[i, s + 1, 1]),
+                s * L, j)
+
     pending = []
-    launches = (slab_launches(runs, max_ps) if alone
-                else retrace_launches(runs, max_ps))
-    for a, nslab, members in launches:
-        sel = torch.tensor(members, dtype=I32, device=dev)
-        idx = sel.long()
-        snap = snaps[a].index_select(1, idx).contiguous()
-        fl, spj = spliced_slab_retrace(bp, prm, a, nslab, snap, sel)
-        metrics.bump("udh_retrace_cells", len(members) * nslab * L * W)
-        starts, keys = [], []
-        for j, i in enumerate(members):
-            bm, bn = int(se[i, 1]), int(se[i, 2])
-            sf = (bm - 1) // L
-            for s in range(max(a, first[i]), min(a + nslab, sf + 1)):
-                # a path leaves slab s+1 upward by a vertical move, so the
-                # strip starts here in the crossing's state: 0 (H), 2 (F)
-                # or 4 (F2) (dp_spliced_scan.py:1240-1243)
-                starts.append((bm, bn, 0, s * L, j) if s == sf else
-                              ((s + 1) * L, int(cr[i, s + 1, 0]),
-                               int(cr[i, s + 1, 1]), s * L, j))
-                keys.append((i, s))
-        recs = spliced_tb_strips(fl, spj, torch.tensor(starts, dtype=I32,
-                                                       device=dev),
-                                 bp.lws_t.index_select(0, idx), a, IT)
-        del fl, spj
-        pending.append((recs, (recs[:, :, 1] != 0).sum(0).max(), keys))
+    if alone:
+        launches = pair_launches(runs, max_ps)
+        if len(launches) > 1:     # past one a bucket: the budget's splits
+            metrics.bump("udh_retrace_splits", len(launches) - 1)
+        for pairs in launches:
+            ids = torch.tensor(pairs, dtype=I32, device=dev).T.contiguous()
+            sel, slabs = ids[0], ids[1]
+            snap = snaps[slabs.long(), :, sel.long()].transpose(0, 1)
+            fl, spj = spliced_slab_retrace_pairs(bp, prm, slabs,
+                                                 snap.contiguous(), sel)
+            metrics.bump("udh_retrace_cells", len(pairs) * L * W)
+            starts = [start(i, s, j) for j, (i, s) in enumerate(pairs)]
+            recs = spliced_tb_strips(
+                fl, spj, torch.tensor(starts, dtype=I32, device=dev),
+                bp.lws_t.index_select(0, sel.long()), slabs, IT)
+            del fl, spj
+            pending.append((recs, (recs[:, :, 1] != 0).sum(0).max(), pairs))
+    else:
+        for a, nslab, members in retrace_launches(runs, max_ps):
+            sel = torch.tensor(members, dtype=I32, device=dev)
+            idx = sel.long()
+            snap = snaps[a].index_select(1, idx).contiguous()
+            fl, spj = spliced_slab_retrace(bp, prm, a, nslab, snap, sel)
+            metrics.bump("udh_retrace_cells", len(members) * nslab * L * W)
+            starts, keys = [], []
+            for j, i in enumerate(members):
+                sf = (int(se[i, 1]) - 1) // L
+                for s in range(max(a, first[i]), min(a + nslab, sf + 1)):
+                    starts.append(start(i, s, j))
+                    keys.append((i, s))
+            recs = spliced_tb_strips(
+                fl, spj, torch.tensor(starts, dtype=I32, device=dev),
+                bp.lws_t.index_select(0, idx), a, IT)
+            del fl, spj
+            pending.append((recs, (recs[:, :, 1] != 0).sum(0).max(), keys))
     strips: list[dict[int, list]] = [dict() for _ in range(B)]
     if pending:
         # walks are short next to the bound: copy back their steps only

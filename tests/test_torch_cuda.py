@@ -7,8 +7,10 @@ and double affine and score-only, and run_bucket, the UDH path (its
 retrace at several plane budgets), `map --lanes 1024` and the protein
 search on the card equal to the CPU run; K6, the local and -yJ modes of
 K1 (with the local emission) and K4, at the same sizes, on 19 slabs and
-at two lanes a thread, and the local protein search on the card equal
-to the CPU run; the tron kernels K7 and K8 at
+at two lanes a thread, the retrace of (problem, slab) pairs and the
+strips with a slab a walk after a K6 links pass, the UDH path in K6's
+modes and the local protein search on the card equal to the CPU run;
+the tron kernels K7 and K8 at
 the rule's geometry and forced ones (1-11 slabs, 9-1,024 lanes) and the
 protein map; the step probes at 4-32 warps, the slab kernel's "none"
 knock-out build against the production one, and the production
@@ -669,6 +671,120 @@ def test_k6_wide_lanes_equal_plain_on_card(cuda, setup, dagp, L):
     _k6_check(_k6(bp, True, True), p, True)
 
 
+@pytest.mark.parametrize("dagp", [False, True])
+@pytest.mark.parametrize("B,M,ilen,L,lws", GEOMS)
+def test_k6_retrace_pairs_equal_plain_on_card(cuda, setup, B, M, ilen, L,
+                                              lws, dagp):
+    """The retrace of (problem, slab) pairs: every pair of the bucket in
+    one launch, in a shuffled order, from K4's snapshots of a local links
+    pass with the -yJ bonus, equal to its plain version on the card, to
+    the one-slab retrace of each slab and to K1's planes; K3's strip mode
+    over its planes with a slab a walk equal to its plain version, and
+    its steps and tile loads to the model's."""
+    cfg, prm, tables = setup
+    p = _dagp(prm) if dagp else prm
+    qs, gs, ss = _problems(cfg, tables, B, M, ilen, seed=B + L + 9)
+    band = dict(lws=lws, W=256) if lws else {}
+    bp = dp.prepare_spliced_batch(qs, gs, p, sigs=ss, L=L, device=cuda,
+                                  **band)
+    snaps = K.spliced_slab_links(_k6(bp, True, True), p)[1]
+    flags, spj, _, _ = K.spliced_slab_trace(bp, p)
+    rng = np.random.default_rng(B + L)
+    pairs = [(b, s) for b in range(B) for s in range(bp.S)]
+    pairs = [pairs[i] for i in rng.permutation(len(pairs))]
+    ids = torch.tensor(pairs, dtype=torch.int32, device=cuda).T
+    sel, slabs = ids[0].contiguous(), ids[1].contiguous()
+    snap = snaps[slabs.long(), :, sel.long()].transpose(0, 1).contiguous()
+    name = K.entry("spliced_slab_retrace_pairs", p)
+    before = K.launches[name]
+    fl, sp = K.spliced_slab_retrace_pairs(bp, p, slabs, snap, sel)
+    assert K.launches[name] == before + 1
+    pl = K.slab_retrace_pairs_plain(bp, p, slabs, snap, sel)
+    assert torch.equal(fl, pl[0]) and torch.equal(sp, pl[1])
+    k4 = K.spliced_slab_links(bp, p)[1]         # K6 off: K1's boundaries
+    for j, (b, s) in enumerate(pairs):
+        one = K.spliced_slab_retrace(bp, p, s, 1,
+                                     snap[:, j:j + 1].contiguous(),
+                                     sel[j:j + 1].contiguous())
+        assert torch.equal(fl[:, :, j:j + 1], one[0])
+        assert torch.equal(sp[:, :, :, j:j + 1], one[1])
+        if torch.equal(snaps[s, :, b], k4[s, :, b]):
+            assert torch.equal(fl[0, :, j], flags[s, :, b])
+    starts = []
+    for j, (b, s) in enumerate(pairs):
+        top = min((s + 1) * L, bp.Ms[b])
+        starts.append([top, top + bp.lws[b] + bp.W // 2,
+                       (0, 2, 4)[j % (3 if dagp else 2)], s * L, j])
+    starts = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    lws_sel = bp.lws_t.index_select(0, sel.long())
+    IT = dp.strip_walk_bound(L, bp.W)
+    st = torch.empty((len(pairs), 2), dtype=torch.int32, device=cuda)
+    r = K.spliced_tb_strips(fl, sp, starts, lws_sel, slabs, IT, stats=st)
+    assert torch.equal(r, K.tb_strips_plain(fl, sp, starts, lws_sel, slabs,
+                                            IT))
+    col = starts[:, 4].long()
+    assert torch.equal(st.cpu(), K.walk_stats(r, fl, lws_sel[col],
+                                              slabs[col], starts[:, 2], col))
+    assert (r[:, :, 0] != 0).any()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("local,cips,dagp", [(True, False, False),
+                                             (False, True, False),
+                                             (True, True, True)])
+def test_k6_udh_on_card_equals_cpu(cuda, setup, local, cips, dagp):
+    """The UDH path after a local and/or -yJ links pass on the card and on
+    the CPU: one retrace-of-pairs launch and one strip launch on the
+    card, never the one-slab retrace; the same scores, ends and op
+    streams."""
+    from spaln_tpu_torch.ops.dp_spliced_udh import run_spliced_batch_udh
+    cfg, prm, tables = setup
+    p = _dagp(prm) if dagp else prm
+    qs, gs, ss = _problems(cfg, tables, 5, 150, 200, seed=13)
+    res, n = {}, {}
+    for dev in (cuda, "cpu"):
+        bp = dp.prepare_spliced_batch(qs, gs, p, sigs=ss, L=32, device=dev)
+        bp = _k6(bp, cips, local)
+        before = dict(K.launches)
+        res[dev] = run_spliced_batch_udh(bp, p)
+        n = n or {k: K.launches[k] - before[k] for k in K.KERNELS}
+    np.testing.assert_array_equal(res[cuda][0], res["cpu"][0])
+    np.testing.assert_array_equal(res[cuda][1], res["cpu"][1])
+    assert res[cuda][2] == res["cpu"][2]
+    d = "_dagp" if dagp else ""
+    assert n["spliced_slab_retrace_pairs" + d] == n["spliced_tb_strips"] == 1
+    assert n["spliced_slab_retrace" + d] == 0
+    assert n["spliced_slab_links" + d] == 1
+
+
+@pytest.mark.parametrize("dagp,L", [(False, 48), (True, 16),
+                                    (False, 1000)])
+def test_emission_rows_build_equals_registers_on_card(cuda, setup, dagp,
+                                                      L):
+    """The timing build of the local emission's store-and-scan form
+    (-DSLAB_EMIT_ROWS=1, chip_smoke.py --emission-timing) gives the
+    production build's outputs, the reduction from registers, on local
+    buckets with the bonus: warps straddling sub-slabs (L = 48, 16 on 19
+    slabs) and two lanes a thread (L = 1000)."""
+    import chip_smoke
+    cfg, prm, tables = setup
+    p = _dagp(prm) if dagp else prm
+    if L == 1000:
+        qs, gs, ss = _problems(cfg, tables, 2, [L + 120, L + 60], 70,
+                               seed=L)
+        band = dict(lws=[-20, -24], W=48)
+    else:
+        qs, gs, ss = _problems(cfg, tables, 3, [300, 170, 260], 70, seed=L)
+        band = dict(lws=[-20, -28, -24], W=128)
+    bp = _k6(dp.prepare_spliced_batch(qs, gs, p, sigs=ss, L=L, device=cuda,
+                                      **band), True, True)
+    want = K.spliced_slab_trace(bp, p, emit_local=True)
+    with chip_smoke._emit_rows_build(K):
+        got = K.spliced_slab_trace(bp, p, emit_local=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    torch.cuda.synchronize()
+
+
 def test_local_search_on_card_equals_cpu(cuda):
     """search_protein_local on the card (K1 in local mode with the
     emission, B = 64 and 6 entries, L = 64 and 32) gives the CPU run's
@@ -964,13 +1080,17 @@ def test_knockout_none_build_equals_production(cuda):
 
 # (registers a thread, spill stores, spill loads) of every instance of the
 # production spliced_dp.cu, from nvcc 12.8's -Xptxas -v on the card:
-# slab_kernel<MODE, DAGP, MULTI, MAXT, P, K6>, read off the card when K6's
-# instances (the local and -yJ modes, K6 = 1) were added; the K6 = 0
-# instances are the code the main path ran before them (their registers
-# as before but for 3 more in <2,1,0,512,1,0> and 1 fewer in
-# <1,0,0,512,2,0>); tb_walk_kernel's as the warp-a-walk band walk has
-# them; K2e's last_ends_kernel and the fused ends_tb_walk_kernel as the
-# warp-shuffle end reduction has them
+# slab_kernel<MODE, DAGP, MULTI, MAXT, P, K6>, K6 = 0 off (the main
+# path), 1 the local and -yJ modes, 2 those with the local emission
+# (trace mode), 3 the retrace of (problem, slab) pairs (trace mode, no
+# cluster).  Read off the card when the emission got instances of its
+# own and the pairs theirs: every K6 = 0 instance, the links and score
+# modes' and the walks' as before; the K6 = 1 trace instances without
+# the emission's code (fewer registers or spills than before); the
+# K6 = 2 instances as the emission's reduction from registers has them;
+# tb_walk_kernel's as the warp-a-walk band walk has them; K2e's
+# last_ends_kernel and the fused ends_tb_walk_kernel as the warp-shuffle
+# end reduction has them
 SLAB_PTXAS = {
     "slab_kernel<2,0,0,1024,2,0>": (64, 88, 116),
     "slab_kernel<2,0,1,1024,2,0>": (64, 100, 124),
@@ -996,18 +1116,30 @@ SLAB_PTXAS = {
     "slab_kernel<1,0,1,512,2,0>": (128, 0, 0),
     "slab_kernel<1,0,0,512,1,0>": (108, 0, 0),
     "slab_kernel<1,0,1,512,1,0>": (116, 0, 0),
-    "slab_kernel<0,1,0,640,2,1>": (96, 64, 104),
-    "slab_kernel<0,1,1,640,2,1>": (96, 76, 100),
-    "slab_kernel<0,1,0,640,1,1>": (93, 0, 0),
-    "slab_kernel<0,1,1,640,1,1>": (96, 0, 0),
+    "slab_kernel<0,1,0,640,2,1>": (96, 32, 36),
+    "slab_kernel<0,1,0,640,2,2>": (96, 68, 112),
+    "slab_kernel<0,1,0,640,2,3>": (96, 28, 36),
+    "slab_kernel<0,1,1,640,2,1>": (96, 60, 80),
+    "slab_kernel<0,1,1,640,2,2>": (96, 76, 140),
+    "slab_kernel<0,1,0,640,1,1>": (95, 0, 0),
+    "slab_kernel<0,1,0,640,1,2>": (96, 0, 0),
+    "slab_kernel<0,1,0,640,1,3>": (85, 0, 0),
+    "slab_kernel<0,1,1,640,1,1>": (94, 0, 0),
+    "slab_kernel<0,1,1,640,1,2>": (96, 0, 0),
     "slab_kernel<0,1,0,640,2,0>": (96, 28, 36),
     "slab_kernel<0,1,1,640,2,0>": (96, 48, 60),
     "slab_kernel<0,1,0,640,1,0>": (88, 0, 0),
     "slab_kernel<0,1,1,640,1,0>": (95, 0, 0),
-    "slab_kernel<0,0,0,896,2,1>": (72, 140, 240),
-    "slab_kernel<0,0,1,896,2,1>": (72, 120, 200),
-    "slab_kernel<0,0,0,896,1,1>": (72, 0, 0),
-    "slab_kernel<0,0,1,896,1,1>": (72, 0, 0),
+    "slab_kernel<0,0,0,896,2,1>": (72, 76, 136),
+    "slab_kernel<0,0,0,896,2,2>": (72, 140, 272),
+    "slab_kernel<0,0,0,896,2,3>": (72, 76, 128),
+    "slab_kernel<0,0,1,896,2,1>": (72, 96, 156),
+    "slab_kernel<0,0,1,896,2,2>": (72, 116, 220),
+    "slab_kernel<0,0,0,896,1,1>": (70, 0, 0),
+    "slab_kernel<0,0,0,896,1,2>": (72, 0, 0),
+    "slab_kernel<0,0,0,896,1,3>": (70, 0, 0),
+    "slab_kernel<0,0,1,896,1,1>": (70, 0, 0),
+    "slab_kernel<0,0,1,896,1,2>": (72, 4, 4),
     "slab_kernel<0,0,0,896,2,0>": (72, 76, 128),
     "slab_kernel<0,0,1,896,2,0>": (72, 108, 164),
     "slab_kernel<0,0,0,896,1,0>": (70, 0, 0),
