@@ -1,0 +1,10 @@
+"""Milliseconds a query of the program's ``vote`` stage timer
+(``spaln_tpu_torch.utils.metrics``), summed over the window, in a
+``map`` cell of a traced run."""
+
+
+def read(run):
+    t = run["trace"]
+    if run["entry"] != "map" or t is None or "vote" not in t["stage_s"]:
+        return None
+    return 1e3 * t["stage_s"]["vote"] / run["n"]
