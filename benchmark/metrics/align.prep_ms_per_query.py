@@ -1,0 +1,11 @@
+"""Milliseconds a query of the program's ``prep`` span (splice signals,
+band, batch packing and upload, ``init_row`` inside it), a ``stage`` of
+``spaln_tpu_torch.utils.metrics``, summed over the window, in an
+``align`` cell of a traced run."""
+
+
+def read(run):
+    t = run["trace"]
+    if run["entry"] != "align" or t is None or "prep" not in t["stage_s"]:
+        return None
+    return 1e3 * t["stage_s"]["prep"] / run["n"]

@@ -1,0 +1,11 @@
+"""Milliseconds a query of the program's ``traceback`` span (the gene
+structure, refinement, reclassification), a ``stage`` of
+``spaln_tpu_torch.utils.metrics``, summed over the window, in an
+``align`` cell of a traced run."""
+
+
+def read(run):
+    t = run["trace"]
+    if run["entry"] != "align" or t is None or "traceback" not in t["stage_s"]:
+        return None
+    return 1e3 * t["stage_s"]["traceback"] / run["n"]

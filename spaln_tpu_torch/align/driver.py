@@ -30,7 +30,7 @@ from ..score.tables import TableDir
 from ..seed.wilip import Chain, wilip
 from ..seq.codec import comrev
 from ..utils.errors import DeviceDPError
-from ..utils.metrics import metrics, stage
+from ..utils.metrics import carry_stages, metrics, stage
 from .gene import GeneStructure, build_gene_structure
 
 # A bucket whose planes at the full batch would pass ``plane_budget``
@@ -109,6 +109,7 @@ class AlignJob:
     cip: dict | None = None      # -yJ query junction bonus {m: value}
 
 
+@stage("prep")
 def prepare_job(q: np.ndarray, g: np.ndarray, ctx: AlignerContext,
                 chain: Chain | None, sh: int = 100, margin: int = 2000,
                 q_name: str = "", g_name: str = "",
@@ -181,6 +182,7 @@ def _to_minus_view(gs: GeneStructure, M: int, N: int) -> GeneStructure:
     return gs
 
 
+@stage("traceback")
 def _finish_job(job: AlignJob, score: int, ops: list,
                 prm=None) -> GeneStructure | None:
     gs = build_gene_structure(ops, job.q, job.gw, score, sig=job.sig,
@@ -302,7 +304,7 @@ def execute_jobs(jobs: list[AlignJob], ctx: AlignerContext,
                 if len(bps) > 1 and all(bp.device.type == "cuda"
                                         for bp in bps):
                     with ThreadPoolExecutor(len(bps)) as pool:
-                        outs = list(pool.map(run, bps))
+                        outs = list(pool.map(carry_stages(run), bps))
                 else:
                     outs = [run(bp) for bp in bps]
             cells = sum(bp.B * bp.S * bp.L * bp.W for bp in bps)
@@ -414,17 +416,19 @@ def align_cdna(query: np.ndarray, genome: np.ndarray, ctx: AlignerContext,
     # SiteNo); results are re-expressed in forward-genome coordinates by
     # _to_minus_view.
     cands: list[tuple[int, str, np.ndarray, Chain | None]] = []
-    fwd_chains = wilip(query, genome, level=level, ipen=ctx.ipen,
-                       prm=ctx.prm, spaced=ctx.cfg.alg.crs > 0)
-    if strand in ("auto", "+") and fwd_chains:
-        cands.append((fwd_chains[0].score, "+", genome, fwd_chains[0]))
     rc_g = None
-    if strand in ("auto", "-"):
-        rc_g = comrev(genome)
-        rev_chains = wilip(query, rc_g, level=level, ipen=ctx.ipen,
-                            prm=ctx.prm, spaced=ctx.cfg.alg.crs > 0)
-        if rev_chains:
-            cands.append((rev_chains[0].score, "-", rc_g, rev_chains[0]))
+    with stage("seed"):
+        fwd_chains = wilip(query, genome, level=level, ipen=ctx.ipen,
+                           prm=ctx.prm, spaced=ctx.cfg.alg.crs > 0)
+        if strand in ("auto", "+") and fwd_chains:
+            cands.append((fwd_chains[0].score, "+", genome, fwd_chains[0]))
+        if strand in ("auto", "-"):
+            rc_g = comrev(genome)
+            rev_chains = wilip(query, rc_g, level=level, ipen=ctx.ipen,
+                               prm=ctx.prm, spaced=ctx.cfg.alg.crs > 0)
+            if rev_chains:
+                cands.append((rev_chains[0].score, "-", rc_g,
+                              rev_chains[0]))
     if not cands and strand in ("auto", "+"):
         cands.append((0, "+", genome, None))
     if not cands:
@@ -474,6 +478,7 @@ def _split_chain(chain: Chain) -> list[Chain]:
     return [Chain(hsps=g, score=0) for g in groups]
 
 
+@stage("prep")
 def _splice_join(q, g, sig, prm, d1: int, d2: int, m_lo: int, m_hi: int):
     """Best splice junction connecting two fixed diagonals: maximize
     prefix(m) + spj(m + d1, m + d2) + suffix(m) over junction query
@@ -517,6 +522,7 @@ def _splice_join(q, g, sig, prm, d1: int, d2: int, m_lo: int, m_hi: int):
     return m, int(tot[k]), int(n5[k]), int(n3[k])
 
 
+@stage("prep")
 def _micro_exon_join(q, g, sig, prm, d1: int, d2: int,
                      m_lo: int, m_hi: int):
     """Join via a micro exon: snap to the nearest eligible donor after
@@ -571,7 +577,9 @@ def _align_long(q: np.ndarray, g: np.ndarray, ctx: AlignerContext,
     segs = _split_chain(chain)
     JN = 24
     M = len(q)
-    sig_full = build_splice_signals(np.asarray(g), ctx.cfg, ctx.tables)
+    with stage("prep"):
+        sig_full = build_splice_signals(np.asarray(g), ctx.cfg,
+                                        ctx.tables)
     all_ops: list = []
     prev = None                    # (d_right, q_end) of previous segment
     for si, seg in enumerate(segs):
@@ -642,7 +650,8 @@ def _align_long(q: np.ndarray, g: np.ndarray, ctx: AlignerContext,
         hi = min(len(g), seg.hsps[-1].ry + (qb - seg.hsps[-1].rx)
                  + margin)
         gw = np.asarray(g[lo:hi])
-        sig = build_splice_signals(gw, ctx.cfg, ctx.tables)
+        with stage("prep"):
+            sig = build_splice_signals(gw, ctx.cfg, ctx.tables)
         # full coords: n = m + d; sub coords m' = m - qa, n' = n - lo
         # => d' = d - lo + qa
         diags = [h.diag - lo + qa for h in seg.hsps]
@@ -667,17 +676,18 @@ def _align_long(q: np.ndarray, g: np.ndarray, ctx: AlignerContext,
             else:
                 all_ops.append((op[0], op[1] + qa, op[2] + lo))
         prev = (seg.hsps[-1].diag, min(qb, em + qa))
-    total = 0                       # rescore from the op stream
-    gs = build_gene_structure(all_ops, q, np.asarray(g), total,
-                              sig=sig_full, q_name=q_name, g_name=g_name,
-                              strand=strand, prm=ctx.prm)
-    if gs is None:
-        return None
-    gs.score = _score_ops(all_ops, q, g, sig_full, ctx.prm)
-    from .refine import refine_ends
-    refine_ends(gs, q, g, sig_full, ctx.prm)
-    if strand == "-":
-        _to_minus_view(gs, len(q), len(g))
+    with stage("traceback"):
+        total = 0                       # rescore from the op stream
+        gs = build_gene_structure(all_ops, q, np.asarray(g), total,
+                                  sig=sig_full, q_name=q_name, g_name=g_name,
+                                  strand=strand, prm=ctx.prm)
+        if gs is None:
+            return None
+        gs.score = _score_ops(all_ops, q, g, sig_full, ctx.prm)
+        from .refine import refine_ends
+        refine_ends(gs, q, g, sig_full, ctx.prm)
+        if strand == "-":
+            _to_minus_view(gs, len(q), len(g))
     return gs
 
 

@@ -188,15 +188,16 @@ def align_protein(query: np.ndarray, genome: np.ndarray,
     strand alignment (flipped by the caller for reporting).
     """
     cands = []
-    if strand in ("auto", "+"):
-        ch = wilip_protein(query, genome, ctx.pmtx, ipen=ctx.ipen)
-        if ch:
-            cands.append((ch[0].score, "+", genome, ch[0]))
-    if strand in ("auto", "-"):
-        rc = comrev(genome)
-        ch = wilip_protein(query, rc, ctx.pmtx, ipen=ctx.ipen)
-        if ch:
-            cands.append((ch[0].score, "-", rc, ch[0]))
+    with stage("seed"):
+        if strand in ("auto", "+"):
+            ch = wilip_protein(query, genome, ctx.pmtx, ipen=ctx.ipen)
+            if ch:
+                cands.append((ch[0].score, "+", genome, ch[0]))
+        if strand in ("auto", "-"):
+            rc = comrev(genome)
+            ch = wilip_protein(query, rc, ctx.pmtx, ipen=ctx.ipen)
+            if ch:
+                cands.append((ch[0].score, "-", rc, ch[0]))
     if not cands and strand in ("auto", "+"):
         cands.append((0, "+", genome, None))
     if not cands:
@@ -286,6 +287,7 @@ def _mask_splice_sites(sig: TronSignals, chain: Chain, lo: int, N: int,
     return dataclasses.replace(sig, phs5=phs5, phs3=phs3)
 
 
+@stage("prep")
 def prepare_tron_job(q: np.ndarray, g: np.ndarray,
                      ctx: ProteinAlignerContext, chain: Chain | None,
                      sh: int = 150, margin: int = 2000,
@@ -346,6 +348,7 @@ def prepare_tron_job(q: np.ndarray, g: np.ndarray,
                    loc_bounds=loc_bounds, k5=k5, k3=k3)
 
 
+@stage("traceback")
 def _finish_tron_job(job: TronJob, score: int, ops: list,
                      ctx: "ProteinAlignerContext") -> GeneStructure | None:
     gs = build_gene_structure_tron(ops, job.q, job.gw, score,

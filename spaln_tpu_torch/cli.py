@@ -665,6 +665,10 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--lanes", type=int, default=128)
         sp.add_argument("--metrics", action="store_true",
                         help="print per-stage counters/timings to stderr")
+        sp.add_argument("--profile", metavar="PATH", default=None,
+                        help="write a Chrome trace of the command's CPU "
+                             "and CUDA activity, the stages as ranges, "
+                             "to PATH")
         sp.add_argument("-y", dest="y_args", action="append", default=[],
                         help="alignment parameter (readalprm letters), "
                              "e.g. -y w150")
@@ -818,7 +822,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    rc = args.func(args)
+    if getattr(args, "profile", None):
+        from .utils.metrics import torch_profile
+        with torch_profile(args.profile):
+            rc = args.func(args)
+    else:
+        rc = args.func(args)
     if getattr(args, "metrics", False):
         from .utils.metrics import metrics
         print(metrics.report(), file=sys.stderr)

@@ -28,6 +28,7 @@ import torch
 
 from .params import DpParams, DpFlags, NEVSEL
 from ..score.splice import SpliceSignals
+from ..utils.metrics import stage
 
 NCAND = 4
 NEV = int(np.int32(NEVSEL))
@@ -185,6 +186,7 @@ def build_operands(a: np.ndarray, b: np.ndarray, prm: DpParams,
     return qprof, gops, joint
 
 
+@stage("prep")
 def prepare_spliced_batch(queries: list, genomes: list, prm: DpParams,
                           sigs: list | None = None,
                           lw: int = None, up: int = None,

@@ -92,6 +92,7 @@ from .dp_spliced import (BatchProblem, NCAND, NEV, N_GOPS, G_RES, G_ISDON,
                          G_ISACC, G_SIG5, G_ACCB, G_DINC5, n_bounds,
                          n_links, n_states, ops_from_records, pack_link)
 from .params import DpParams
+from ..utils.metrics import stage
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -1618,6 +1619,7 @@ def slab_retrace_pairs_plain(bp: BatchProblem, prm: DpParams,
 
 
 # ----------------------------------------------------------- one bucket
+@stage("device_dp")
 def run_bucket(bp: BatchProblem, prm: DpParams):
     """One geometry bucket on the device: K1 (its double-affine mode under
     prm.dagp) -> K2e + K3 in one launch (spliced_ends_tb_walk) on one

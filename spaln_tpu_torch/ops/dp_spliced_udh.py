@@ -52,11 +52,12 @@ from .dp_spliced_cuda import (spliced_last_ends, spliced_slab_links,
                               spliced_slab_retrace,
                               spliced_slab_retrace_pairs, spliced_tb_strips)
 from .params import DpParams
-from ..utils.metrics import metrics
+from ..utils.metrics import metrics, stage
 
 I32 = torch.int32
 
 
+@stage("device_dp")
 def run_spliced_batch_udh(bp: BatchProblem, prm: DpParams,
                           plane_budget: int = PLANE_BYTES_BUDGET):
     """Full UDH pipeline over a prepared batch on its device.

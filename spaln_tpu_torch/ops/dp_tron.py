@@ -31,6 +31,7 @@ import torch
 from .tron_params import (TronDpParams, DEAD, HORI, HOR1, HOR2)
 from .params import DpFlags, NEVSEL
 from ..score.codepot import TronSignals
+from ..utils.metrics import stage
 
 NCAND = 4
 NEV = int(np.int32(NEVSEL))
@@ -65,6 +66,7 @@ def tron_plane_bytes_per_cell(prm: TronDpParams) -> int:
     return 6 * n_nodes(prm)
 
 
+@stage("init_row")
 def tron_init_row(sig: TronSignals, prm: TronDpParams, N: int,
                   a_exgl: bool = True, sigs_until: int | None = None):
     """Top-row H values/dirs over n = 0..N+1 (initH_ng semantics for the
@@ -188,6 +190,7 @@ def tron_walk_bound(Mpad: int, W: int, minl: int) -> int:
     return 2 * moves + 64
 
 
+@stage("prep")
 def prepare_tron_batch(queries: list, genomes: list, sigs: list,
                        prm: TronDpParams, ipen_tab: np.ndarray,
                        lws: list | None = None, W: int | None = None,
@@ -335,6 +338,7 @@ def ops_from_tron_records(recs: np.ndarray, counts: np.ndarray) -> list:
     return out
 
 
+@stage("device_dp")
 def run_tron_batch(bp: TronBatchProblem, prm: TronDpParams) -> list:
     """The device DP of one batch: K7 (tron_forward) writes the planes,
     the final row, the right column and the best local end; the ends
