@@ -1,12 +1,14 @@
 """ctypes bindings for the native runtime (spaln_native.cpp).
 
 Loads (building on first use if the toolchain is present) the shared
-library with the parallel k-mer CSR builder and FASTA encoder; callers
-fall back to the numpy paths when unavailable.
+library with the parallel k-mer CSR builder, the FASTA encoder and the
+protein path's init row; callers fall back to the numpy and Python paths
+when unavailable.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 
@@ -23,15 +25,20 @@ def get_lib():
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not os.path.isfile(_SO):
+    # make brings the library up to date with its source; the lock on
+    # the Makefile keeps other processes from loading it half written
+    with open(os.path.join(_DIR, "Makefile"), "rb") as mk:
+        fcntl.flock(mk, fcntl.LOCK_EX)
         try:
             subprocess.run(["make", "-C", _DIR], check=True,
                            capture_output=True, timeout=120)
-        except Exception:
+        except (OSError, subprocess.SubprocessError):
+            pass
+        try:
+            lib = ctypes.CDLL(_SO)
+        except OSError:
             return None
-    try:
-        lib = ctypes.CDLL(_SO)
-    except OSError:
+    if not hasattr(lib, "tron_init_row"):     # built from an older source
         return None
     lib.kmer_csr.restype = ctypes.c_int64
     lib.kmer_csr.argtypes = [
@@ -42,6 +49,11 @@ def get_lib():
         ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
         ctypes.c_void_p]
+    lib.tron_init_row.restype = None
+    lib.tron_init_row.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int32, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p]
     _lib = lib
     return _lib
 
@@ -89,3 +101,27 @@ def fasta_encode_native(text: bytes, enc_tab: np.ndarray,
     w = int(out_len[0])
     names = [text[nb[i]:ne[i]].decode() for i in range(nseq)]
     return codes[:w], seq_off[:nseq], names
+
+
+def tron_init_row_native(sigS: np.ndarray, sigE: np.ndarray, N: int,
+                         a_exgl: bool, s_cut: int, gep: int, gap_w1: int,
+                         gap_w2: int):
+    """The tron init row (h, hd), int32 each over n = 0..N+1, in one
+    compiled pass, or None if the native library is unavailable.  sigS
+    reads 0 from ``s_cut`` on; no signal is copied unless it is not
+    contiguous int32."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    sigS = np.ascontiguousarray(sigS, dtype=np.int32)
+    sigE = np.ascontiguousarray(sigE, dtype=np.int32)
+    if N < 0 or len(sigS) < N or len(sigE) < N - 1:
+        raise ValueError(f"tron signals of {len(sigS)} and {len(sigE)} "
+                         f"positions for a window of {N}")
+    h = np.empty(N + 2, dtype=np.int32)
+    hd = np.empty(N + 2, dtype=np.int32)
+    lib.tron_init_row(sigS.ctypes.data, sigE.ctypes.data, N,
+                      min(s_cut, len(sigS)), int(bool(a_exgl)), int(gep),
+                      int(gap_w1), int(gap_w2), h.ctypes.data,
+                      hd.ctypes.data)
+    return h, hd

@@ -5,9 +5,12 @@
 // thread pipeline, blksrc.cc:1419-1692; FASTA reading seq.cc).  The TPU
 // port keeps the device DP in XLA/Pallas but gives the host runtime the
 // same native treatment: a parallel two-pass k-mer -> block CSR builder
-// and a FASTA byte-stream encoder.
+// and a FASTA byte-stream encoder.  The protein path's top row
+// (tron_init_row) is a serial recurrence over the whole genome window,
+// so it runs here as one pass too.
 //
-// Build: make -C spaln_tpu/native   (g++ -O3 -shared -fPIC, std::thread)
+// Build: make -C spaln_tpu_torch/native   (g++ -O3 -shared -fPIC,
+// std::thread)
 
 #include <atomic>
 #include <cstdint>
@@ -146,6 +149,46 @@ int64_t kmer_csr(const int8_t* red, int64_t n, int32_t k, int32_t blklen,
         for (int64_t i2 = 0; i2 < nwords; ++i2)
             offsets[i2 + 1] += offsets[i2];
     return total;
+}
+
+// ------------------------------------------------------ tron init row
+// The protein path's top row over n = 0..N+1 (tron_init_row,
+// ops/dp_tron.py; initH_ng's free-end mode): H and its direction, each
+// column the best of HORI (3 nt back, + gep + sigE[n-3]), HOR1 (1 nt,
+// + w1) and HOR2 (2 nt, + w2), reseeded (DEAD) where the translation
+// start signal max(sigS[n+1], 0) is higher.  The comparisons are the
+// Python loop's, strict and in its order, so ties fall the same way.
+// sigS reads 0 outside [0, min(N, s_cut)) (s_cut: the TransInit cut),
+// sigE outside [0, N).  H runs in int64 and is stored cast to int32; with
+// a_exgl == 0 the row is 0 and DEAD throughout.
+void tron_init_row(const int32_t* sigS, const int32_t* sigE, int64_t N,
+                   int64_t s_cut, int32_t a_exgl, int64_t gep, int64_t w1,
+                   int64_t w2, int32_t* h, int32_t* hd) {
+    enum : int32_t { DEAD = 0, HORI = 8, HOR1 = 9, HOR2 = 10 };  // aln.h
+    const int64_t s_end = s_cut < N ? s_cut : N;
+    auto seed = [&](int64_t n) -> int64_t {
+        return (n < s_end && sigS[n] > 0) ? sigS[n] : 0;   // n >= 1 here
+    };
+    int64_t h1 = 0, h2 = 0, h3 = 0;              // H at n-1, n-2, n-3
+    for (int64_t n = 0; n < N + 2; ++n) {
+        int64_t v = 0;
+        int32_t d = DEAD;
+        if (a_exgl) {
+            if (n < 3) {
+                v = seed(n + 1);
+            } else {
+                v = h3 + gep + (n - 3 < N ? sigE[n - 3] : 0);
+                d = HORI;
+                if (h1 + w1 > v) { v = h1 + w1; d = HOR1; }
+                if (h2 + w2 > v) { v = h2 + w2; d = HOR2; }
+                const int64_t x = seed(n + 1);
+                if (v < x) { v = x; d = DEAD; }
+            }
+        }
+        h[n] = (int32_t)v;
+        hd[n] = d;
+        h3 = h2; h2 = h1; h1 = v;
+    }
 }
 
 }  // extern "C"

@@ -30,8 +30,9 @@ import torch
 
 from .tron_params import (TronDpParams, DEAD, HORI, HOR1, HOR2)
 from .params import DpFlags, NEVSEL
+from ..native import tron_init_row_native
 from ..score.codepot import TronSignals
-from ..utils.metrics import stage
+from ..utils.metrics import metrics, stage
 
 NCAND = 4
 NEV = int(np.int32(NEVSEL))
@@ -78,7 +79,28 @@ def tron_init_row(sig: TronSignals, prm: TronDpParams, N: int,
     bound (the seed-anchor start): interior segments are anchored
     (seededH_ng inex.exgl=0, fwd2h1.cc:3218-3241), so a strong ATG
     signal inside the anchored span must not out-bid the anchored
-    diagonal."""
+    diagonal.
+
+    One compiled pass of the native library; ``tron_init_row_plain``
+    where the library cannot be loaded.  The counters ``init_row_native``
+    and ``init_row_plain`` count the calls of each."""
+    s_cut = len(sig.sigS)
+    if sigs_until is not None and sigs_until + 4 < s_cut:
+        # where the plain version's sigS[sigs_until + 4:] starts
+        s_cut = slice(sigs_until + 4, None).indices(s_cut)[0]
+    rows = tron_init_row_native(sig.sigS, sig.sigE, N, a_exgl, s_cut,
+                                prm.gep, prm.gap_w1, prm.gap_w2)
+    if rows is not None:
+        metrics.bump("init_row_native")
+        return rows
+    metrics.bump("init_row_plain")
+    return tron_init_row_plain(sig, prm, N, a_exgl, sigs_until)
+
+
+def tron_init_row_plain(sig: TronSignals, prm: TronDpParams, N: int,
+                        a_exgl: bool = True,
+                        sigs_until: int | None = None):
+    """``tron_init_row`` as a Python loop, a column at a time."""
     h = np.zeros(N + 2, dtype=np.int64)
     hd = np.full(N + 2, DEAD, dtype=np.int32)
     if not a_exgl:
