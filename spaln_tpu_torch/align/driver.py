@@ -479,6 +479,7 @@ def _split_chain(chain: Chain) -> list[Chain]:
 
 
 @stage("prep")
+@stage("long_join")
 def _splice_join(q, g, sig, prm, d1: int, d2: int, m_lo: int, m_hi: int):
     """Best splice junction connecting two fixed diagonals: maximize
     prefix(m) + spj(m + d1, m + d2) + suffix(m) over junction query
@@ -523,6 +524,7 @@ def _splice_join(q, g, sig, prm, d1: int, d2: int, m_lo: int, m_hi: int):
 
 
 @stage("prep")
+@stage("long_join")
 def _micro_exon_join(q, g, sig, prm, d1: int, d2: int,
                      m_lo: int, m_hi: int):
     """Join via a micro exon: snap to the nearest eligible donor after

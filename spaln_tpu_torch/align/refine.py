@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils.metrics import stage
 from .gene import Exon, GeneStructure, Intron
 
 
@@ -108,27 +109,19 @@ def _end_scan(piece, g, sig, prm, lo, hi, donor_at_end: bool,
     return w * mch, ps
 
 
-def _creepback_head(gs: GeneStructure, q, g, prm, max_head: int):
-    """Longest sloppy prefix of the first exon: walk the op stream
-    while the cumulative matrix score stays <= 0 (creepback,
-    fwd2s1.cc:1960-2001).  Returns (q_cut, g_cut, cum, mch, mmc, ng)
-    of the best strip point, or None."""
-    if gs.view is None or not gs.view.ops:
-        return None
+def _head_walk(gs: GeneStructure, q, g, prm):
+    """The first exon's op stream from its start, up to its intron: after
+    each op, (m, n, cum, mch, mmc), the path point reached and the
+    head's matrix score, matches and mismatches to it."""
     e0 = gs.exons[0]
     qi = np.asarray(q, dtype=np.int64)
     gi = np.asarray(g, dtype=np.int64)
-    cum = 0
-    mch = mmc = ng = 0
-    best = None                        # strip at the cumulative MINIMUM
-    best_cum = 0
+    cum = mch = mmc = 0
     n_cur = e0.g_start
     for op in gs.view.ops:
         if op[0] == 'I':
-            break
+            return
         m = op[1]
-        if m > min(e0.q_end, e0.q_start + max_head):
-            break
         if op[0] == 'D':
             n_cur = op[2]
             cum += int(prm.qprof_mtx[qi[m - 1], gi[n_cur - 1]])
@@ -140,11 +133,38 @@ def _creepback_head(gs: GeneStructure, q, g, prm, max_head: int):
             if op[0] == 'E':
                 n_cur = op[2]
             cum += prm.gep
-            ng += 1
-        if cum < best_cum:
-            best_cum = cum
-            best = (m, n_cur, cum, mch, mmc, ng)
+        yield m, n_cur, cum, mch, mmc
+
+
+def _creepback_head(gs: GeneStructure, q, g, prm, max_head: int):
+    """Longest sloppy prefix of the first exon: walk the op stream
+    while the cumulative matrix score stays <= 0 (creepback,
+    fwd2s1.cc:1960-2001).  Returns (q_cut, g_cut, cum, mch, mmc)
+    of the best strip point, or None."""
+    if gs.view is None or not gs.view.ops:
+        return None
+    e0 = gs.exons[0]
+    best = None                        # strip at the cumulative MINIMUM
+    for st in _head_walk(gs, q, g, prm):
+        if st[0] > min(e0.q_end, e0.q_start + max_head):
+            break
+        if st[2] < (best[2] if best is not None else 0):
+            best = st
     return best
+
+
+def _head_to(gs: GeneStructure, q, g, prm, qcut: int,
+             gcut: int) -> tuple[int, int, int]:
+    """(cum, mch, mmc) of the head a strip at (qcut, gcut) takes off:
+    the first exon's ops whose path points lie at or before the cut in
+    both sequences.  At the creepback point these are its own counts;
+    a cut moved along the diagonal takes the columns to the moved cut."""
+    head = (0, 0, 0)
+    for m, n, cum, mch, mmc in _head_walk(gs, q, g, prm):
+        if m > qcut or n > gcut:
+            break
+        head = (cum, mch, mmc)
+    return head
 
 
 def refine_first_exon(gs: GeneStructure, q, g, sig, prm,
@@ -161,7 +181,7 @@ def refine_first_exon(gs: GeneStructure, q, g, sig, prm,
         if cb is not None and cb[0] - e0.q_start >= 4:
             # tentative strip; the acceptor may sit a few nt away on
             # the same diagonal (nearest3ss, fwd2s1.cc:2128-2162)
-            mq, mg, cum, smch, smmc, sng = cb
+            mq, mg, cum = cb[:3]
             d0 = mg - mq
             for off in [0] + [s * d for d in range(1, 11)
                               for s in (1, -1)]:
@@ -171,7 +191,7 @@ def refine_first_exon(gs: GeneStructure, q, g, sig, prm,
                         <= e0.q_end - 2):
                     continue
                 if sig.is_accpt[gcut]:
-                    strip = (qcut, gcut, cum, smch, smmc)
+                    strip = (qcut, gcut, cum)
                     break
         if strip is None:
             return False
@@ -198,12 +218,15 @@ def refine_first_exon(gs: GeneStructure, q, g, sig, prm,
         return False
     p = int(ps[k])
     if strip is not None:
-        # shrink exon 0 to the strip point before planting
+        # shrink exon 0 to the strip point before planting: its counts
+        # and the score lose the head to the cut, wherever the acceptor
+        # moved the cut along the diagonal
+        hcum, hmch, hmmc = _head_to(gs, q, g, prm, qh, g0)
         e0.q_start, e0.g_start = qh, g0
-        e0.mch = max(e0.mch - strip[3], 0)
-        e0.mmc = max(e0.mmc - strip[4], 0)
+        e0.mch = max(e0.mch - hmch, 0)
+        e0.mmc = max(e0.mmc - hmmc, 0)
         e0.sig3 = int(sig.sig3[g0])
-        gs.score -= strip[2]
+        gs.score -= hcum
     piece = np.asarray(q[:qh], np.int64)
     garr = np.asarray(g, np.int64)[p:p + qh]
     nid = int((piece == garr).sum())
@@ -260,6 +283,7 @@ def refine_last_exon(gs: GeneStructure, q, g, sig, prm,
     return True
 
 
+@stage("refine")
 def refine_ends(gs: GeneStructure, q, g, sig, prm,
                 maxgene: int = 100_000) -> GeneStructure:
     """Apply first/last-exon refinement in place and return gs."""

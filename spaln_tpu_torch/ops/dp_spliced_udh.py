@@ -58,6 +58,7 @@ I32 = torch.int32
 
 
 @stage("device_dp")
+@stage("udh")
 def run_spliced_batch_udh(bp: BatchProblem, prm: DpParams,
                           plane_budget: int = PLANE_BYTES_BUDGET):
     """Full UDH pipeline over a prepared batch on its device.

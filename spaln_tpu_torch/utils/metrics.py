@@ -14,10 +14,12 @@ shares it; one opened inside an open span of its own name on the same
 thread counts nothing (``carry_stages`` hands the open names to a worker
 thread).  The spans of the align and map paths: ``seed`` (Wilip),
 ``prep`` (splice signals, band, batch packing and upload; ``init_row``,
-each ``tron_init_row``, inside it), ``device_dp`` (launches, syncs,
-copies back, the host end extraction between K7 and K8) and
-``traceback`` (the gene structure, refinement, reclassification); the
-map adds ``vote``, the search ``prefilter``, ``score_pass`` and
+each ``tron_init_row``, and ``long_join``, each closed-form junction of
+the long-intron path, inside it), ``device_dp`` (launches, syncs,
+copies back, the host end extraction between K7 and K8; ``udh``, each
+batch of the linear-space path, inside it) and ``traceback`` (the gene
+structure, reclassification; ``refine``, each ``refine_ends``, inside
+it); the map adds ``vote``, the search ``prefilter``, ``score_pass`` and
 ``local_pass``.
 
 `torch_profile(path)` wraps a block in the PyTorch profiler (CPU and CUDA

@@ -9,7 +9,8 @@ from pathlib import Path
 import pytest
 
 METRICS = Path(__file__).resolve().parent.parent / "benchmark" / "metrics"
-SPANS = ("seed", "prep", "init_row", "device_dp", "traceback")
+SPANS = ("seed", "prep", "init_row", "device_dp", "traceback", "udh",
+         "long_join", "refine")
 
 
 def _reader(name):
@@ -22,7 +23,8 @@ def _reader(name):
 
 def _record(entry="align", trace=True, stage_s=None):
     stage_s = (dict(seed=4.0, prep=10.0, init_row=6.0, device_dp=8.0,
-                    traceback=2.0, vote=3.0)
+                    traceback=2.0, udh=5.0, long_join=1.5, refine=0.5,
+                    vote=3.0)
                if stage_s is None else stage_s)
     return dict(entry=entry, n=50, query_s=[0.5] * 50, output_s=0.25,
                 trace=dict(stage_s=stage_s, kernel_s=7.0) if trace
@@ -38,7 +40,8 @@ def test_span_reader_value(span):
 
 def test_unstaged_reader_value():
     # 25 s of query walls less 0.25 s of output and 24 s of the top-level
-    # spans (init_row inside prep, vote not on the align path)
+    # spans (init_row and long_join inside prep, udh inside device_dp,
+    # refine inside traceback, vote not on the align path)
     got = _reader("align.unstaged_ms_per_query")(_record())
     assert got == pytest.approx(1e3 * (25.0 - 0.25 - 24.0) / 50)
 

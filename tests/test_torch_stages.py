@@ -2,10 +2,13 @@
 on the CPU with the plain versions of the kernels: ``align_protein`` and
 ``align_cdna`` each open ``seed``, ``prep``, ``device_dp`` and
 ``traceback`` where the work runs (the protein path ``init_row`` inside
-``prep``, once a problem), the spans of one layer count once however
-many callers open them, the batch entries keep their call counts, and a
-profiler changes no answer; ``cli ... --profile PATH`` writes a Chrome
-trace with the spans as ranges."""
+``prep``, once a problem; the cDNA path ``udh`` inside ``device_dp`` on a
+window of the linear-space path, ``long_join`` inside ``prep`` on a gene
+with an intron over ``BIG_GAP``, ``refine`` inside ``traceback`` once a
+query, none of which the protein path opens), the spans of one layer
+count once however many callers open them, the batch entries keep their
+call counts, and a profiler changes no answer; ``cli ... --profile
+PATH`` writes a Chrome trace with the spans as ranges."""
 import json
 import threading
 import time
@@ -33,6 +36,7 @@ for _i in range(64):
     _CODON.setdefault(int(C.GENCODE[_i]), "ACGT"[(_i >> 4) & 3]
                       + "ACGT"[(_i >> 2) & 3] + "ACGT"[_i & 3])
 TOP = ("seed", "prep", "device_dp", "traceback")
+CDNA = ("udh", "long_join", "refine")        # the cDNA path's nested spans
 LANES = 64
 
 
@@ -61,7 +65,12 @@ def loci():
     e1, e2 = _mk(rng, 90), _mk(rng, 80)
     cg = (_mk(rng, 300) + e1 + "GTAAGT" + _mk(rng, 207) + "TTTCTAG" + e2
           + _mk(rng, 300))
-    return dict(protein=(p, pg), cdna=(e1 + e2, cg))
+    # three exons, the first intron 18 kb (over BIG_GAP)
+    a1, a2, a3 = _mk(rng, 80), _mk(rng, 70), _mk(rng, 90)
+    lg = (_mk(rng, 200) + a1 + "GTAAGT" + _mk(rng, 17987) + "TTTCTAG" + a2
+          + "GTGAGT" + _mk(rng, 287) + "TTTACAG" + a3 + _mk(rng, 200))
+    return dict(protein=(p, pg), cdna=(e1 + e2, cg),
+                long=(a1 + a2 + a3, lg))
 
 
 @pytest.fixture(scope="module")
@@ -96,6 +105,13 @@ def spans(monkeypatch):
     metrics.reset()
 
 
+def _inside(got, inner, outer):
+    """Each ``inner`` span lies inside an ``outer`` one."""
+    out = [(a, b) for n, a, b in got if n == outer]
+    return all(any(a0 <= a <= b <= b0 for a0, b0 in out)
+               for n, a, b in got if n == inner)
+
+
 def _timed(fn, *args, **kw):
     t0 = time.perf_counter()
     out = fn(*args, **kw)
@@ -125,10 +141,8 @@ def test_align_protein_opens_each_layer(loci, pctx, spans):
     assert {k: metrics.calls[k] for k in TOP} == dict(
         seed=1, prep=2, device_dp=1, traceback=1)  # the job, the batch
     assert metrics.calls["init_row"] == 1          # one problem
-    prep = [(a, b) for n, a, b in spans if n == "prep"]
-    for n, a, b in spans:
-        if n == "init_row":
-            assert any(a0 <= a <= b <= b0 for a0, b0 in prep)
+    assert _inside(spans, "init_row", "prep")
+    assert not set(CDNA) & set(metrics.calls)
 
 
 def test_align_cdna_opens_each_layer(loci, dctx, spans):
@@ -140,6 +154,41 @@ def test_align_cdna_opens_each_layer(loci, dctx, spans):
     assert {k: metrics.calls[k] for k in TOP} == dict(
         seed=1, prep=2, device_dp=1, traceback=1)
     assert "init_row" not in metrics.calls
+    assert metrics.counters["plane_windows"] == 1
+    assert metrics.calls["refine"] == 1 and _inside(spans, "refine",
+                                                    "traceback")
+    assert "udh" not in metrics.calls and "long_join" not in metrics.calls
+
+
+def test_align_cdna_udh_window_opens_udh_inside_device_dp(loci, tables,
+                                                          spans):
+    q, g = loci["cdna"]
+    ctx = AlignerContext.create(tables, "cpu", force_udh=True)
+    gs, t0, t1 = _timed(align_cdna, encode_dna(q), encode_dna(g), ctx,
+                        lanes=LANES)
+    assert len(gs) == 1 and len(gs[0].exons) == 2
+    _check_layers(spans, t0, t1)
+    assert metrics.counters["udh_windows"] == 1
+    assert metrics.calls["udh"] == 1 and _inside(spans, "udh", "device_dp")
+    assert metrics.calls["refine"] == 1 and _inside(spans, "refine",
+                                                    "traceback")
+    assert "long_join" not in metrics.calls
+
+
+def test_align_cdna_long_intron_opens_long_join_inside_prep(loci, dctx,
+                                                            spans):
+    q, g = loci["long"]
+    gs, t0, t1 = _timed(align_cdna, encode_dna(q), encode_dna(g), dctx,
+                        lanes=LANES)
+    assert len(gs) == 1 and len(gs[0].exons) == 3
+    _check_layers(spans, t0, t1)
+    assert metrics.counters["align_long"] == 1
+    # one junction over BIG_GAP: the splice join and the micro-exon join
+    assert metrics.calls["long_join"] == 2
+    assert _inside(spans, "long_join", "prep")
+    assert metrics.calls["refine"] == 1 and _inside(spans, "refine",
+                                                    "traceback")
+    assert "udh" not in metrics.calls
 
 
 def test_stage_nested_in_its_own_name_counts_nothing(spans):
