@@ -1,9 +1,9 @@
 """ctypes bindings for the native runtime (spaln_native.cpp).
 
 Loads (building on first use if the toolchain is present) the shared
-library with the parallel k-mer CSR builder, the FASTA encoder and the
-protein path's init row; callers fall back to the numpy and Python paths
-when unavailable.
+library with the parallel k-mer CSR builder, the FASTA encoder, the
+protein path's init row and the splice-signal PSSM scan; callers fall
+back to the numpy and Python paths when unavailable.
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ def get_lib():
             lib = ctypes.CDLL(_SO)
         except OSError:
             return None
-    if not hasattr(lib, "tron_init_row"):     # built from an older source
+    if not hasattr(lib, "pssm_scan"):         # built from an older source
         return None
     lib.kmer_csr.restype = ctypes.c_int64
     lib.kmer_csr.argtypes = [
@@ -54,6 +54,12 @@ def get_lib():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_int32, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_void_p, ctypes.c_void_p]
+    lib.pssm_scan.restype = ctypes.c_int32
+    lib.pssm_scan.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int64, ctypes.c_double, ctypes.c_double,
+        ctypes.c_void_p]
     _lib = lib
     return _lib
 
@@ -125,3 +131,43 @@ def tron_init_row_native(sigS: np.ndarray, sigE: np.ndarray, N: int,
                       int(gap_w1), int(gap_w2), h.ctypes.data,
                       hd.ctypes.data)
     return h, hd
+
+
+def pssm_scan_native(mtx: np.ndarray, nalpha: int, morder: int,
+                     offset: int, min_elem: float, tonic: float,
+                     codes: np.ndarray, tab: np.ndarray):
+    """Every position's window score of the (cols, rows) float32 PSSM
+    ``mtx`` over ``codes`` reduced through ``tab``, float32, in one
+    compiled pass (``score.pssm.scan_pssm``), or None if the native
+    library is unavailable.  Raises IndexError where the numpy form
+    would."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    mtx = np.ascontiguousarray(mtx, dtype=np.float32)
+    cols, rows = mtx.shape
+    tab = np.ascontiguousarray(tab, dtype=np.int8)
+    codes = np.asarray(codes)
+    if codes.dtype != np.int8:
+        # a code the table cannot index raises as numpy's gather does
+        wide = codes.astype(np.int64)
+        if wide.size and (wide.min() < -len(tab) or wide.max() >= len(tab)):
+            raise IndexError(f"code outside the {len(tab)}-entry table")
+        codes = wide.astype(np.int8)
+    if codes.ndim != 1:
+        raise ValueError(f"codes of shape {codes.shape}, not one sequence")
+    codes = np.ascontiguousarray(codes)
+    # numpy pads cols + 2 bases each side and reads a window that starts
+    # before its padding from the other end
+    if len(codes) and offset < min(morder, 2) - 3:
+        raise IndexError(f"PSSM offset {offset} reads past the window")
+    if len(codes) and offset > 2 * cols + 4:
+        raise ValueError(f"PSSM offset {offset} past twice its {cols} "
+                         "columns")
+    out = np.empty(len(codes), dtype=np.float32)
+    rc = lib.pssm_scan(codes.ctypes.data, len(codes), tab.ctypes.data,
+                       len(tab), mtx.ctypes.data, cols, rows, nalpha,
+                       morder, offset, min_elem, tonic, out.ctypes.data)
+    if rc:
+        raise IndexError("PSSM scan indexes outside its window or table")
+    return out

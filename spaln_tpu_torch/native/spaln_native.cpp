@@ -7,7 +7,8 @@
 // same native treatment: a parallel two-pass k-mer -> block CSR builder
 // and a FASTA byte-stream encoder.  The protein path's top row
 // (tron_init_row) is a serial recurrence over the whole genome window,
-// so it runs here as one pass too.
+// so it runs here as one pass too, and so does the splice-signal PSSM
+// scan (pssm_scan), which numpy could only do through (L, cols) gathers.
 //
 // Build: make -C spaln_tpu_torch/native   (g++ -O3 -shared -fPIC,
 // std::thread)
@@ -192,3 +193,130 @@ void tron_init_row(const int32_t* sigS, const int32_t* sigE, int64_t N,
 }
 
 }  // extern "C"
+
+// ------------------------------------------------------------ pssm scan
+// numpy's float32 sum along a contiguous row (pairwise_sum, numpy's
+// loops_utils.h): under 8 terms left to right; up to 128, eight lanes
+// seeded with terms 0-7, each further block of 8 added lane-wise, the
+// lanes combined as ((r0+r1)+(r2+r3))+((r4+r5)+(r6+r7)), then the rest
+// in order; past 128 the two halves, cut at a multiple of 8, apart.  The
+// reduction adds the result to its identity, 0.
+static float pairwise_sum(const float* a, int64_t n) {
+    if (n < 8) {
+        float res = 0.0f;
+        for (int64_t i = 0; i < n; ++i) res += a[i];
+        return res;
+    }
+    if (n <= 128) {
+        float r[8];
+        for (int j = 0; j < 8; ++j) r[j] = a[j];
+        int64_t i = 8;
+        for (; i < n - (n % 8); i += 8)
+            for (int j = 0; j < 8; ++j) r[j] += a[i + j];
+        float res = ((r[0] + r[1]) + (r[2] + r[3]))
+                    + ((r[4] + r[5]) + (r[6] + r[7]));
+        for (; i < n; ++i) res += a[i];
+        return res;
+    }
+    int64_t n2 = n / 2;
+    n2 -= n2 % 8;
+    return pairwise_sum(a, n2) + pairwise_sum(a + n2, n - n2);
+}
+
+// The window score of every position p of codes[0, L) (PatMat::calcPatMat;
+// scan_pssm_plain in score/pssm.py holds the same arithmetic in numpy, and
+// this pass equals it bit for bit).  Each code is reduced through tab
+// (NT_REDUCE4 or TRON_REDUCE4, ntab entries, negative codes from its end).
+// The window of p starts at p - offset; its column m reads bases m to
+// m + ord (ord = morder, 2 past 2).  A base off either end reads 0 and
+// is bad, as is a reduced code >= nalpha.  Order 0 and 1 add mtx[m][ctx]
+// for the columns before the first that reads a bad base (ctx clipped to
+// the rows) and, order 1, the first base's marginal mtx[0][b0] if it is
+// good; order 2 adds every column's mtx[m][16 b0 + 4 b1 + b2 + 20], then
+// the m = 0 marginals, or takes cols * min_elem (rounded from double) if
+// any column reads a bad base.  Every sum runs in float32 in numpy's
+// order; tonic is added last.  mtx: (cols, rows) float32, row-major.
+// Returns 0, or -1 where numpy would raise IndexError: a code outside the
+// table or, order 0 and 1, a reduced code a gather reads past the rows.
+template <int ord>
+static int32_t pssm_scan_ord(const int8_t* codes, int64_t L,
+                             const int8_t* tab, int32_t ntab,
+                             const float* mtx, int32_t cols, int32_t rows,
+                             int32_t nalpha, int64_t offset, double min_elem,
+                             double tonic, float* out) {
+    // padded so that every column of every window lies inside: index
+    // i holds base i - lo
+    const int64_t lo = offset > 0 ? offset : 0;
+    const int64_t hi = cols + ord > offset ? cols + ord - offset : 0;
+    const int64_t n = lo + L + hi;         // >= cols + ord
+    std::vector<int8_t> val(n, 0);
+    std::vector<uint8_t> bad(n, 1);
+    for (int64_t i = 0; i < L; ++i) {
+        int32_t c = codes[i];
+        if (c < 0) c += ntab;
+        if (c < 0 || c >= ntab) return -1;
+        val[lo + i] = tab[c];
+        bad[lo + i] = tab[c] >= nalpha;
+    }
+    // each column start's context row, and whether it reads a bad base
+    const int64_t nc = n - ord;
+    std::vector<int32_t> ctx(nc);
+    std::vector<uint8_t> cbad(nc);
+    for (int64_t i = 0; i < nc; ++i) {
+        const int8_t* v = val.data() + i;
+        const uint8_t* b = bad.data() + i;
+        const int32_t c = ord == 0 ? v[0]
+                          : ord == 1 ? nalpha * v[0] + v[1] + nalpha
+                          : 16 * v[0] + 4 * v[1] + v[2] + 20;
+        ctx[i] = c < rows ? c : rows - 1;
+        cbad[i] = b[0] || (ord > 0 && b[1]) || (ord > 1 && b[2]);
+    }
+    // numpy gathers unclipped the bases of order 0's columns and order
+    // 1's first base, and raises for a row past the table
+    const int64_t first = lo - offset;
+    const int64_t last = first + L - 1 + (ord == 0 ? cols - 1 : 0);
+    for (int64_t i = first; ord < 2 && i <= last; ++i)
+        if (val[i] >= rows) return -1;
+    // first bad column at or after i (orders 0 and 1), or the count of
+    // bad columns before i (order 2)
+    std::vector<int64_t> nxt(nc + 1, nc);
+    for (int64_t i = nc - 1; i >= 0; --i)
+        nxt[i] = ord == 2 ? nxt[i + 1] + cbad[i] : cbad[i] ? i : nxt[i + 1];
+    const float tonic_f = (float)tonic;
+    const float bad_total = (float)((double)cols * min_elem);
+    std::vector<float> terms(cols);
+    for (int64_t p = 0; p < L; ++p) {
+        const int64_t s = p - offset + lo;
+        float total;
+        if (ord < 2) {
+            const int64_t good = nxt[s] - s;
+            for (int32_t m = 0; m < cols; ++m)
+                terms[m] = m < good ? mtx[(int64_t)m * rows + ctx[s + m]]
+                                    : 0.0f;
+            total = 0.0f + pairwise_sum(terms.data(), cols);
+            if (ord == 1) total += bad[s] ? 0.0f : mtx[val[s]];
+        } else if (nxt[s] != nxt[s + cols]) {
+            total = bad_total;
+        } else {
+            for (int32_t m = 0; m < cols; ++m)
+                terms[m] = mtx[(int64_t)m * rows + ctx[s + m]];
+            total = 0.0f + pairwise_sum(terms.data(), cols);
+            total += mtx[val[s] < 3 ? val[s] : 3];
+            const int32_t c1 = 4 * val[s] + val[s + 1] + 4;
+            total += mtx[c1 < rows ? c1 : rows - 1];
+        }
+        out[p] = total + tonic_f;
+    }
+    return 0;
+}
+
+extern "C" int32_t pssm_scan(const int8_t* codes, int64_t L,
+                             const int8_t* tab, int32_t ntab,
+                             const float* mtx, int32_t cols, int32_t rows,
+                             int32_t nalpha, int32_t morder, int64_t offset,
+                             double min_elem, double tonic, float* out) {
+    auto scan = morder == 0 ? pssm_scan_ord<0>
+                : morder == 1 ? pssm_scan_ord<1> : pssm_scan_ord<2>;
+    return scan(codes, L, tab, ntab, mtx, cols, rows, nalpha, offset,
+                min_elem, tonic, out);
+}

@@ -12,6 +12,7 @@ codepot.h:130-186) used to re-score phase +-1 splices.
 """
 from __future__ import annotations
 
+import functools
 import os
 from dataclasses import dataclass
 
@@ -19,9 +20,9 @@ import numpy as np
 
 from ..config import Config
 from ..constants import (GENCODE, NT_REDUCE4, SER, SER2, TRM, TRM2, G, AMB)
-from .pssm import load_pssm, scan_pssm
+from .pssm import scan_pssm
 from .splice import (SpliceSignals, Sig53Tables, build_splice_signals,
-                     _c_short)
+                     _c_short, _cached_pssm)
 from .tables import TableDir
 
 
@@ -34,23 +35,10 @@ class CodePotTab:
 
     @classmethod
     def load(cls, tables: TableDir) -> "CodePotTab | None":
+        """The table of ``tables``, parsed once a path and then shared:
+        callers only read it."""
         p = tables.path("CodePotTab")
-        if p is None:
-            return None
-        with open(p) as fh:
-            hdr = fh.readline().split()
-            ndata = int(hdr[2])
-            vals = []
-            for line in fh:
-                toks = line.split()
-                if not toks:
-                    continue
-                if toks and not _isnum(toks[0]):
-                    toks = toks[1:]
-                vals.extend(float(x) for x in toks[:3])
-        data = np.asarray(vals, dtype=np.float32).reshape(ndata, 3)
-        morder = int(np.log2(ndata) / 2) - 1
-        return cls(data=data, ndata=ndata, morder=morder)
+        return _load_codepot(p) if p else None
 
     def scan(self, codes: np.ndarray,
              classes: np.ndarray | None = None) -> np.ndarray:
@@ -90,6 +78,24 @@ class CodePotTab:
         out[:L - 4] += t[4:, 0]
         out[:L - 5] += t[5:, 1]
         return out
+
+
+@functools.lru_cache(maxsize=8)
+def _load_codepot(path: str) -> CodePotTab:
+    with open(path) as fh:
+        hdr = fh.readline().split()
+        ndata = int(hdr[2])
+        vals = []
+        for line in fh:
+            toks = line.split()
+            if not toks:
+                continue
+            if toks and not _isnum(toks[0]):
+                toks = toks[1:]
+            vals.extend(float(x) for x in toks[:3])
+    data = np.asarray(vals, dtype=np.float32).reshape(ndata, 3)
+    morder = int(np.log2(ndata) / 2) - 1
+    return CodePotTab(data=data, ndata=ndata, morder=morder)
 
 
 def _isnum(tok: str) -> bool:
@@ -178,10 +184,10 @@ def build_tron_signals(codes: np.ndarray, cfg: Config, tables: TableDir,
     if a2.bti > 0:
         fi, ft = tables.path("TransInit"), tables.path("TransTerm")
         if fi:
-            ps = load_pssm(fi)
+            ps = _cached_pssm(fi)
             sigS = _c_short(fT * scan_pssm(ps, codes))
         if ft:
-            pt = load_pssm(ft)
+            pt = _cached_pssm(ft)
             sigT = _c_short(fT * scan_pssm(pt, codes))
     # branch-point bonus (Exinon::intron53_p, codepot.cc:588-597): a
     # Branch-PSSM hit above tonicB carries fB*signal forward, added to
@@ -192,7 +198,7 @@ def build_tron_signals(codes: np.ndarray, cfg: Config, tables: TableDir,
     if bpf and bpf > 0:
         fbp = tables.path("Branch")
         if fbp:
-            pb = load_pssm(fbp)
+            pb = _cached_pssm(fbp)
             brs = scan_pssm(pb, codes).astype(np.float64)
             fB = bpf * fact
             strong = brs > pb.tonic

@@ -4,8 +4,10 @@ Reproduces PatMat (utilseq.cc:737-1000): text format header
 ``rows cols offset transvers skip min mean max nsupport`` followed by
 ``skip`` ignored lines and rows*cols floats.  The scan over a sequence is a
 gather + windowed sum over precomputed context codes — TPU-friendly (a
-one-hot conv1d), but PSSM scans only run over candidate gene windows, so the
-vectorized numpy path here is also fine host-side.
+one-hot conv1d), but PSSM scans only run over candidate gene windows, so
+they run on the host: one compiled pass of the native library
+(``scan_pssm``), the numpy form (``scan_pssm_plain``) where it cannot be
+loaded.
 
 Context layout per window column m (order 2, rows = 4+16+64 = 84):
   ptn[m][k]        0th-order  (only added at m == 0)
@@ -22,6 +24,8 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..constants import NT_REDUCE4, TRON_REDUCE4
+from ..native import pssm_scan_native
+from ..utils.metrics import metrics
 
 MAXTONIC = 5.0                  # utilseq.h:38
 
@@ -121,6 +125,23 @@ def _reduce(codes: np.ndarray, tron: bool) -> np.ndarray:
 
 def scan_pssm(pssm: PSSM, codes: np.ndarray, tron: bool = False,
               zero_tonic: bool = False) -> np.ndarray:
+    """``scan_pssm_plain``'s scores, bit for bit, from one compiled pass
+    of the native library; ``scan_pssm_plain`` where the library cannot
+    be loaded.  The counters ``pssm_scan_native`` and ``pssm_scan_plain``
+    count the calls of each."""
+    out = pssm_scan_native(pssm.mtx, pssm.nalpha, pssm.morder,
+                           pssm.offset, pssm.min_elem,
+                           0. if zero_tonic else pssm.tonic, codes,
+                           TRON_REDUCE4 if tron else NT_REDUCE4)
+    if out is not None:
+        metrics.bump("pssm_scan_native")
+        return out
+    metrics.bump("pssm_scan_plain")
+    return scan_pssm_plain(pssm, codes, tron, zero_tonic)
+
+
+def scan_pssm_plain(pssm: PSSM, codes: np.ndarray, tron: bool = False,
+                    zero_tonic: bool = False) -> np.ndarray:
     """Score every position of ``codes`` (PatMat::calcPatMat).
 
     Returns float32 array s.t. out[p] = window score of the window starting
